@@ -16,7 +16,25 @@
    CUDA, ``Client.keygen`` from a seed, three requests, decryptions checked
    against the plaintext, with every blind-rotate step counted through both
    kernels;
-4. prints one JSON line per the kernels run, then the result line.
+4. holds each kernel of the CRT-NTT blind rotate bit-exact against its
+   plain PyTorch version on the card, over a few blind-rotate steps at the
+   shapes the N=4096 QuantizedMLP archive gives them (256 ciphertexts,
+   l=2, 3 primes, acc32 and full accumulator), at N=16384 with a small
+   batch, and with a truncated key (t > 0), and times them;
+5. serves the committed ``mlp_q2_b64.zip`` archive (the repo's benchmark
+   QuantizedMLP over 64 samples, 128-bit parameters, N=4096, 256 lookups
+   per request): ``Server.load`` on CUDA, ``Client.keygen`` from a seed,
+   the key pack on the device (one forward-NTT launch), three requests
+   whose decryptions must equal the graph's clear evaluation, every
+   blind-rotate step counted through the digit, external-product and
+   Garner kernels;
+6. runs 1024 direct lookups of 6-bit inputs through ``pbs_batch`` with
+   the same keys, twice: (3v + 1) % 64 decoded at 6 bits, whose error rate
+   must match the noise model's (these parameters leave a blind rotate's
+   output too noisy for 6 output bits), and ((3v + 1) % 64) >> 3 decoded
+   at 3 bits, nearly all right (the MLP's outputs are all zero, so this is
+   the phase whose outputs vary);
+7. prints one JSON line per the kernels run, then the result line.
 
 Any failed phase exits non-zero before the result line.  Without CUDA, or
 next to no checkout of the port, it exits non-zero at once.
@@ -43,6 +61,23 @@ PEAK_INT8_OPS = 1.979e15
 # about 0.1 s of spinning at the H100's clock: longer than the host takes
 # to queue any timed run of launches below
 SPIN_CYCLES = 200_000_000
+MLP_FIXTURE = os.path.join(HERE, "concrete_tpu_torch", "fixtures",
+                           "mlp_q2_b64.zip")
+DIRECT_LOOKUPS = 1024
+DIRECT_TABLE = [(3 * v + 1) % 64 for v in range(64)]
+FUSED_KERNELS = ("rotate_decompose_digits", "crt_external_product",
+                 "garner_accumulate")
+# 32-bit integer instructions the CRT-NTT kernels execute, as csrc/ntt.cuh
+# writes them: a Shoup multiply is 3 multiplies + a conditional subtract
+# (2), a reduced add 3, a reduced subtract 4, so a butterfly is 12 and a
+# pointwise multiply-add 8; a Garner coefficient costs about 14 per prime
+# (Shoup multiply, reduced add, 64-bit multiply-add, float convert and
+# multiply-add) plus 8.  The int32 rate: 64 per clock per SM (CUDA C
+# programming guide, compute capability 9.0 throughput table).
+OPS_BUTTERFLY = 12
+OPS_POINTWISE = 8
+OPS_GARNER_PRIME, OPS_GARNER = 14, 8
+INT32_PER_CLOCK_PER_SM = 64
 
 
 def fail(msg: str) -> None:
@@ -227,6 +262,318 @@ def serve(rng):
             "truncate_limbs": bsk.truncate_limbs}
 
 
+def int32_rate() -> tuple[float, str]:
+    """The card's peak 32-bit integer instruction rate (per second) at its
+    maximum SM clock, and the clocks as nvidia-smi reads them."""
+    import torch
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    max_mhz = float(out.split(",")[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_PER_CLOCK_PER_SM * max_mhz * 1e6, \
+        f"{sms} SMs, SM clock max,now MHz {out}"
+
+
+def bound(ops: float, nbytes: float, rate: float) -> dict:
+    t_ops, t_bytes = ops / rate, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "int_ops": ops, "bytes": nbytes}
+
+
+def ntt_ops(transforms: int, n: int, inverse: bool = False) -> float:
+    """Integer instructions of `transforms` size-N transforms."""
+    ops = transforms * (n // 2) * (n.bit_length() - 1) * OPS_BUTTERFLY
+    return ops + (transforms * n * 5 if inverse else 0)   # the 1/N scale
+
+
+def fused_params(n: int, levels: int, base_log: int, n_small: int):
+    from concrete_tpu_torch.params import CryptoParams
+    return CryptoParams(n_small=n_small, glwe_dimension=1,
+                        polynomial_size=n, pbs_level=levels,
+                        pbs_base_log=base_log, ks_level=1, ks_base_log=2,
+                        lwe_std=0.0, glwe_std=0.0, security_level=0)
+
+
+def check_fused_steps(rng, *, batch, n, levels, base_log, primes,
+                      trunc_bits, acc32, steps, rate, timed):
+    """A few CRT-NTT blind-rotate steps on random keys and accumulators:
+    every launch of the three step kernels, on the evolving accumulator,
+    is held bit-exact against its plain version on the same inputs."""
+    import numpy as np
+    import torch
+    from concrete_tpu_torch.ops import fused_ntt as fn
+    from concrete_tpu_torch.ops import step
+    dev, kp1 = "cuda", 2
+    rows, n_p = batch * kp1, len(primes)
+    shape = (f"B={batch} N={n} l={levels} base_log={base_log} P={n_p} "
+             f"t={trunc_bits} {'acc32' if acc32 else 'full'}")
+    bsk = rng.integers(0, 1 << 64, (steps, levels, kp1, kp1, n),
+                       dtype=np.uint64)
+    fbsk = fn.pack_bsk_fused(bsk, fused_params(n, levels, base_log, steps),
+                             primes=primes, trunc_bits=trunc_bits,
+                             device=dev)
+    if acc32:
+        acc = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (rows, n))
+                               .astype(np.int32)).to(dev)
+    else:
+        acc = rand_torus(rng, (rows, n), dev)
+    a_rows = torch.from_numpy(rng.integers(0, 2 * n, (steps, rows))
+                              .astype(np.int32)).to(dev)
+    kw = dict(base_log=base_log, levels=levels)
+    errs = dict.fromkeys(FUSED_KERNELS, 0.0)
+    first = None
+    for i in range(steps):
+        d = step.rotate_decompose_digits(acc, a_rows[i], **kw)
+        d_p = step.rotate_decompose_digits_plain(acc, a_rows[i], **kw)
+        sv, ss = fbsk.spec_val[i], fbsk.spec_sh[i]
+        res = fn.crt_external_product(d, sv, ss, primes, kp1)
+        res_p = fn.crt_external_product_plain(d, sv, ss, primes, kp1)
+        new = fn.garner_accumulate(res, acc.clone(), primes, trunc_bits)
+        new_p = fn.garner_accumulate_plain(res, acc.clone(), primes,
+                                           trunc_bits)
+        torch.cuda.synchronize()
+        for name, got, want in zip(FUSED_KERNELS, (d, res, new),
+                                   (d_p, res_p, new_p)):
+            if not torch.equal(got, want):
+                fail(f"{name} differs from its plain version at step {i}, "
+                     f"{shape}")
+            errs[name] = max(errs[name], max_abs_err(got, want))
+        if first is None:
+            first = (acc, d, res)
+        acc = new
+    recs = {name: {"max_abs_err": errs[name]} for name in FUSED_KERNELS}
+    if timed:
+        acc0, d0, res0 = first
+        sv, ss = fbsk.spec_val[0], fbsk.spec_sh[0]
+        r = recs["rotate_decompose_digits"]
+        r["ms"] = cuda_ms(lambda: step.rotate_decompose_digits(
+            acc0, a_rows[0], **kw), 50)
+        r["plain_ms"] = cuda_ms(lambda: step.rotate_decompose_digits_plain(
+            acc0, a_rows[0], **kw), 5)
+        r.update(bound(rows * n * (10 + 6 * levels),
+                       acc0.numel() * acc0.element_size() + rows * 4
+                       + d0.numel() * 4, rate), library_ms=None)
+        r = recs["crt_external_product"]
+        r["ms"] = cuda_ms(lambda: fn.crt_external_product(
+            d0, sv, ss, primes, kp1), 10)
+        r["plain_ms"] = cuda_ms(lambda: fn.crt_external_product_plain(
+            d0, sv, ss, primes, kp1), 3)
+        cin = levels * kp1
+        ops = (ntt_ops(batch * n_p * cin, n)
+               + ntt_ops(batch * n_p * kp1, n, inverse=True)
+               + batch * n_p * cin * kp1 * n * OPS_POINTWISE)
+        r.update(bound(ops, (d0.numel() + 2 * sv.numel() + res0.numel()) * 4,
+                       rate), library_ms=None,
+                 butterflies=batch * n_p * (cin + kp1) * (n // 2)
+                 * (n.bit_length() - 1),
+                 pointwise=batch * n_p * cin * kp1 * n)
+        r = recs["garner_accumulate"]
+        scratch = acc0.clone()
+        r["ms"] = cuda_ms(lambda: fn.garner_accumulate(
+            res0, scratch, primes, trunc_bits), 50)
+        r["plain_ms"] = cuda_ms(lambda: fn.garner_accumulate_plain(
+            res0, scratch, primes, trunc_bits), 5)
+        r.update(bound(rows * n * (n_p * OPS_GARNER_PRIME + OPS_GARNER),
+                       res0.numel() * 4 + 2 * acc0.numel()
+                       * acc0.element_size(), rate), library_ms=None)
+    print(f"CRT-NTT step kernels bit-exact over {steps} steps at {shape}: "
+          f"{recs}", flush=True)
+    return recs
+
+
+def check_ntt(rng, *, polys, n, primes, rate, timed):
+    """The standalone forward transform at the shape the key pack gives
+    it (every BSK polynomial, every prime) and the inverse on a slice."""
+    import torch
+    from concrete_tpu_torch.ops import ntt as tn
+    x = rand_torus(rng, (polys, n), "cuda") >> 1
+    got = tn.ntt_forward(x, primes)
+    want = tn.ntt_forward_plain(x, primes)
+    spec = got[:, :512].contiguous()
+    back = tn.ntt_inverse(spec, primes)
+    back_p = tn.ntt_inverse_plain(spec, primes)
+    torch.cuda.synchronize()
+    shape = f"M={polys} N={n} P={len(primes)}"
+    if not torch.equal(got, want):
+        fail(f"ntt_forward differs from its plain version at {shape}")
+    if not torch.equal(back, back_p):
+        fail(f"ntt_inverse differs from its plain version at {shape}")
+    fwd = {"max_abs_err": max_abs_err(got, want)}
+    inv = {"max_abs_err": max_abs_err(back, back_p)}
+    if timed:
+        fwd["ms"] = cuda_ms(lambda: tn.ntt_forward(x, primes), 5)
+        fwd["plain_ms"] = cuda_ms(lambda: tn.ntt_forward_plain(x, primes), 1)
+        fwd.update(bound(ntt_ops(polys * len(primes), n),
+                         x.numel() * 8 + got.numel() * 4, rate),
+                   library_ms=None)
+        inv["ms"] = cuda_ms(lambda: tn.ntt_inverse(spec, primes), 20)
+        inv["plain_ms"] = cuda_ms(lambda: tn.ntt_inverse_plain(spec,
+                                                               primes), 3)
+        inv.update(bound(ntt_ops(spec.shape[0] * spec.shape[1], n, True),
+                         spec.numel() * 8, rate), library_ms=None,
+                   shape=list(spec.shape))
+    print(f"ntt_forward / ntt_inverse bit-exact at {shape}: {fwd} {inv}",
+          flush=True)
+    return fwd, inv
+
+
+def serve_mlp(rng):
+    """The slice's main path: the QuantizedMLP archive's key pack on the
+    device and three requests of 64 samples (256 lookups each)."""
+    import numpy as np
+    import torch
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.ops.fused_ntt import FusedBSK, acc32_eligible
+    t0 = time.perf_counter()
+    server = tfhe.Server.load(MLP_FIXTURE)
+    load_s = time.perf_counter() - t0
+    if server.device.type != "cuda":
+        fail(f"Server.load defaulted to {server.device}")
+    specs = server.client_specs
+    p = specs.params
+    print(f"archive: {os.path.basename(MLP_FIXTURE)} params={p} "
+          f"message_bits={specs.message_bits}", flush=True)
+    client = tfhe.Client(specs)
+    t0 = time.perf_counter()
+    client.keygen(seed=SEED)
+    keygen_s = time.perf_counter() - t0
+    ev = client.evaluation_keys
+    shape = tuple(specs.inputs[0].shape)
+    lookups = sum(int(np.prod(node.output.shape))
+                  for node in server.graph.topological_order()
+                  if node.name in ("tlu", "univariate"))
+    samples = [rng.integers(0, 4, shape) for _ in range(REQUESTS)]
+    encrypted = [client.encrypt(x) for x in samples]
+    _build.reset_launches()               # the MLP path's run starts here
+    t0 = time.perf_counter()
+    ksk, bsk = ev.packed(specs.message_bits, norm2=server.graph.max_norm2(),
+                         device=server.device)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    pack_launches = dict(_build.LAUNCHES)
+    if not isinstance(bsk, FusedBSK) or pack_launches.get("ntt_forward") != 1:
+        fail(f"the key pack gave {type(bsk).__name__} with launches "
+             f"{pack_launches}, want a FusedBSK from one ntt_forward")
+    print(f"load {load_s:.3f} s, keygen {keygen_s:.2f} s, device pack "
+          f"{pack_s:.3f} s (primes {bsk.primes}, trunc_bits "
+          f"{bsk.trunc_bits}, acc32 {acc32_eligible(bsk)}), launches "
+          f"{pack_launches}", flush=True)
+    walls, per_request, wrong, values = [], [], 0, 0
+    for i, (x, cx) in enumerate(zip(samples, encrypted)):
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        (out,) = server.run(cx, evaluation_keys=ev)
+        walls.append(time.perf_counter() - t0)
+        counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                  if v - before.get(k, 0)}
+        per_request.append(counts)
+        want = np.asarray(server.graph(x))
+        if out.shape != want.shape + (p.n_big + 1,) or out.dtype != np.uint64:
+            fail(f"output ciphertexts {out.shape} {out.dtype}")
+        got = client.decrypt(out)
+        wrong += int(np.count_nonzero(got != want))
+        values += want.size
+        print(f"MLP request {i}: {shape[0]} samples ({lookups} lookups) in "
+              f"{walls[-1]:.3f} s = {lookups / walls[-1]:.1f} PBS/s, "
+              f"launches {counts}", flush=True)
+        for name in FUSED_KERNELS:
+            if counts.get(name) != p.n_small:
+                fail(f"MLP request {i} launched {name} {counts.get(name)} "
+                     f"times, want one per blind-rotate step ({p.n_small})")
+    launches = dict(_build.LAUNCHES)       # ... and ends here
+    allowed = max(2, 1e-3 * values)
+    print(f"MLP decryptions differing from the graph's clear evaluation: "
+          f"{wrong} of {values} (allowed {allowed})", flush=True)
+    if wrong > allowed:
+        fail(f"{wrong} MLP outputs differ from the clear evaluation")
+    return {"walls_s": walls, "wrong": wrong, "values": values,
+            "lookups_per_request": lookups, "load_s": load_s,
+            "keygen_s": keygen_s, "pack_s": pack_s, "n_small": p.n_small,
+            "launches": launches, "pack_launches": pack_launches,
+            "per_request": per_request, "primes": list(bsk.primes),
+            "trunc_bits": bsk.trunc_bits, "acc32": acc32_eligible(bsk),
+            "keys": (client, ksk, bsk, p)}
+
+
+def direct_lookups(rng, client, ksk, bsk, params):
+    """1024 lookups through pbs_batch with the archive's parameters and the
+    client's keys, on 6-bit inputs: outputs that vary.  These parameters
+    were chosen for the MLP, whose lookup outputs are decoded at 1 bit, so
+    a blind rotate's output noise (std sqrt(v_br)) is far too large for a
+    6-bit output.  Two tables, on the same ciphertexts:
+
+    - (3v + 1) % 64, decoded at 6 bits: the wrong count must match the
+      noise model's rate for a 6-bit decode of a blind-rotate output (a
+      broken blind rotate would miss nearly every lookup);
+    - ((3v + 1) % 64) >> 3, decoded at 3 bits (the MLP's use: a 6-bit index,
+      a narrow output): at most max(2, 1e-3 x lookups) wrong."""
+    import math
+    import numpy as np
+    import torch
+    from concrete_tpu_torch import params as pp
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.core import keygen as kg
+    from concrete_tpu_torch.core import refimpl as ref
+    from concrete_tpu_torch.ops import _build
+    bits = 6
+    sk = client.keys.secret.lwe_big
+    msgs = rng.integers(0, 1 << bits, DIRECT_LOOKUPS)
+    ct = kg.encrypt_lwe_batch(rng, sk, ref.encode(msgs, bits),
+                              params.glwe_std)
+    ct_t = torch.from_numpy(ct.view(np.int64)).cuda()
+    v_br = pp.variance_blind_rotate(
+        params.n_small, params.glwe_dimension, params.polynomial_size,
+        params.pbs_base_log, params.pbs_level, params.glwe_std ** 2,
+        params.q_log)
+    out_rec = {}
+    for name, table, out_bits in (
+            ("6bit", DIRECT_TABLE, bits),
+            ("3bit", [v >> 3 for v in DIRECT_TABLE], 3)):
+        lut = ref.encode_expand_lut(np.array(table, dtype=np.uint64),
+                                    params.polynomial_size, bits,
+                                    out_bits=out_bits)
+        lut_t = torch.from_numpy(lut.view(np.int64)).cuda()
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        out = kn.pbs_batch(ct_t, ksk, bsk, lut_t, params, bits)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v - before.get(k, 0)
+                  for k, v in _build.LAUNCHES.items() if v - before.get(k, 0)}
+        dec = ref.decode(ref.lwe_decrypt(
+            sk, out.cpu().numpy().view(np.uint64)), out_bits)
+        wrong = int(np.count_nonzero(dec != np.array(table)[msgs]))
+        distinct = len(set(dec.tolist()))
+        p_out = pp.p_error_from_variance(v_br, out_bits)
+        expected = DIRECT_LOOKUPS * p_out
+        spread = 6 * math.sqrt(DIRECT_LOOKUPS * p_out * (1 - p_out)) + 2
+        if out_bits == bits:
+            lo, hi = max(0.0, expected - spread), expected + spread
+        else:
+            lo, hi = 0.0, max(2, 1e-3 * DIRECT_LOOKUPS)
+        print(f"direct lookups, {name} output: {DIRECT_LOOKUPS} in "
+              f"{wall:.3f} s = {DIRECT_LOOKUPS / wall:.1f} PBS/s, {distinct} "
+              f"distinct outputs, wrong {wrong} (noise model expects "
+              f"{expected:.1f}; allowed {lo:.1f}..{hi:.1f}), launches "
+              f"{counts}", flush=True)
+        if not lo <= wrong <= hi or distinct < (1 << out_bits):
+            fail(f"direct lookups, {name} output: {wrong} wrong of "
+                 f"{DIRECT_LOOKUPS}, {distinct} distinct outputs")
+        for kernel in FUSED_KERNELS:
+            if counts.get(kernel) != params.n_small:
+                fail(f"the direct lookups launched {kernel} "
+                     f"{counts.get(kernel)} times")
+        out_rec[name] = {"wall_s": wall, "wrong": wrong,
+                         "expected_wrong": expected, "distinct": distinct,
+                         "launches": counts}
+    return {"lookups": DIRECT_LOOKUPS, "v_br_std": math.sqrt(v_br),
+            **out_rec}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -282,22 +629,93 @@ def main() -> None:
              f"the smoke's time limit (estimate {est_s:.0f} s)")
     run = serve(rng)
 
+    # the CRT-NTT path: its kernels at the MLP archive's shapes (256
+    # ciphertexts x (k+1)=2 rows, N=4096, l=2, base 2^8, its 3 primes,
+    # t=0, acc32), the full accumulator, N=16384, and a truncated key
+    from concrete_tpu_torch.core import ntt as host
+    rate, clocks = int32_rate()
+    print(f"int32 peak {rate:.4g} ops/s ({clocks})", flush=True)
+    primes = host.special_ntt_primes(4096, 128)[:3]
+    rec_f = check_fused_steps(rng, batch=256, n=4096, levels=2, base_log=8,
+                              primes=primes, trunc_bits=0, acc32=True,
+                              steps=3, rate=rate, timed=True)
+    check_fused_steps(rng, batch=256, n=4096, levels=2, base_log=8,
+                      primes=primes, trunc_bits=0, acc32=False, steps=2,
+                      rate=rate, timed=False)
+    for acc32 in (True, False):
+        check_fused_steps(rng, batch=4, n=16384, levels=2, base_log=8,
+                          primes=host.special_ntt_primes(16384, 128)[:3],
+                          trunc_bits=0, acc32=acc32, steps=2, rate=rate,
+                          timed=False)
+    # the 6-bit N=4096 benchmark parameters truncate their key (t > 0)
+    p6 = fused_params(4096, 1, 22, 880)
+    primes6, t6 = host.choose_fused_primes(p6, 6)
+    if t6 <= 0:
+        fail(f"expected a truncated key at {p6}, got t={t6}")
+    for acc32 in (True, False):
+        check_fused_steps(rng, batch=16, n=4096, levels=1, base_log=22,
+                          primes=primes6, trunc_bits=t6, acc32=acc32,
+                          steps=2, rate=rate, timed=False)
+    # the key pack transforms every polynomial of the MLP's BSK at once:
+    # 822 steps x l(k+1)(k+1) = 8 polynomials
+    rec_ntt, rec_inv = check_ntt(rng, polys=822 * 8, n=4096, primes=primes,
+                                 rate=rate, timed=True)
+
+    step_ms = sum(rec_f[name]["ms"] for name in FUSED_KERNELS)
+    est_s = (REQUESTS + 2 * DIRECT_LOOKUPS / 256) * 822 * step_ms / 1e3
+    print(f"MLP serve and direct lookups estimate from the kernel times: "
+          f"{est_s:.1f} s", flush=True)
+    if est_s > 500:
+        fail(f"the CRT-NTT kernels are too slow to serve within the smoke's "
+             f"time limit (estimate {est_s:.0f} s)")
+    mlp = serve_mlp(rng)
+    client, ksk, bsk, params = mlp.pop("keys")
+    if tuple(bsk.primes) != tuple(primes):
+        fail(f"the archive's primes {bsk.primes} are not the checked ones")
+    direct = direct_lookups(rng, client, ksk, bsk, params)
+
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
     kernels = [
         {"name": "rotate_decompose", "route": "cuda",
          "source": "concrete_tpu_torch/csrc/rotate_decompose.cu",
          "replaces": "concrete_tpu/ops/pallas_step.py:173 "
                      "(and :275, rotate_decompose_limbs_hi)",
          "launches": run["launches"].get("rotate_decompose", 0),
-         **{k: rec_a[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")}},
+         **{k: rec_a[k] for k in fields}},
         {"name": "external_product_accumulate", "route": "cuda",
          "source": "concrete_tpu_torch/csrc/external_product.cu",
          "replaces": "concrete_tpu/ops/pallas_dot_recombine.py:288 "
                      "(and :203 dot_recombine_hi, pallas_step.py:385 "
                      "recombine_accumulate)",
          "launches": run["launches"].get("external_product_accumulate", 0),
-         **{k: rec_b[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")}},
+         **{k: rec_b[k] for k in fields}},
+        {"name": "rotate_decompose_digits", "route": "cuda",
+         "source": "concrete_tpu_torch/csrc/rotate_decompose.cu",
+         "replaces": "concrete_tpu/ops/pallas_step.py:322 (and the "
+                     ":210/:234 rotate_diff_digits front of "
+                     "pallas_fused_ntt.py:1223)",
+         "launches": mlp["launches"].get("rotate_decompose_digits", 0),
+         **{k: rec_f["rotate_decompose_digits"][k] for k in fields}},
+        {"name": "ntt_forward", "route": "cuda",
+         "source": "concrete_tpu_torch/csrc/ntt.cu",
+         "replaces": "concrete_tpu/ops/pallas_ntt.py:374 (ntt_inv_pallas "
+                     ":417 is ntt_inverse, same source)",
+         "launches": mlp["launches"].get("ntt_forward", 0),
+         **{k: rec_ntt[k] for k in fields}},
+        {"name": "crt_external_product", "route": "cuda",
+         "source": "concrete_tpu_torch/csrc/crt_external_product.cu",
+         "replaces": "concrete_tpu/ops/pallas_fused_ntt.py:1223 (the "
+                     "forward NTT, spectral MAC and inverse NTT of "
+                     "_step_kernel :1018)",
+         "launches": mlp["launches"].get("crt_external_product", 0),
+         **{k: rec_f["crt_external_product"][k] for k in fields}},
+        {"name": "garner_accumulate", "route": "cuda",
+         "source": "concrete_tpu_torch/csrc/garner_accumulate.cu",
+         "replaces": "concrete_tpu/ops/pallas_fused_ntt.py:1223 (the "
+                     "explicit-CRT Garner and accumulate, :622)",
+         "launches": mlp["launches"].get("garner_accumulate", 0),
+         **{k: rec_f["garner_accumulate"][k] for k in fields}},
     ]
     for k in kernels:
         if k["launches"] < 1:
@@ -308,9 +726,13 @@ def main() -> None:
         fail(f"the port imported {leaked}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card_line, "kernels": kernels, "serve": run,
+        json.dump({"card": card_line, "int32_rate": rate, "clocks": clocks,
+                   "kernels": kernels, "serve": run, "serve_mlp": mlp,
+                   "direct_lookups": direct,
                    "detail": {"rotate_decompose": rec_a,
-                              "external_product_accumulate": rec_b},
+                              "external_product_accumulate": rec_b,
+                              "ntt_forward": rec_ntt, "ntt_inverse": rec_inv,
+                              **rec_f},
                    "build_s": _build.BUILD_INFO["seconds"]}, f, indent=1)
     print(f"card: {card()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -38,8 +38,9 @@ class EvaluationKeys:
 
     def packed(self, message_bits: Optional[int] = None, norm2: float = 1,
                device=None):
-        """(LimbKSK, LimbBSK) on `device` (default CUDA) for Server.run,
-        with the JAX package's truncation policy; cached per arguments."""
+        """(LimbKSK, LimbBSK or FusedBSK) on `device` (default CUDA) for
+        Server.run, with the JAX package's BSK form and truncation policy;
+        cached per arguments."""
         from concrete_tpu_torch.compilation.keys import (pack_evaluation,
                                                          resolve_device)
         device = resolve_device(device)

@@ -9,7 +9,8 @@ Ciphertext layout: an encrypted integer tensor of shape S is an int64
 tensor of shape (*S, n_big + 1), LWE dimension last.
 
 Ported node kinds: inputs, constants, add, subtract, negative, multiply by
-a clear value, and ``tlu``/``univariate`` through the native PBS.  Every
+a clear value, ``matmul``/``dot`` with a clear operand, and
+``tlu``/``univariate`` through the native PBS.  Every
 other kind raises ``NotImplementedError`` naming its ROADMAP item, when the
 executor is built — before any key is packed or ciphertext is read.
 """
@@ -27,15 +28,14 @@ from concrete_tpu_torch.dtypes import Integer
 from concrete_tpu_torch.params import CryptoParams
 from concrete_tpu_torch.representation import Graph, Node, Operation
 
-_LEVELLED = ("add", "subtract", "negative", "multiply")
-_ITEM6 = "ROADMAP queue 1 item 6, executor ops outside the first slice"
+_LEVELLED = ("add", "subtract", "negative", "multiply", "matmul", "dot")
+_ITEM6 = "ROADMAP queue 1 item 6, executor ops not ported yet"
 _NOT_PORTED = {
     "crt_tlu": "ROADMAP queue 1 item 7, WoP-PBS and CRT",
     "extract_bits": "ROADMAP queue 1 item 7, WoP-PBS and CRT",
-    "matmul": "ROADMAP queue 1 item 6; cuBLAS has no int64 GEMM, so an "
-              "encrypted x clear contraction needs a limb split or a kernel",
+    "conv": "ROADMAP queue 1 item 6; an encrypted x clear convolution in "
+            "int64 (cuBLAS and cuDNN have no int64 path)",
 }
-_NOT_PORTED["dot"] = _NOT_PORTED["conv"] = _NOT_PORTED["matmul"]
 
 
 def not_ported(what: str, item: str = _ITEM6) -> NotImplementedError:
@@ -128,7 +128,40 @@ class GraphExecutor:
         return torch.from_numpy(np.ascontiguousarray(enc).view(np.int64)) \
             .to(device)
 
-    def run(self, enc_inputs: dict, ksk: kn.LimbKSK, bsk: kn.LimbBSK,
+    @staticmethod
+    def _contract(args, enc_flags, device) -> torch.Tensor:
+        """matmul / dot of an encrypted operand with a clear one, as the
+        JAX package computes it: an int64 elementwise multiply (mod 2^64)
+        and a sum, never a GEMM (cuBLAS has no int64 GEMM).  The
+        ciphertext's LWE axis stays last."""
+        a, b = args
+        ea, eb = enc_flags
+        if ea and eb:
+            raise not_ported("encrypted x encrypted matmul")
+
+        def clear(v):
+            return torch.from_numpy(np.asarray(v, dtype=np.int64)).to(device)
+        if ea:
+            ct, w = a, clear(b)
+            if w.ndim == 1:
+                return (ct * w[..., None]).sum(dim=-2)
+            if w.ndim == 2:
+                # (..., K, d) x (K, M) -> (..., M, d)
+                return (ct[..., :, None, :] * w[:, :, None]).sum(dim=-3)
+            raise not_ported("matmul with a clear operand above 2-D")
+        w, ct = clear(a), b
+        if w.ndim == 1:
+            # (K,) x (K, ..., d): contract the leading K axis
+            return (w.reshape((-1,) + (1,) * (ct.ndim - 1)) * ct).sum(dim=0)
+        if w.ndim == 2 and ct.ndim == 2:
+            # (M, K) x (K, d) -> (M, d)
+            return (w[..., None] * ct[None, ...]).sum(dim=1)
+        if w.ndim == 2:
+            # (M, K) x (..., K, P, d) -> (..., M, P, d)
+            return (w[:, :, None, None] * ct[..., None, :, :, :]).sum(dim=-3)
+        raise not_ported("matmul with a clear operand above 2-D")
+
+    def run(self, enc_inputs: dict, ksk: kn.LimbKSK, bsk,
             lut_polys: dict) -> tuple:
         """Evaluate the graph.  enc_inputs maps input position -> int64
         ciphertext tensor (or a clear numpy array for clear inputs);
@@ -174,6 +207,8 @@ class GraphExecutor:
                 out = ct * c[..., None]
             elif name == "negative":
                 out = -args[0]
+            elif name in ("matmul", "dot"):
+                out = self._contract(args, enc_flags, device)
             else:                        # tlu / univariate
                 ct = args[0]
                 spec = self.tlu_specs[node.uid]

@@ -2,10 +2,9 @@
 
 Counterpart of ``concrete_tpu/compilation/keys.py`` ``Keys``: the same
 ChaCha20 keygen (same seed, same keys), the same data-only npz format, and
-the same BSK limb truncation.  Packing puts the int8 key planes on a torch
-device.  Only the banded path exists: at N >= 2048, where the JAX package
-packs a ``FusedBSK``, packing raises instead of silently running another
-algorithm.
+the same BSK truncation.  Packing puts the key material on a torch device
+in the form the JAX package would pick: int8 limb planes for the banded
+blind rotate or per-prime NTT spectra for the fused CRT-NTT one.
 """
 
 from __future__ import annotations
@@ -20,9 +19,6 @@ from concrete_tpu_torch.core import keygen as kg
 from concrete_tpu_torch.core import kernels as kn
 from concrete_tpu_torch.core.refimpl import SecretKeys, ServerKeys
 from concrete_tpu_torch.params import CryptoParams, choose_truncate_limbs
-
-#: the JAX package packs a FusedBSK (CRT-NTT blind rotate) from this N on
-FUSED_MIN_POLY_SIZE = 2048
 
 
 def resolve_device(device):
@@ -42,17 +38,23 @@ def resolve_device(device):
 
 def pack_evaluation(params: CryptoParams, bsk: np.ndarray, ksk: np.ndarray,
                     message_bits: Optional[int], norm2: float, device):
-    """(LimbKSK, LimbBSK) on `device`: the packing policy of the JAX
-    package's ``Keys.evaluation_for`` for the banded path (the largest
-    provably negligible BSK limb truncation when `message_bits` is given)."""
-    if params.polynomial_size >= FUSED_MIN_POLY_SIZE:
-        raise NotImplementedError(
-            f"N={params.polynomial_size} needs the fused CRT-NTT blind "
-            "rotate, which is not ported yet (ROADMAP queue 1 item 4)")
+    """(LimbKSK, LimbBSK) or (LimbKSK, FusedBSK) on `device`: the packing
+    policy of the JAX package's ``Keys.evaluation_for``.  Its BSK-form rule
+    (``optimizer.v0.use_fused``, with the ``CONCRETE_TPU_FUSED_NTT``
+    override) picks the form; given `message_bits`, the BSK is truncated as
+    far as is provably negligible (limbs for the banded form, bits and
+    primes for the fused one)."""
+    from concrete_tpu_torch.optimizer.v0 import use_fused
+    ksk_packed = kn.pack_ksk(ksk, params, device=device)
+    if use_fused(params, message_bits):
+        from concrete_tpu_torch.ops.fused_ntt import pack_bsk_fused
+        return ksk_packed, pack_bsk_fused(bsk, params,
+                                          message_bits=message_bits,
+                                          norm2=norm2, device=device)
     truncate = 0 if message_bits is None else choose_truncate_limbs(
         params, message_bits, norm2=norm2)
-    return (kn.pack_ksk(ksk, params, device=device),
-            kn.pack_bsk(bsk, params, truncate_limbs=truncate, device=device))
+    return ksk_packed, kn.pack_bsk(bsk, params, truncate_limbs=truncate,
+                                   device=device)
 
 
 class Keys:
@@ -111,7 +113,8 @@ class Keys:
 
     def evaluation_for(self, message_bits=None, norm2: float = 1,
                        device=None):
-        """Packed (LimbKSK, LimbBSK) on `device` (default CUDA)."""
+        """Packed (LimbKSK, LimbBSK or FusedBSK) on `device` (default
+        CUDA)."""
         device = resolve_device(device)
         key = (message_bits, float(norm2), str(device))
         if key not in self._packed:

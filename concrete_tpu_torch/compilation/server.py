@@ -42,8 +42,8 @@ class Server:
         """Run the circuit; returns the output ciphertexts as u64 arrays.
 
         evaluation_keys: the client's ``EvaluationKeys`` (packed here with
-        this circuit's BSK truncation) or an already packed
-        (LimbKSK, LimbBSK) pair on this server's device."""
+        this circuit's BSK form and truncation) or an already packed
+        (LimbKSK, LimbBSK or FusedBSK) pair on this server's device."""
         from concrete_tpu_torch.compilation.evaluation_keys import \
             EvaluationKeys
         if isinstance(evaluation_keys, EvaluationKeys):
@@ -52,13 +52,16 @@ class Server:
                 norm2=self.graph.max_norm2(), device=self.device)
         if len(evaluation_keys) != 2:
             raise NotImplementedError(
-                "only (LimbKSK, LimbBSK) evaluation keys are ported; WoP and "
-                "multi-partition keys are ROADMAP queue 1 items 7-8")
+                "only (LimbKSK, LimbBSK or FusedBSK) evaluation keys are "
+                "ported; WoP and multi-partition keys are ROADMAP queue 1 "
+                "items 7-8")
         ksk, bsk = evaluation_keys
         for k in (ksk, bsk):
-            if k.planes.device != self.device:
-                raise ValueError(f"evaluation keys are on {k.planes.device},"
-                                 f" the server runs on {self.device}")
+            dev = getattr(k, "planes", None)
+            dev = (k.spec_val if dev is None else dev).device
+            if dev != self.device:
+                raise ValueError(f"evaluation keys are on {dev}, the server "
+                                 f"runs on {self.device}")
         if len(args) != len(self.client_specs.inputs):
             raise ValueError(f"expected {len(self.client_specs.inputs)} "
                              f"argument(s), got {len(args)}")

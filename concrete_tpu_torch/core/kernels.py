@@ -6,17 +6,19 @@ holds them to it.  Torus values are int64 tensors (mod 2^64 wrap, logical
 right shifts through ``limbs.srl``); shapes use B = batch, n = small LWE dim,
 k = GLWE dim, N = poly size, l = decomposition levels.
 
-The blind rotate is a Python loop over the n mask coefficients.  Each step
-calls the two hand-written CUDA kernels of ``ops/`` on a CUDA accumulator
-(their plain PyTorch versions on a CPU one):
+The blind rotate is a Python loop over the n mask coefficients.  With a
+banded ``LimbBSK`` each step calls two hand-written CUDA kernels of
+``ops/`` on a CUDA accumulator (their plain PyTorch versions on a CPU one):
 
 - ``ops.step.rotate_decompose``: X^a * acc - acc, gadget digits, int8 limbs;
 - ``ops.external_product.external_product_accumulate``: the digit limbs
   times one step of the banded BSK, shift-added into acc in place.
 
+With a ``FusedBSK`` the scan is ``ops.fused_ntt.blind_rotate_fused``
+(three kernels per step: digits, CRT-NTT external product, Garner).
+
 Keyswitch, modulus switch, LUT expansion and sample extract stay plain torch
-ops, as they stay plain XLA in the JAX package.  Only the banded ``LimbBSK``
-path (N <= 1024) exists; the fused CRT-NTT path is not ported yet.
+ops, as they stay plain XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -202,20 +204,24 @@ def _lut_rows(lut_poly: torch.Tensor, b_ct: int, n: int) -> torch.Tensor:
     return lut_poly.reshape(b_ct, n)
 
 
-def blind_rotate(ct_small: torch.Tensor, bsk: LimbBSK,
-                 lut_poly: torch.Tensor,
+def blind_rotate(ct_small: torch.Tensor, bsk, lut_poly: torch.Tensor,
                  params: CryptoParams) -> torch.Tensor:
-    """Batched blind rotation, ``_blind_rotate_xla`` semantics:
-    (B, n+1) ct, (N,) or (B, N) LUT -> accumulator (B, k+1, N).
+    """Batched blind rotation: (B, n+1) ct, (N,) or (B, N) LUT ->
+    accumulator (B, k+1, N).  The key's type picks the algorithm, as in
+    the JAX package: a ``FusedBSK`` runs the CRT-NTT scan
+    (``ops.fused_ntt.blind_rotate_fused``), a ``LimbBSK`` the banded one
+    with ``_blind_rotate_xla`` semantics.
 
-    Per step i: acc += recombine(Decomp(X^{a_i} acc - acc) (.) BSK_i), the
-    kept limb planes shifted by 8*(s + truncate_limbs).  The accumulator is
-    one (B*(k+1), N) int64 tensor that kernel B updates in place.
+    Banded, per step i: acc += recombine(Decomp(X^{a_i} acc - acc) (.)
+    BSK_i), the kept limb planes shifted by 8*(s + truncate_limbs).  The
+    accumulator is one (B*(k+1), N) int64 tensor that kernel B updates in
+    place.
     """
+    from concrete_tpu_torch.ops.fused_ntt import FusedBSK, blind_rotate_fused
+    if isinstance(bsk, FusedBSK):
+        return blind_rotate_fused(ct_small, bsk, lut_poly, params)
     if not isinstance(bsk, LimbBSK):
-        raise NotImplementedError(
-            "only the banded LimbBSK blind rotate is ported; the fused "
-            "CRT-NTT path waits for ROADMAP queue 1 item 4")
+        raise TypeError(f"unknown bootstrap key type {type(bsk).__name__}")
     b_ct = ct_small.shape[0]
     n = params.polynomial_size
     k = params.glwe_dimension
@@ -255,7 +261,7 @@ def sample_extract(acc: torch.Tensor, index: int = 0) -> torch.Tensor:
                      dim=-1)
 
 
-def pbs_batch(ct_big: torch.Tensor, ksk: LimbKSK, bsk: LimbBSK,
+def pbs_batch(ct_big: torch.Tensor, ksk: LimbKSK, bsk,
               lut_poly: torch.Tensor, params: CryptoParams,
               message_bits: int, signed: bool = False) -> torch.Tensor:
     """Batched programmable bootstrap: (B, n_big+1) -> (B, n_big+1).

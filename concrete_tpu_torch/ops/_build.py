@@ -36,7 +36,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 BUILD_INFO: dict = {}
 
 _LIB = None
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # acc, a_rows, out, rows, n, base_log, levels, a_limbs, stream
     "rotate_decompose": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -44,6 +44,18 @@ _SIGNATURES = {
     # limb_offset, stream
     "external_product_accumulate": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _I, _I, _P],
+    # acc, acc32, a_rows, out, rows, n, base_log, levels, stream
+    "rotate_decompose_digits": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # x or spec, out, twiddles, prime constants, polys, n_primes, log_n,
+    # stream
+    "ntt_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ntt_inverse": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # digits, spec, spec_sh, out, twiddles, prime constants, batch, levels,
+    # kp1, n_primes, log_n, stream
+    "crt_external_product": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _P],
+    # residues, acc, constants, n_primes, elems, shift, acc32, stream
+    "garner_accumulate": [_P, _P, _P, _I, _L, _I, _I, _P],
 }
 
 

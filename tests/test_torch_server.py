@@ -36,6 +36,8 @@ from concrete_tpu_torch.params import CryptoParams as TParams
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "concrete_tpu_torch", "fixtures",
                        "table_sub_u4_b1024.zip")
+MLP_FIXTURE = os.path.join(REPO, "concrete_tpu_torch", "fixtures",
+                           "mlp_q2_b64.zip")
 TABLE = [(3 * v + 1) % 8 for v in range(8)]
 
 
@@ -155,6 +157,81 @@ def test_levelled_ops_match_reference(tmp_path, kind):
                           .decrypt(got[0]), expect)
 
 
+@pytest.mark.parametrize("form", ["enc_mat", "enc_vec", "mat_enc",
+                                  "vec_enc"])
+def test_contractions_match_reference(tmp_path, form):
+    """matmul / dot between an encrypted and a clear operand, every operand
+    layout the executor lowers, against the JAX package's Server.run."""
+    w2 = np.array([[1, -2, 0], [3, 1, -1]])
+    w1 = np.array([2, -1])
+    x = np.array([[1, 2], [3, 0], [2, 2]])
+    x, fn = {
+        "enc_mat": (x, lambda v: v @ w2),
+        "enc_vec": (x, lambda v: np.dot(v, w1)),
+        "mat_enc": (x.T, lambda v: w2.T @ v),
+        "vec_enc": (x.T, lambda v: w1 @ v),
+    }[form]
+    circuit = fhe.compiler({"v": "encrypted"})(fn).compile(
+        [x, np.zeros(x.shape, int), np.full(x.shape, 3)],
+        fhe.Configuration(forced_parameters=TEST_PARAMS_TINY))
+    path = str(tmp_path / "c.zip")
+    circuit.server.save(path)
+    circuit.keygen(seed=4)
+    ct = circuit.encrypt(x)
+    want = circuit.server.run(ct, evaluation_keys=circuit.keys.evaluation_keys)
+    server = tfhe.Server.load(path, device="cpu")
+    keys = TKeys.from_arrays(
+        server.client_specs.params, circuit.keys.secret.lwe_small,
+        circuit.keys.secret.glwe, circuit.keys.server.bsk,
+        circuit.keys.server.ksk)
+    got = server.run(ct, evaluation_keys=keys.evaluation_keys)
+    assert np.array_equal(got[0], np.asarray(want[0]))
+    assert np.array_equal(tfhe.Client(server.client_specs, keys)
+                          .decrypt(got[0]), fn(x))
+
+
+def test_mlp_server_run_matches_reference(tmp_path):
+    """The slice as a whole: a QuantizedMLP whose outputs vary, at insecure
+    N=2048 parameters where both packages take the fused CRT-NTT blind
+    rotate in its acc32 mode, through matmul -> TLU -> matmul.  The port's
+    output ciphertexts equal the JAX package's (its Pallas kernel in
+    interpret mode) bit for bit, and decrypt to the clear inference."""
+    from concrete_tpu.models import QuantizedMLP
+    from concrete_tpu.params import CryptoParams as JParams
+    from concrete_tpu_torch.ops.fused_ntt import FusedBSK, acc32_eligible
+    params = JParams(
+        n_small=4, glwe_dimension=1, polynomial_size=2048, pbs_level=2,
+        pbs_base_log=8, ks_level=2, ks_base_log=8, lwe_std=2.0 ** -25,
+        glwe_std=2.0 ** -35, security_level=0)
+    mlp = QuantizedMLP(d_in=2, d_hidden=4, d_out=2, activation_bits=4,
+                       seed=1)
+    circuit = mlp.compile(fhe.Configuration(forced_parameters=params),
+                          batch_size=2)
+    specs = circuit.client_specs
+    assert specs.message_bits == 7 and fused_ntt_preferred(params, 7)
+    path = str(tmp_path / "mlp.zip")
+    circuit.server.save(path)
+    circuit.keygen(seed=5)
+    x = np.random.default_rng(2).integers(0, 16, (2, 2))
+    enc = circuit.encrypt(x)
+    want = circuit.server.run(enc,
+                              evaluation_keys=circuit.keys.evaluation_keys)
+    server = tfhe.Server.load(path, device="cpu")
+    keys = TKeys.from_arrays(
+        server.client_specs.params, circuit.keys.secret.lwe_small,
+        circuit.keys.secret.glwe, circuit.keys.server.bsk,
+        circuit.keys.server.ksk)
+    ev = keys.evaluation_keys
+    _, bsk = ev.packed(specs.message_bits, norm2=server.graph.max_norm2(),
+                       device="cpu")
+    assert isinstance(bsk, FusedBSK) and acc32_eligible(bsk)
+    got = server.run(enc, evaluation_keys=ev)
+    assert np.array_equal(got[0], np.asarray(want[0]))
+    dec = tfhe.Client(server.client_specs, keys).decrypt(got[0])
+    assert np.array_equal(dec, mlp.infer_clear(x))
+    assert np.any(dec != 0)
+
+
 def test_client_roundtrip_and_validation(deployment):
     server = tfhe.Server.load(deployment["archive"], device="cpu")
     client = tfhe.Client(server.client_specs)
@@ -214,14 +291,10 @@ def test_key_formats_cross_load(tmp_path):
             assert a.read(name) == b.read(name), name
 
 
-def test_fixture_is_the_reference_compile(tmp_path):
-    """The committed archive is what the JAX package compiles: specs and
-    array payloads byte for byte, the graph up to node uids (a
-    process-global counter)."""
-    tool = _fixture_tool()
-    path = str(tmp_path / "fresh.zip")
-    tool.compile_circuit().server.save(path)
-    with zipfile.ZipFile(FIXTURE) as a, zipfile.ZipFile(path) as b:
+def _assert_same_archive(committed: str, path: str) -> None:
+    """Specs and array payloads byte for byte, the graph up to node uids
+    (a process-global counter)."""
+    with zipfile.ZipFile(committed) as a, zipfile.ZipFile(path) as b:
         assert a.read("client.specs.json") == b.read("client.specs.json")
 
         def graph(z):
@@ -236,33 +309,73 @@ def test_fixture_is_the_reference_compile(tmp_path):
             assert na.namelist() == nb.namelist()
             for name in na.namelist():
                 assert na.read(name) == nb.read(name), name
+
+
+def test_fixture_is_the_reference_compile(tmp_path):
+    """The committed archive is what the JAX package compiles."""
+    tool = _fixture_tool()
+    path = str(tmp_path / "fresh.zip")
+    tool.compile_circuit().server.save(path)
+    _assert_same_archive(FIXTURE, path)
     specs = json.loads(zipfile.ZipFile(FIXTURE).read("client.specs.json"))
     assert specs["params"]["polynomial_size"] == 1024
     assert specs["params"]["security_level"] == 128
 
 
+def test_mlp_fixture_is_the_reference_compile(tmp_path):
+    """The committed QuantizedMLP archive is what the JAX package compiles:
+    128-bit N=4096 parameters, 6-bit messages, 64 samples per request."""
+    tool = _fixture_tool()
+    path = str(tmp_path / "fresh_mlp.zip")
+    tool.compile_mlp().server.save(path)
+    _assert_same_archive(MLP_FIXTURE, path)
+    specs = json.loads(zipfile.ZipFile(MLP_FIXTURE).read("client.specs.json"))
+    assert specs["params"]["polynomial_size"] == 4096
+    assert specs["params"]["n_small"] == 822
+    assert specs["params"]["security_level"] == 128
+    assert specs["message_bits"] == 6
+    assert specs["inputs"][0]["shape"] == [64, 8]
+
+
+def _bsk_form(params, message_bits) -> str:
+    """The BSK form the port packs for these parameters: all-zero keys of
+    one blind-rotate step packed on the CPU (the rule reads the parameters,
+    the packers only the arrays)."""
+    from concrete_tpu_torch.compilation.keys import pack_evaluation
+    tp = _tparams(params)
+    kp1, n = tp.glwe_dimension + 1, tp.polynomial_size
+    _, bsk = pack_evaluation(
+        tp, np.zeros((1, tp.pbs_level, kp1, kp1, n), np.uint64),
+        np.zeros((1, tp.ks_level, 2), np.uint64), message_bits, 1, "cpu")
+    return type(bsk).__name__
+
+
 def test_tested_params_take_the_banded_path():
-    """The port has only the banded blind rotate; every parameter set and
-    packing it is held to must be one where the JAX package picks it too.
-    (At the fixture's parameters the JAX package would pack a FusedBSK for
-    untruncated keys, message_bits=None; the port is held there only to
-    the archive's own packing, message_bits=5.)"""
+    """Every parameter set the port is held to packs the BSK form the JAX
+    package packs there: banded at the tested N <= 1024 sets and at the
+    fixture's archive packing, fused at the fixture's parameters with
+    untruncated keys (message_bits=None) and at N >= 2048 where the rule
+    says so — GameOfLife(8, 8)'s 5-bit N=2048 parameters stay banded."""
     import dataclasses
     from concrete_tpu.params import CryptoParams as JParams
     fixture = tfhe.Server.load(FIXTURE, device="cpu").client_specs
-    for p in (TEST_PARAMS_TINY, TEST_PARAMS_TINY_WIDE):
-        for mb in (None, 3, 4, 5):
-            assert not fused_ntt_preferred(p, mb), (p, mb)
-    assert not fused_ntt_preferred(
-        JParams(**dataclasses.asdict(fixture.params)), fixture.message_bits)
-    wide = dataclasses.replace(_tparams(TEST_PARAMS_TINY),
-                               polynomial_size=2048)
-    keys = TKeys.from_arrays(wide, np.zeros(16, np.uint64),
-                             np.zeros((2, 2048), np.uint64),
-                             np.zeros((1, 2, 3, 3, 2048), np.uint64),
-                             np.zeros((4096, 2, 17), np.uint64))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        keys.evaluation_for(5, device="cpu")
+    fixture_params = JParams(**dataclasses.asdict(fixture.params))
+    game_of_life = JParams.make(
+        n_small=758, glwe_dimension=1, polynomial_size=2048, pbs_level=2,
+        pbs_base_log=7, ks_level=5, ks_base_log=3)
+    mlp = JParams(**dataclasses.asdict(
+        tfhe.Server.load(MLP_FIXTURE, device="cpu").client_specs.params))
+    cases = [(p, mb) for p in (TEST_PARAMS_TINY, TEST_PARAMS_TINY_WIDE)
+             for mb in (None, 3, 4, 5)]
+    cases += [(fixture_params, fixture.message_bits), (fixture_params, None),
+              (game_of_life, 5), (mlp, 6), (mlp, None)]
+    for p, mb in cases:
+        want = "FusedBSK" if fused_ntt_preferred(p, mb) else "LimbBSK"
+        assert _bsk_form(p, mb) == want, (p, mb)
+    assert not fused_ntt_preferred(fixture_params, fixture.message_bits)
+    assert fused_ntt_preferred(fixture_params, None)
+    assert not fused_ntt_preferred(game_of_life, 5)
+    assert fused_ntt_preferred(mlp, 6)
 
 
 def test_default_device_is_cuda():
@@ -291,7 +404,9 @@ def test_unported_operations_raise(tmp_path):
 
 def test_port_imports_no_jax():
     code = ("import sys, concrete_tpu_torch, concrete_tpu_torch.compilation."
-            "executor, concrete_tpu_torch.ops.step; "
+            "executor, concrete_tpu_torch.ops.step, "
+            "concrete_tpu_torch.ops.fused_ntt, concrete_tpu_torch.ops.ntt, "
+            "concrete_tpu_torch.optimizer.v0; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'concrete_tpu' or m.startswith('concrete_tpu.')]"
             "; print(bad); sys.exit(1 if bad else 0)")

@@ -1,15 +1,22 @@
-"""Write the deployment archive that the PyTorch port serves.
+"""Write the deployment archives that the PyTorch port serves.
 
-The circuit is ``table[x] - y`` with ``table = [(3v + 1) % 16]`` over two
-encrypted ``(1024,)`` tensors, compiled by the JAX package with the default
-``Configuration()``: the optimizer picks 128-bit parameters with N = 1024,
-so every request is 1024 table lookups through the banded blind rotate.
+- ``table_sub_u4_b1024.zip``: ``table[x] - y`` with
+  ``table = [(3v + 1) % 16]`` over two encrypted ``(1024,)`` tensors,
+  compiled with the default ``Configuration()``: 128-bit parameters with
+  N = 1024, so every request is 1024 table lookups through the banded
+  blind rotate.
+- ``mlp_q2_b64.zip``: the repo's benchmark ``QuantizedMLP()`` (d_in=8,
+  d_hidden=4, d_out=2, 2-bit weights and activations, ``bench.py``'s
+  ``bench_mlp``) over a batch of 64 samples, default ``Configuration()``:
+  128-bit parameters with N = 4096 and 6-bit messages, so every request is
+  256 lookups through the fused CRT-NTT blind rotate.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [out.zip]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [out_dir]
 
-writes ``concrete_tpu_torch/fixtures/table_sub_u4_b1024.zip`` by default.
-``tests/test_torch_server.py`` recompiles the circuit through
-``compile_circuit`` and checks that the committed archive is reproduced.
+writes both into ``concrete_tpu_torch/fixtures/`` by default.
+``tests/test_torch_server.py`` recompiles each circuit through
+``compile_circuit`` / ``compile_mlp`` and checks that the committed
+archives are reproduced.
 """
 
 from __future__ import annotations
@@ -20,10 +27,12 @@ import sys
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FIXTURE = os.path.join(REPO, "concrete_tpu_torch", "fixtures",
-                       "table_sub_u4_b1024.zip")
+FIXTURES = os.path.join(REPO, "concrete_tpu_torch", "fixtures")
+FIXTURE = os.path.join(FIXTURES, "table_sub_u4_b1024.zip")
+MLP_FIXTURE = os.path.join(FIXTURES, "mlp_q2_b64.zip")
 SIZE = 1024
 TABLE = [(3 * v + 1) % 16 for v in range(16)]
+MLP_BATCH = 64
 
 
 def inputset():
@@ -45,14 +54,24 @@ def compile_circuit():
     return table_sub.compile(inputset(), fhe.Configuration())
 
 
-def main(path: str = FIXTURE) -> None:
+def compile_mlp():
+    import concrete_tpu as fhe
+    from concrete_tpu.models import QuantizedMLP
+    return QuantizedMLP().compile(fhe.Configuration(), batch_size=MLP_BATCH)
+
+
+def main(out_dir: str = FIXTURES) -> None:
+    sys.path.insert(0, REPO)
     import jax
     jax.config.update("jax_platforms", "cpu")
-    circuit = compile_circuit()
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    circuit.server.save(path)
-    print(path, os.path.getsize(path), "bytes")
-    print(circuit.server.client_specs.params)
+    os.makedirs(out_dir, exist_ok=True)
+    for name, compile_fn in ((FIXTURE, compile_circuit),
+                             (MLP_FIXTURE, compile_mlp)):
+        path = os.path.join(out_dir, os.path.basename(name))
+        circuit = compile_fn()
+        circuit.server.save(path)
+        print(path, os.path.getsize(path), "bytes")
+        print(circuit.server.client_specs.params)
 
 
 if __name__ == "__main__":

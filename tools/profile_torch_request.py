@@ -1,15 +1,23 @@
 """Device-time breakdown of one request of the PyTorch port on a GPU.
 
-    python3 tools/profile_torch_request.py
+    python3 tools/profile_torch_request.py [table|mlp ...]
 
-Loads the committed archive ``concrete_tpu_torch/fixtures/
-table_sub_u4_b1024.zip`` (1024 table lookups at 128-bit parameters) on
-CUDA, generates keys from a fixed seed, runs one untraced request, then one
-request under ``torch.profiler`` (CPU and CUDA activities).  Prints the
-card, both requests' wall times, the summed device time of the traced
-request, the device's idle share of its wall time, and the device time by
-kernel name; writes the same as JSON to ``chiprun_out/torch_request_profile
-.json``.  Needs a GPU; exits non-zero without one.
+For each named committed archive (default: ``table``):
+
+- ``table``: ``concrete_tpu_torch/fixtures/table_sub_u4_b1024.zip``, 1024
+  table lookups at 128-bit N=1024 parameters (banded blind rotate);
+- ``mlp``: ``concrete_tpu_torch/fixtures/mlp_q2_b64.zip``, the benchmark
+  QuantizedMLP over 64 samples, 256 lookups at 128-bit N=4096 parameters
+  (CRT-NTT blind rotate);
+
+loads it on CUDA, generates keys from a fixed seed, runs one request (which
+packs the keys), one untraced request, then one request under
+``torch.profiler`` (CPU and CUDA activities).  Prints the card, the
+requests' wall times, the summed device time of the traced request, the
+device's idle share of its wall time, and the device time by kernel name;
+writes the same as JSON to ``chiprun_out/torch_request_profile.json``
+(``table``) or ``chiprun_out/torch_request_profile_mlp.json`` (``mlp``).
+Needs a GPU; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -28,33 +36,40 @@ sys.path.insert(0, REPO)
 
 import concrete_tpu_torch as tfhe  # noqa: E402
 
-FIXTURE = os.path.join(REPO, "concrete_tpu_torch", "fixtures",
-                       "table_sub_u4_b1024.zip")
+FIXTURES = os.path.join(REPO, "concrete_tpu_torch", "fixtures")
+ARCHIVES = {
+    # name: (archive, output file, clear inputs for one request)
+    "table": ("table_sub_u4_b1024.zip", "torch_request_profile.json",
+              lambda rng, specs: [rng.integers(0, 16, s.shape)
+                                  for s in specs.inputs]),
+    "mlp": ("mlp_q2_b64.zip", "torch_request_profile_mlp.json",
+            lambda rng, specs: [rng.integers(0, 4, s.shape)
+                                for s in specs.inputs]),
+}
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        sys.exit("profile_torch_request: no GPU")
+def profile(name: str, card: str) -> dict:
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    server = tfhe.Server.load(FIXTURE)
+    from torch.profiler import ProfilerActivity, profile as trace
+    archive, out_name, make_inputs = ARCHIVES[name]
+    server = tfhe.Server.load(os.path.join(FIXTURES, archive))
     client = tfhe.Client(server.client_specs)
     client.keygen(seed=1)
     ev = client.evaluation_keys
     rng = np.random.default_rng(1)
-    size = server.client_specs.inputs[0].shape[0]
-    args = client.encrypt(rng.integers(0, 16, size), rng.integers(0, 16, size))
+    args = client.encrypt(*make_inputs(rng, server.client_specs))
+    args = args if isinstance(args, tuple) else (args,)
+    lookups = sum(int(np.prod(node.output.shape))
+                  for node in server.graph.topological_order()
+                  if node.name in ("tlu", "univariate"))
     t0 = time.perf_counter()
     server.run(*args, evaluation_keys=ev)         # packs keys, builds
     first_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     server.run(*args, evaluation_keys=ev)
     untraced_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         server.run(*args, evaluation_keys=ev)
         traced_s = time.perf_counter() - t0
@@ -66,23 +81,38 @@ def main() -> None:
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows)
-    out = {"card": card, "lookups": size, "first_request_s": first_s,
-           "untraced_request_s": untraced_s, "traced_request_s": traced_s,
-           "device_ms": device_ms,
+    out = {"card": card, "archive": archive, "lookups": lookups,
+           "first_request_s": first_s, "untraced_request_s": untraced_s,
+           "traced_request_s": traced_s, "device_ms": device_ms,
            "idle_share": 1 - device_ms / 1e3 / traced_s,
            "by_kernel": [{"name": k, "launches": c, "device_ms": ms}
                          for k, c, ms in rows]}
-    print(f"card: {card}")
-    print(f"request: first {first_s:.3f} s (with key packing), untraced "
-          f"{untraced_s:.3f} s, traced {traced_s:.3f} s; device busy "
-          f"{device_ms:.1f} ms, idle share {out['idle_share']:.4f}")
+    print(f"{archive}: {lookups} lookups; request: first {first_s:.3f} s "
+          f"(with key packing), untraced {untraced_s:.3f} s, traced "
+          f"{traced_s:.3f} s; device busy {device_ms:.1f} ms, idle share "
+          f"{out['idle_share']:.4f}")
     for k, c, ms in rows[:12]:
         print(f"  {ms:10.3f} ms  {c:6d}x  {k[:90]}")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out",
-                           "torch_request_profile.json"), "w") as f:
+    with open(os.path.join(REPO, "chiprun_out", out_name), "w") as f:
         json.dump(out, f, indent=1)
+    return out
+
+
+def main(names: list[str]) -> None:
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_request: no GPU")
+    unknown = [n for n in names if n not in ARCHIVES]
+    if unknown:
+        sys.exit(f"profile_torch_request: unknown archive(s) {unknown}; "
+                 f"choose from {sorted(ARCHIVES)}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}")
+    for name in names:
+        profile(name, card)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:] or ["table"])
