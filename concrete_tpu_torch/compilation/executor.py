@@ -168,7 +168,7 @@ class GraphExecutor:
         lut_polys maps TLU node uid -> (N,) int64 LUT polynomial."""
         graph = self.graph
         values: dict[Node, object] = {}
-        device = ksk.planes.device
+        device = ksk.device
         for node in graph.topological_order():
             name = node.name
             if node.operation == Operation.Input:

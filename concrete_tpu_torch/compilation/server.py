@@ -57,11 +57,9 @@ class Server:
                 "items 7-8")
         ksk, bsk = evaluation_keys
         for k in (ksk, bsk):
-            dev = getattr(k, "planes", None)
-            dev = (k.spec_val if dev is None else dev).device
-            if dev != self.device:
-                raise ValueError(f"evaluation keys are on {dev}, the server "
-                                 f"runs on {self.device}")
+            if k.device != self.device:
+                raise ValueError(f"evaluation keys are on {k.device}, the "
+                                 f"server runs on {self.device}")
         if len(args) != len(self.client_specs.inputs):
             raise ValueError(f"expected {len(self.client_specs.inputs)} "
                              f"argument(s), got {len(args)}")

@@ -125,6 +125,10 @@ class LimbBSK:
     def n_small(self) -> int:
         return self.planes.shape[0]
 
+    @property
+    def device(self) -> torch.device:
+        return self.planes.device
+
 
 @dataclasses.dataclass(frozen=True)
 class LimbKSK:
@@ -132,6 +136,10 @@ class LimbKSK:
     planes: torch.Tensor
     base_log: int
     levels: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.planes.device
 
 
 def pack_bsk(bsk_u64: np.ndarray, params: CryptoParams,

@@ -65,10 +65,8 @@ __global__ void crt_external_product_kernel(
       const uint32_t x = work[i];
       for (int co = 0; co < kp1; ++co) {
         const size_t kidx = key + (size_t)co * n + i;
-        acc[co * n + i] = ntt::add_mod(
-            acc[co * n + i],
-            ntt::shoup_mul(x, __ldg(spec + kidx), __ldg(spec_sh + kidx), p),
-            p);
+        acc[co * n + i] = ntt::mul_add(acc[co * n + i], x, __ldg(spec + kidx),
+                                       __ldg(spec_sh + kidx), p);
       }
     }
     __syncthreads();

@@ -40,6 +40,33 @@ __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
   return reduce_once(a + p - b, p);
 }
 
+// The operations the transforms and the pointwise product repeat; the
+// probes in csrc/op_probes.cu count their instructions.
+// Cooley-Tukey: (u, v) <- (u + s v, u - s v).
+__device__ __forceinline__ void ct_butterfly(uint32_t& u, uint32_t& v,
+                                             uint32_t s, uint32_t s_sh,
+                                             uint32_t p) {
+  const uint32_t sv = shoup_mul(v, s, s_sh, p);
+  v = sub_mod(u, sv, p);
+  u = add_mod(u, sv, p);
+}
+
+// Gentleman-Sande: (u, v) <- (u + v, s (u - v)).
+__device__ __forceinline__ void gs_butterfly(uint32_t& u, uint32_t& v,
+                                             uint32_t s, uint32_t s_sh,
+                                             uint32_t p) {
+  const uint32_t d = sub_mod(u, v, p);
+  u = add_mod(u, v, p);
+  v = shoup_mul(d, s, s_sh, p);
+}
+
+// acc + x k (mod p), k' the Shoup companion of k.
+__device__ __forceinline__ uint32_t mul_add(uint32_t acc, uint32_t x,
+                                            uint32_t k, uint32_t k_sh,
+                                            uint32_t p) {
+  return add_mod(acc, shoup_mul(x, k, k_sh, p), p);
+}
+
 // Signed 64-bit integer -> canonical residue mod p (once per input, not in
 // the butterflies).
 __device__ __forceinline__ uint32_t residue_i64(long long x, uint32_t p) {
@@ -66,11 +93,10 @@ __device__ inline void forward(uint32_t* a, int npoly, int log_n,
       const int i = kk >> log_t;
       const int j = ((k >> (log_n - 1)) << log_n) + (i << (log_t + 1)) +
                     (kk & (t - 1));
-      const uint32_t s = __ldg(tw + m + i), s_sh = __ldg(tw_sh + m + i);
-      const uint32_t u = a[j];
-      const uint32_t v = shoup_mul(a[j + t], s, s_sh, p);
-      a[j] = add_mod(u, v, p);
-      a[j + t] = sub_mod(u, v, p);
+      uint32_t u = a[j], v = a[j + t];
+      ct_butterfly(u, v, __ldg(tw + m + i), __ldg(tw_sh + m + i), p);
+      a[j] = u;
+      a[j + t] = v;
     }
     __syncthreads();
   }
@@ -93,10 +119,10 @@ __device__ inline void inverse(uint32_t* a, int npoly, int log_n,
       const int i = kk >> log_t;
       const int j = ((k >> (log_n - 1)) << log_n) + (i << (log_t + 1)) +
                     (kk & (t - 1));
-      const uint32_t s = __ldg(tw + h + i), s_sh = __ldg(tw_sh + h + i);
-      const uint32_t u = a[j], v = a[j + t];
-      a[j] = add_mod(u, v, p);
-      a[j + t] = shoup_mul(sub_mod(u, v, p), s, s_sh, p);
+      uint32_t u = a[j], v = a[j + t];
+      gs_butterfly(u, v, __ldg(tw + h + i), __ldg(tw_sh + h + i), p);
+      a[j] = u;
+      a[j + t] = v;
     }
     __syncthreads();
   }

@@ -27,7 +27,6 @@ CPU ones; there is no other fallback.
 from __future__ import annotations
 
 import dataclasses
-import os
 import struct
 
 import numpy as np
@@ -61,6 +60,10 @@ class FusedBSK:
     @property
     def n_small(self) -> int:
         return self.spec_val.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.spec_val.device
 
 
 def pack_bsk_fused(bsk_u64: np.ndarray, params, message_bits: int = None,
@@ -96,10 +99,9 @@ def pack_bsk_fused(bsk_u64: np.ndarray, params, message_bits: int = None,
 
 
 def acc32_eligible(bsk: FusedBSK) -> bool:
-    """The acc32 mode, as the JAX package gates it: on unless
-    CONCRETE_TPU_ACC32=0, wherever the digits read only the top word."""
-    return (os.environ.get("CONCRETE_TPU_ACC32", "1") == "1"
-            and host.digits_lo_free(bsk.base_log, bsk.levels))
+    """The acc32 mode is the default wherever the digits read only the
+    top word (``blind_rotate_fused``'s ``acc32=`` overrides it)."""
+    return host.digits_lo_free(bsk.base_log, bsk.levels)
 
 
 # ---------------------------------------------------------------------------

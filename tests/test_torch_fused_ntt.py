@@ -10,6 +10,8 @@ held to the plain versions on the card by chip_smoke.py.
 
 import dataclasses
 import math
+import os
+import zipfile
 
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ import torch
 import concrete_tpu.jax_config  # noqa: F401
 import jax.numpy as jnp
 
+from concrete_tpu import params as jpp
+from concrete_tpu.compilation.specs import ClientSpecs as JSpecs
 from concrete_tpu.core import ntt as jntt_host
 from concrete_tpu.core import ntt_tpu as jnt
 from concrete_tpu.core import refimpl as ref
@@ -27,6 +31,8 @@ from concrete_tpu.ops import pallas_step as jps
 from concrete_tpu.optimizer import v0 as jv0
 from concrete_tpu.params import BENCH_PARAMS_6BIT, CryptoParams
 
+from concrete_tpu_torch import params as tpp
+from concrete_tpu_torch.compilation.specs import ClientSpecs as TSpecs
 from concrete_tpu_torch.core import ntt as tntt
 from concrete_tpu_torch.ops import fused_ntt as tfn
 from concrete_tpu_torch.ops import ntt as tn
@@ -38,6 +44,9 @@ from concrete_tpu_torch.params import CryptoParams as TParams
 MLP_PARAMS = CryptoParams.make(
     n_small=822, glwe_dimension=1, polynomial_size=4096, pbs_level=2,
     pbs_base_log=8, ks_level=8, ks_base_log=2)
+MLP_FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "concrete_tpu_torch", "fixtures",
+    "mlp_q2_b64.zip")
 
 
 def _tparams(p) -> TParams:
@@ -246,6 +255,36 @@ def test_mlp_parameters_take_the_fused_acc32_path():
     assert primes == (2147352577, 2147205121, 2147074049) and t == 0
     assert tv0.fused_ntt_preferred(tp, 6)
     assert tntt.digits_lo_free(tp.pbs_base_log, tp.pbs_level)
+
+
+def test_mlp_blind_rotate_noise_matches_reference():
+    """The figures chip_smoke.py holds its direct 6-bit lookups to: at the
+    MLP archive's parameters the port's blind-rotate variance equals the
+    JAX package's and the one its optimizer charges (the atomic pattern's
+    variance less the keyswitch and modulus-switch terms), and so does the
+    6-bit decode's error rate, about a third."""
+    with zipfile.ZipFile(MLP_FIXTURE) as z:
+        blob = z.read("client.specs.json").decode()
+    jp, tp = JSpecs.deserialize(blob).params, TSpecs.deserialize(blob).params
+    assert (jp.n_small, jp.polynomial_size, jp.pbs_level) == (822, 4096, 2)
+
+    def v_br(pp, p):
+        return pp.variance_blind_rotate(
+            p.n_small, p.glwe_dimension, p.polynomial_size, p.pbs_base_log,
+            p.pbs_level, p.glwe_std ** 2, p.q_log)
+
+    v_t, v_j = v_br(tpp, tp), v_br(jpp, jp)
+    assert v_t == v_j
+    v_opt = (jp.atomic_pattern_variance(1)
+             - jpp.variance_keyswitch(jp.n_big, jp.ks_base_log, jp.ks_level,
+                                      jp.lwe_std ** 2, jp.q_log)
+             - jpp.variance_modulus_switch(jp.n_small,
+                                           jp.log2_polynomial_size, jp.q_log))
+    assert v_t == pytest.approx(v_opt, rel=1e-9)
+    p6 = tpp.p_error_from_variance(v_t, 6)
+    assert p6 == jpp.p_error_from_variance(v_j, 6)
+    assert 0.33 < p6 < 0.34
+    assert tpp.p_error_from_variance(v_t, 3) < 1e-12
 
 
 def test_garner_exact_at_the_boundary():
