@@ -5,17 +5,26 @@
 
 1. builds the port's CUDA kernels from ``concrete_tpu_torch/csrc`` (nvcc,
    sm_90a) and prints the build time and the card's name and power limit;
-2. holds each kernel bit-exact against its plain PyTorch version on the
-   card, at the shapes the 128-bit N=1024 server path gives it (and at
-   limb_offset 0 / keep 8, and with two digit limbs at a small shape),
-   and times kernel, plain version and, for the external product, the
-   ``torch._int_mm`` of the same product against a pre-built Toeplitz
-   matrix (a yardstick the port never calls);
+2. holds each banded kernel (A, B, 9 ``banded_matmul`` and the standalone
+   ``recombine_accumulate``) bit-exact against its plain PyTorch version
+   on the card, at the shapes the 128-bit N=1024 server path gives it
+   (and at limb_offset 0 / keep 8, with two digit limbs at a small shape,
+   and kernel 9 at the latency path's k+1 = 2 rows with Cout = B in
+   {1, 4}), and times kernel, plain version and, for the two products,
+   the ``torch._int_mm`` of the same product against a pre-built
+   Toeplitz matrix (a yardstick the port never calls);
 3. serves the committed deployment archive (``table[x] - y`` over 1024
    encrypted 4-bit pairs, 128-bit parameters, N=1024): ``Server.load`` on
    CUDA, ``Client.keygen`` from a seed, three requests, decryptions checked
-   against the plaintext, with every blind-rotate step counted through both
-   kernels;
+   against the plaintext, with every blind-rotate step counted through
+   kernels A and B; then the same requests in the JAX package's "pallas"
+   banded mode (``kernels.BANDED_MM_MODE``), every step through kernels A,
+   9 and the recombine, whose output ciphertexts must equal the first
+   three's bit for bit; then one blind rotate of 64 ciphertexts in each of
+   the five banded modes, whose accumulators must be equal; then the
+   latency blind rotate (B <= 4) at the ``pbs_latency_b1`` configuration
+   (BENCH_PARAMS_4BIT_TPUOPT, truncated key): lookups at B = 1 and 4
+   decrypted right, three single lookups timed;
 4. holds each kernel of the CRT-NTT blind rotate bit-exact against its
    plain PyTorch version on the card, over a few blind-rotate steps at the
    shapes the N=4096 QuantizedMLP archive gives them (256 ciphertexts,
@@ -222,13 +231,76 @@ def check_external_product(rng, *, batch, levels, kp1, n, a_limbs,
     return rec
 
 
-def serve(rng):
-    """The port's main path: three requests of 1024 table lookups, on the
-    device Server.load picks by default (CUDA)."""
+def check_banded_matmul(rng, *, a_limbs, rows, cin, cout, s_planes, n,
+                        timed):
+    """Kernel 9 against its plain version (per-J-block torch._int_mm)."""
+    import torch
+    from concrete_tpu_torch.ops import banded_mm as bm
+    from concrete_tpu_torch.ops import external_product as xp
+    lhs = rand_i8(rng, (a_limbs, rows, cin * n), "cuda")
+    vv = rand_i8(rng, (cin, cout, s_planes, 2 * n - 1), "cuda")
+    got = bm.banded_matmul(lhs, vv)
+    want = bm.banded_matmul_plain(lhs, vv)
+    torch.cuda.synchronize()
+    shape = (f"A={a_limbs} B={rows} Cin={cin} Cout={cout} S={s_planes} "
+             f"N={n}")
+    if not torch.equal(got, want):
+        fail(f"banded_matmul differs from its plain version at {shape}")
+    rec = {"max_abs_err": max_abs_err(got, want)}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: bm.banded_matmul(lhs, vv), 20)
+        rec["plain_ms"] = cuda_ms(lambda: bm.banded_matmul_plain(lhs, vv), 3)
+        rec["library_ms"] = None
+        if rows > 16:         # torch._int_mm needs more than 16 rows
+            lhs_cat = lhs.permute(1, 0, 2).reshape(rows, -1).contiguous()
+            rhs = xp.toeplitz_rhs(vv, a_limbs, got.shape[2]).contiguous()
+            rec["library_ms"] = cuda_ms(lambda: torch._int_mm(lhs_cat, rhs),
+                                        10)
+        macs = rows * cout * a_limbs * s_planes * cin * n * n
+        rec.update(bound(2 * macs / PEAK_INT8_OPS * 1e3,
+                         lhs.numel() + vv.numel() + got.numel() * 4,
+                         macs=macs))
+    print(f"banded_matmul bit-exact at {shape}: {rec}", flush=True)
+    return rec
+
+
+def check_recombine(rng, *, rows, n_planes, n, limb_offset, timed):
+    """The standalone recombine-accumulate against its plain version."""
     import numpy as np
     import torch
+    from concrete_tpu_torch.ops import recombine as rc
+    planes = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31,
+                                           (rows, n_planes, n))
+                              .astype(np.int32)).cuda()
+    acc = rand_torus(rng, (rows, n), "cuda")
+    kw = dict(limb_offset=limb_offset)
+    got = rc.recombine_accumulate(planes, acc.clone(), **kw)
+    want = rc.recombine_accumulate_plain(planes, acc.clone(), **kw)
+    torch.cuda.synchronize()
+    shape = f"rows={rows} P={n_planes} N={n} limb_offset={limb_offset}"
+    if not torch.equal(got, want):
+        fail(f"recombine_accumulate differs from its plain version at "
+             f"{shape}")
+    rec = {"max_abs_err": max_abs_err(got, want)}
+    if timed:
+        scratch = acc.clone()
+        rec["ms"] = cuda_ms(lambda: rc.recombine_accumulate(
+            planes, scratch, **kw), 50)
+        rec["plain_ms"] = cuda_ms(lambda: rc.recombine_accumulate_plain(
+            planes, scratch, **kw), 5)
+        used = min(n_planes, 8 - limb_offset)
+        rec.update(bound(tally_ms(rows * n * 5 * used, sm_clock()),
+                         rows * n * (4 * used + 16)), library_ms=None)
+    print(f"recombine_accumulate bit-exact at {shape}: {rec}", flush=True)
+    return rec
+
+
+def serve(rng):
+    """The port's main path: three requests of 1024 table lookups, on the
+    device Server.load picks by default (CUDA), in the default banded mode
+    (kernels A and B)."""
+    import torch
     import concrete_tpu_torch as tfhe
-    from concrete_tpu_torch.ops import _build
     server = tfhe.Server.load(FIXTURE)
     if server.device.type != "cuda":
         fail(f"Server.load defaulted to {server.device}")
@@ -242,8 +314,8 @@ def serve(rng):
     keygen_s = time.perf_counter() - t0
     ev = client.evaluation_keys
     t0 = time.perf_counter()
-    ksk, bsk = ev.packed(specs.message_bits, norm2=server.graph.max_norm2(),
-                         device=server.device)
+    _, bsk = ev.packed(specs.message_bits, norm2=server.graph.max_norm2(),
+                       device=server.device)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     print(f"keygen {keygen_s:.2f} s, pack+upload {pack_s:.2f} s, "
@@ -252,37 +324,173 @@ def serve(rng):
     requests = [(rng.integers(0, 16, size), rng.integers(0, 16, size))
                 for _ in range(REQUESTS)]
     encrypted = [client.encrypt(x, y) for x, y in requests]
-    wrong, walls, per_request = 0, [], []
-    _build.reset_launches()               # the main path's run starts here
-    for (x, y), (cx, cy) in zip(requests, encrypted):
-        before = dict(_build.LAUNCHES)
-        t0 = time.perf_counter()
-        (out,) = server.run(cx, cy, evaluation_keys=ev)
-        walls.append(time.perf_counter() - t0)
-        per_request.append({k: v - before.get(k, 0)
-                            for k, v in _build.LAUNCHES.items()})
-        if out.shape != (size, p.n_big + 1) or out.dtype != np.uint64:
-            fail(f"output ciphertexts {out.shape} {out.dtype}")
-        got = client.decrypt(out)
-        wrong += int(np.count_nonzero(got != np.array(TABLE)[x] - y))
-    launches = dict(_build.LAUNCHES)       # ... and ends here
+    state = (server, client, ev, requests, encrypted)
+    run = serve_requests(*state, "auto",
+                         {"rotate_decompose": p.n_small,
+                          "external_product_accumulate": p.n_small})
+    run.update(keygen_s=keygen_s, pack_s=pack_s, n_small=p.n_small,
+               truncate_limbs=bsk.truncate_limbs, state=state, bsk=bsk)
+    return run
+
+
+def serve_requests(server, client, ev, requests, encrypted, mode,
+                   want_counts):
+    """Three table requests with kernels.BANDED_MM_MODE = `mode` and the
+    evaluation keys `ev` (packed on their first use, then cached); each
+    must launch exactly `want_counts` (kernel name -> launches, 0 for
+    none)."""
+    import numpy as np
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.ops import _build
+    p = server.client_specs.params
+    size = requests[0][0].shape[0]
+    wrong, walls, per_request, outs = 0, [], [], []
+    kn.BANDED_MM_MODE = mode
+    try:
+        _build.reset_launches()           # this path's run starts here
+        for (x, y), (cx, cy) in zip(requests, encrypted):
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            (out,) = server.run(cx, cy, evaluation_keys=ev)
+            walls.append(time.perf_counter() - t0)
+            per_request.append({k: v - before.get(k, 0)
+                                for k, v in _build.LAUNCHES.items()
+                                if v - before.get(k, 0)})
+            if out.shape != (size, p.n_big + 1) or out.dtype != np.uint64:
+                fail(f"output ciphertexts {out.shape} {out.dtype}")
+            outs.append(out)
+            got = client.decrypt(out)
+            wrong += int(np.count_nonzero(got != np.array(TABLE)[x] - y))
+        launches = dict(_build.LAUNCHES)   # ... and ends here
+    finally:
+        kn.BANDED_MM_MODE = "auto"
     total = REQUESTS * size
     for i, (wall, counts) in enumerate(zip(walls, per_request)):
-        print(f"request {i}: {size} lookups in {wall:.3f} s = "
+        print(f"{mode} request {i}: {size} lookups in {wall:.3f} s = "
               f"{size / wall:.1f} PBS/s, launches {counts}", flush=True)
-        for name in ("rotate_decompose", "external_product_accumulate"):
-            if counts.get(name) != p.n_small:
-                fail(f"request {i} launched {name} {counts.get(name)} "
-                     f"times, want one per blind-rotate step ({p.n_small})")
+        for name, want in want_counts.items():
+            if counts.get(name, 0) != want:
+                fail(f"{mode} request {i} launched {name} "
+                     f"{counts.get(name, 0)} times, want {want}")
     allowed = max(2, 1e-3 * total)
-    print(f"decryptions wrong: {wrong} of {total} (allowed {allowed})",
-          flush=True)
+    print(f"{mode} decryptions wrong: {wrong} of {total} (allowed "
+          f"{allowed})", flush=True)
     if wrong > allowed:
-        fail(f"{wrong} wrong decryptions of {total}")
+        fail(f"{mode}: {wrong} wrong decryptions of {total}")
     return {"walls_s": walls, "pbs_per_s": [size / w for w in walls],
-            "wrong": wrong, "lookups": total, "keygen_s": keygen_s,
-            "pack_s": pack_s, "n_small": p.n_small, "launches": launches,
-            "truncate_limbs": bsk.truncate_limbs}
+            "wrong": wrong, "lookups": total, "launches": launches,
+            "per_request": per_request, "outputs": outs}
+
+
+def serve_pallas(run):
+    """The table archive again, in the JAX package's "pallas" banded mode:
+    the same keys and ciphertexts, kernel A then kernel 9 then the
+    standalone recombine at every step, and the "auto" outputs' bits."""
+    import numpy as np
+    n_small = run["n_small"]
+    pal = serve_requests(*run["state"], "pallas",
+                         {"rotate_decompose": n_small,
+                          "banded_matmul": n_small,
+                          "recombine_accumulate": n_small,
+                          "external_product_accumulate": 0})
+    for i, (a, b) in enumerate(zip(run["outputs"], pal["outputs"])):
+        if not np.array_equal(a, b):
+            fail(f"pallas request {i}: output ciphertexts differ from the "
+                 f"auto mode's")
+    print("pallas-mode output ciphertexts equal the auto mode's, bit for "
+          "bit", flush=True)
+    return pal
+
+
+def check_modes(rng, bsk, params, batch=64):
+    """One blind rotate of `batch` ciphertexts in each banded mode, with the
+    served archive's key: the accumulators must be equal."""
+    import torch
+    from concrete_tpu_torch.core import kernels as kn
+    ct = rand_torus(rng, (batch, params.n_small + 1), "cuda")
+    lut = rand_torus(rng, (params.polynomial_size,), "cuda")
+    ref_acc, walls = None, {}
+    try:
+        for mode in kn.BANDED_MM_MODES:
+            kn.BANDED_MM_MODE = mode
+            t0 = time.perf_counter()
+            acc = kn.blind_rotate(ct, bsk, lut, params)
+            torch.cuda.synchronize()
+            walls[mode] = time.perf_counter() - t0
+            if ref_acc is None:
+                ref_acc = acc
+            elif not torch.equal(acc, ref_acc):
+                fail(f"banded mode {mode} gives another accumulator than "
+                     f"{kn.BANDED_MM_MODES[0]}")
+    finally:
+        kn.BANDED_MM_MODE = "auto"
+    print(f"blind rotate of {batch} ciphertexts equal in every banded mode; "
+          f"walls s {walls}", flush=True)
+    return walls
+
+
+def latency_lookups(rng):
+    """The latency blind rotate (B <= LATENCY_BATCH_MAX) at the
+    pbs_latency_b1 configuration, BENCH_PARAMS_4BIT_TPUOPT with its key
+    truncation: keys from a seed, pbs_batch at B = 1 and 4 with the
+    decryptions checked, then three timed single lookups."""
+    import numpy as np
+    import torch
+    from concrete_tpu_torch import params as pp
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.core import keygen as kg
+    from concrete_tpu_torch.core import refimpl as ref
+    from concrete_tpu_torch.ops import _build
+    params = pp.BENCH_PARAMS_4BIT_TPUOPT
+    t0 = time.perf_counter()
+    sk, server_keys = kg.keygen(np.random.default_rng(SEED), params)
+    trunc = pp.choose_truncate_limbs(params, 4)
+    ksk = kn.pack_ksk(server_keys.ksk, params, device="cuda")
+    bsk = kn.pack_bsk(server_keys.bsk, params, trunc, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    lut = torch.from_numpy(ref.encode_expand_lut(
+        np.array(TABLE, dtype=np.uint64), params.polynomial_size, 4)
+        .view(np.int64)).cuda()
+    n_small = params.n_small
+    print(f"latency path: {params}, truncate_limbs {trunc}, keygen and "
+          f"pack {setup_s:.2f} s", flush=True)
+
+    def lookup(batch):
+        msgs = rng.integers(0, 16, batch)
+        ct = torch.from_numpy(kg.encrypt_lwe_batch(
+            rng, sk.lwe_big, ref.encode(msgs, 4), params.glwe_std)
+            .view(np.int64)).cuda()
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        out = kn.pbs_batch(ct, ksk, bsk, lut, params, 4)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                  if v - before.get(k, 0)}
+        dec = ref.decode(ref.lwe_decrypt(
+            sk.lwe_big, out.cpu().numpy().view(np.uint64)), 4)
+        wrong = int(np.count_nonzero(dec != np.array(TABLE)[msgs]))
+        for name in ("rotate_decompose_digits", "banded_matmul",
+                     "recombine_accumulate"):
+            if counts.get(name) != n_small:
+                fail(f"a B={batch} latency lookup launched {name} "
+                     f"{counts.get(name)} times, want {n_small}")
+        if wrong:
+            fail(f"latency lookups at B={batch}: {wrong} wrong of {batch}")
+        return wall, counts
+
+    _build.reset_launches()               # the latency path starts here
+    checked = {batch: lookup(batch)[0] for batch in (1, 4)}
+    timed = [lookup(1) for _ in range(3)]
+    launches = dict(_build.LAUNCHES)       # ... and ends here
+    walls = [w for w, _ in timed]
+    print(f"latency lookups right at B=1 and B=4 ({checked} s); three B=1 "
+          f"lookups {[f'{w * 1e3:.1f}' for w in walls]} ms, launches per "
+          f"lookup {timed[0][1]}", flush=True)
+    return {"setup_s": setup_s, "truncate_limbs": trunc, "checked_s":
+            checked, "b1_walls_s": walls, "per_lookup": timed[0][1],
+            "launches": launches}
 
 
 def sm_clock() -> tuple[int, float, str]:
@@ -696,6 +904,23 @@ def main() -> None:
                            s_planes=8, keep=8, limb_offset=0, timed=False)
     check_external_product(rng, batch=3, levels=3, kp1=2, n=512, a_limbs=2,
                            s_planes=4, keep=4, limb_offset=4, timed=False)
+    # kernel 9 at the table step (the "pallas" mode's shape), with two
+    # digit limbs, and at the latency path's (k+1 rows, Cout = B, the 4
+    # kept BSK limb planes as lhs limbs, 1 digit limb)
+    rec_bm = check_banded_matmul(rng, a_limbs=1, rows=1024, cin=8, cout=2,
+                                 s_planes=4, n=1024, timed=True)
+    check_banded_matmul(rng, a_limbs=2, rows=16, cin=4, cout=2, s_planes=8,
+                        n=256, timed=False)
+    rec_bm_lat = check_banded_matmul(rng, a_limbs=4, rows=2, cin=8, cout=1,
+                                     s_planes=1, n=1024, timed=True)
+    check_banded_matmul(rng, a_limbs=4, rows=2, cin=8, cout=4, s_planes=1,
+                        n=1024, timed=False)
+    rec_rc = check_recombine(rng, rows=2048, n_planes=4, n=1024,
+                             limb_offset=4, timed=True)
+    check_recombine(rng, rows=2048, n_planes=8, n=1024, limb_offset=0,
+                    timed=False)
+    check_recombine(rng, rows=8, n_planes=4, n=1024, limb_offset=4,
+                    timed=False)
 
     # the serve phase runs n_small steps of both kernels per request
     est_s = REQUESTS * 698 * (rec_a["ms"] + rec_b["ms"]) / 1e3
@@ -704,6 +929,21 @@ def main() -> None:
         fail(f"the kernels are too slow to serve {REQUESTS} requests within "
              f"the smoke's time limit (estimate {est_s:.0f} s)")
     run = serve(rng)
+    # ... and in "pallas" mode, n_small steps of kernels A, 9 and the
+    # recombine; then one blind rotate in each of the five modes (the
+    # "fuseddot" and "planes" steps are torch._int_mm, about 1 ms each)
+    est_s = REQUESTS * 698 * (rec_a["ms"] + rec_bm["ms"] + rec_rc["ms"]) \
+        / 1e3
+    print(f"pallas-mode serve estimate from the kernel times: {est_s:.1f} s",
+          flush=True)
+    if est_s > 300:
+        fail(f"the pallas-mode kernels are too slow to serve {REQUESTS} "
+             f"requests within the smoke's time limit (estimate "
+             f"{est_s:.0f} s)")
+    pal = serve_pallas(run)
+    server = run.pop("state")[0]
+    modes = check_modes(rng, run.pop("bsk"), server.client_specs.params)
+    latency = latency_lookups(rng)
 
     # the CRT-NTT path: its kernels at the MLP archive's shapes (256
     # ciphertexts x (k+1)=2 rows, N=4096, l=2, base 2^8, its 3 primes,
@@ -764,10 +1004,22 @@ def main() -> None:
         {"name": "external_product_accumulate", "route": "cuda",
          "source": "concrete_tpu_torch/csrc/external_product.cu",
          "replaces": "concrete_tpu/ops/pallas_dot_recombine.py:288 "
-                     "(and :203 dot_recombine_hi, pallas_step.py:385 "
-                     "recombine_accumulate)",
+                     "(and :203 dot_recombine_hi; its epilogue does the "
+                     "shift-add that recombine_accumulate does alone)",
          "launches": run["launches"].get("external_product_accumulate", 0),
          **{k: rec_b[k] for k in fields}},
+        {"name": "banded_matmul", "route": "cuda",
+         "source": "concrete_tpu_torch/csrc/banded_mm.cu",
+         "replaces": "concrete_tpu/ops/pallas_banded_mm.py:88 "
+                     "banded_matmul_fused (pallas_call :117)",
+         "launches": pal["launches"].get("banded_matmul", 0),
+         **{k: rec_bm[k] for k in fields}},
+        {"name": "recombine_accumulate", "route": "cuda",
+         "source": "concrete_tpu_torch/csrc/recombine_accumulate.cu",
+         "replaces": "concrete_tpu/ops/pallas_step.py:385 "
+                     "recombine_accumulate (pallas_call :403)",
+         "launches": pal["launches"].get("recombine_accumulate", 0),
+         **{k: rec_rc[k] for k in fields}},
         {"name": "rotate_decompose_digits", "route": "cuda",
          "source": "concrete_tpu_torch/csrc/rotate_decompose.cu",
          "replaces": "concrete_tpu/ops/pallas_step.py:322 (and the "
@@ -803,12 +1055,18 @@ def main() -> None:
     if leaked:
         fail(f"the port imported {leaked}")
     os.makedirs(OUT_DIR, exist_ok=True)
+    for rec in (run, pal):
+        rec.pop("outputs")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card_line, "clocks": clock[2], "sass_mix": mix,
-                   "kernels": kernels, "serve": run, "serve_mlp": mlp,
-                   "direct_lookups": direct,
+                   "kernels": kernels, "serve": run, "serve_pallas": pal,
+                   "banded_modes_walls_s": modes, "latency": latency,
+                   "serve_mlp": mlp, "direct_lookups": direct,
                    "detail": {"rotate_decompose": rec_a,
                               "external_product_accumulate": rec_b,
+                              "banded_matmul": rec_bm,
+                              "banded_matmul_latency_b1": rec_bm_lat,
+                              "recombine_accumulate": rec_rc,
                               "ntt_forward": rec_ntt, "ntt_inverse": rec_inv,
                               **rec_f},
                    "build_s": _build.BUILD_INFO["seconds"]}, f, indent=1)

@@ -6,16 +6,25 @@ holds them to it.  Torus values are int64 tensors (mod 2^64 wrap, logical
 right shifts through ``limbs.srl``); shapes use B = batch, n = small LWE dim,
 k = GLWE dim, N = poly size, l = decomposition levels.
 
-The blind rotate is a Python loop over the n mask coefficients.  With a
-banded ``LimbBSK`` each step calls two hand-written CUDA kernels of
-``ops/`` on a CUDA accumulator (their plain PyTorch versions on a CPU one):
+The blind rotate is a Python loop over the n mask coefficients, and
+dispatches as the JAX package does.  A ``FusedBSK`` runs
+``ops.fused_ntt.blind_rotate_fused`` (three kernels per step: digits,
+CRT-NTT external product, Garner).  A banded ``LimbBSK`` at a batch of at
+most ``LATENCY_BATCH_MAX`` runs ``_blind_rotate_latency``; above it, each
+step runs ``ops.step.rotate_decompose`` (X^a * acc - acc, gadget digits,
+int8 limbs) and then the product selected by ``BANDED_MM_MODE``:
 
-- ``ops.step.rotate_decompose``: X^a * acc - acc, gadget digits, int8 limbs;
-- ``ops.external_product.external_product_accumulate``: the digit limbs
-  times one step of the banded BSK, shift-added into acc in place.
+- ``"auto"``, ``"fusedrecombine"``: ``ops.external_product``'s kernel B,
+  the product shift-added into acc in place;
+- ``"pallas"``: ``ops.banded_mm.banded_matmul`` (kernel 9), then
+  ``ops.recombine.recombine_accumulate``;
+- ``"fuseddot"``: one ``torch._int_mm`` against the Toeplitz rhs, then
+  ``recombine_accumulate``;
+- ``"planes"``: one ``torch._int_mm`` per J-block and digit limb
+  (``banded_matmul_plain``), then ``recombine_accumulate``.
 
-With a ``FusedBSK`` the scan is ``ops.fused_ntt.blind_rotate_fused``
-(three kernels per step: digits, CRT-NTT external product, Garner).
+Every mode gives the same bits.  Kernels run on a CUDA accumulator, their
+plain PyTorch versions on a CPU one.
 
 Keyswitch, modulus switch, LUT expansion and sample extract stay plain torch
 ops, as they stay plain XLA in the JAX package.
@@ -24,17 +33,33 @@ ops, as they stay plain XLA in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from concrete_tpu_torch.core import limbs as lb
+from concrete_tpu_torch.ops import banded_mm as bm
 from concrete_tpu_torch.ops import external_product as xp
+from concrete_tpu_torch.ops import recombine as rc
 from concrete_tpu_torch.ops import step
 from concrete_tpu_torch.params import CryptoParams
 
 _Q_LOG = 64
 _M32 = 0xFFFFFFFF
+
+#: the JAX package's banded-matmul switch (its core/kernels.py), read from
+#: the same environment variables: ``CONCRETE_TPU_FUSED_MM=1`` makes
+#: "pallas" the default of ``CONCRETE_TPU_BANDED_MM``
+USE_FUSED_BANDED_MM = os.environ.get("CONCRETE_TPU_FUSED_MM", "0") == "1"
+BANDED_MM_MODE = os.environ.get(
+    "CONCRETE_TPU_BANDED_MM", "pallas" if USE_FUSED_BANDED_MM else "auto")
+BANDED_MM_MODES = ("auto", "fusedrecombine", "pallas", "fuseddot", "planes")
+
+#: banded blind rotates of at most this many ciphertexts take the latency
+#: path (band stacks built from the digits, the BSK step as the lhs)
+LATENCY_BATCH_MAX = int(os.environ.get("CONCRETE_TPU_LATENCY_BATCH_MAX",
+                                       "4"))
 
 
 # ---------------------------------------------------------------------------
@@ -212,35 +237,63 @@ def _lut_rows(lut_poly: torch.Tensor, b_ct: int, n: int) -> torch.Tensor:
     return lut_poly.reshape(b_ct, n)
 
 
+def _switch_and_init(ct_small: torch.Tensor, lut_poly: torch.Tensor,
+                     params: CryptoParams):
+    """The switched mask (B, n) int32 and the first accumulator (B, k+1, N):
+    the trivial GLWE of X^{-b~} * LUT."""
+    b_ct = ct_small.shape[0]
+    n = params.polynomial_size
+    k = params.glwe_dimension
+    switched = modulus_switch(ct_small, params.log2_polynomial_size)
+    a_t, b_t = switched[:, :-1], switched[:, -1]
+    body0 = monomial_mul_batch(_lut_rows(lut_poly, b_ct, n),
+                               (2 * n - b_t) % (2 * n))
+    acc = torch.zeros((b_ct, k + 1, n), dtype=torch.int64,
+                      device=ct_small.device)
+    acc[:, k, :] = body0
+    return a_t, acc
+
+
+def _banded_lhs(planes: torch.Tensor, kp1: int, levels: int) -> torch.Tensor:
+    """Kernel A's planes (l*A, B*(k+1), N) as the banded matmul's lhs
+    (A, B, Cin*N), Cin = lev*(k+1) + r: the JAX package's per-limb
+    concatenation over the levels."""
+    la, rows, n = planes.shape
+    a_limbs = la // levels
+    return (planes.view(levels, a_limbs, rows // kp1, kp1, n)
+            .permute(1, 2, 0, 3, 4)
+            .reshape(a_limbs, rows // kp1, levels * kp1 * n).contiguous())
+
+
 def blind_rotate(ct_small: torch.Tensor, bsk, lut_poly: torch.Tensor,
                  params: CryptoParams) -> torch.Tensor:
     """Batched blind rotation: (B, n+1) ct, (N,) or (B, N) LUT ->
-    accumulator (B, k+1, N).  The key's type picks the algorithm, as in
-    the JAX package: a ``FusedBSK`` runs the CRT-NTT scan
-    (``ops.fused_ntt.blind_rotate_fused``), a ``LimbBSK`` the banded one
-    with ``_blind_rotate_xla`` semantics.
+    accumulator (B, k+1, N), dispatched as in the JAX package: a
+    ``FusedBSK`` runs the CRT-NTT scan (``ops.fused_ntt.blind_rotate_fused``)
+    at any batch; a ``LimbBSK`` runs ``_blind_rotate_latency`` at
+    B <= ``LATENCY_BATCH_MAX``, else the banded scan in ``BANDED_MM_MODE``.
 
     Banded, per step i: acc += recombine(Decomp(X^{a_i} acc - acc) (.)
     BSK_i), the kept limb planes shifted by 8*(s + truncate_limbs).  The
-    accumulator is one (B*(k+1), N) int64 tensor that kernel B updates in
-    place.
+    accumulator is one (B*(k+1), N) int64 tensor, updated in place by
+    kernel B or by ``recombine_accumulate``.
     """
     from concrete_tpu_torch.ops.fused_ntt import FusedBSK, blind_rotate_fused
     if isinstance(bsk, FusedBSK):
         return blind_rotate_fused(ct_small, bsk, lut_poly, params)
     if not isinstance(bsk, LimbBSK):
         raise TypeError(f"unknown bootstrap key type {type(bsk).__name__}")
+    mode = BANDED_MM_MODE
+    if mode not in BANDED_MM_MODES:
+        raise ValueError(f"unknown banded-matmul mode {mode!r}; choose from "
+                         f"{BANDED_MM_MODES}")
+    if ct_small.shape[0] <= LATENCY_BATCH_MAX:
+        return _blind_rotate_latency(ct_small, bsk, lut_poly, params)
     b_ct = ct_small.shape[0]
     n = params.polynomial_size
-    k = params.glwe_dimension
-    kp1 = k + 1
-    switched = modulus_switch(ct_small, params.log2_polynomial_size)
-    a_t, b_t = switched[:, :-1], switched[:, -1]
-    body0 = monomial_mul_batch(_lut_rows(lut_poly, b_ct, n),
-                               (2 * n - b_t) % (2 * n))
-    acc = torch.zeros((b_ct, kp1, n), dtype=torch.int64,
-                      device=ct_small.device)
-    acc[:, k, :] = body0
+    kp1 = params.glwe_dimension + 1
+    levels = params.pbs_level
+    a_t, acc = _switch_and_init(ct_small, lut_poly, params)
     acc = acc.view(b_ct * kp1, n)
     # per-step rotation of every accumulator row: (n_small, B*(k+1))
     a_rows = a_t.t().repeat_interleave(kp1, dim=1).contiguous()
@@ -248,12 +301,67 @@ def blind_rotate(ct_small: torch.Tensor, bsk, lut_poly: torch.Tensor,
     keep = 8 - bsk.truncate_limbs
     for i in range(bsk.n_small):
         planes = step.rotate_decompose(
-            acc, a_rows[i], base_log=params.pbs_base_log,
-            levels=params.pbs_level, a_limbs=a_limbs)
-        xp.external_product_accumulate(planes, bsk.planes[i], acc,
-                                       keep=keep,
-                                       limb_offset=bsk.truncate_limbs)
+            acc, a_rows[i], base_log=params.pbs_base_log, levels=levels,
+            a_limbs=a_limbs)
+        w_vv = bsk.planes[i]
+        if mode in ("auto", "fusedrecombine"):
+            xp.external_product_accumulate(planes, w_vv, acc, keep=keep,
+                                           limb_offset=bsk.truncate_limbs)
+            continue
+        if mode == "fuseddot":
+            prods = lb.int8_matmul(xp.digit_lhs(planes, kp1, levels),
+                                   xp.toeplitz_rhs(w_vv, a_limbs, keep))
+        else:
+            matmul = bm.banded_matmul if mode == "pallas" \
+                else bm.banded_matmul_plain
+            prods = matmul(_banded_lhs(planes, kp1, levels), w_vv)
+        # planes past keep sit at shifts >= 64 and add nothing
+        rc.recombine_accumulate(prods.view(b_ct * kp1, -1, n), acc,
+                                limb_offset=bsk.truncate_limbs)
     return acc.view(b_ct, kp1, n)
+
+
+def _blind_rotate_latency(ct_small: torch.Tensor, bsk: LimbBSK,
+                          lut_poly: torch.Tensor,
+                          params: CryptoParams) -> torch.Tensor:
+    """Latency-mode banded blind rotate for B <= LATENCY_BATCH_MAX, the
+    counterpart of the JAX package's ``_blind_rotate_xla_latency`` and bit
+    for bit its output.
+
+    The roles of the product are swapped: the band stacks come from the
+    rotated digits, ext_d = [-d[..., 1:], d] negated as signed int32 digits
+    before the limb split, and the BSK step's raw limb rows w_vv[..., N-1:]
+    are the lhs, one (k+1, Cin*N) block per kept BSK limb plane.  With a
+    truncated key the low limbs of -w then differ from those the throughput
+    path reads, so the two paths' bits differ.  Per step: kernel 1
+    (``rotate_decompose_digits``), the limb split, ``banded_matmul`` with
+    k+1 rows and Cout = B, and ``recombine_accumulate``.  The accumulator
+    rows are ordered (r, b), the order of the product's planes.
+    """
+    b_ct = ct_small.shape[0]
+    n = params.polynomial_size
+    kp1 = params.glwe_dimension + 1
+    levels = params.pbs_level
+    cin = levels * kp1
+    a_t, acc = _switch_and_init(ct_small, lut_poly, params)
+    acc = acc.transpose(0, 1).contiguous().view(kp1 * b_ct, n)
+    a_rows = a_t.t().repeat(1, kp1).contiguous()    # row r*B + b: a_t[b]
+    a_limbs = lb.num_digit_limbs(params.pbs_base_log)
+    for i in range(bsk.n_small):
+        digits = step.rotate_decompose_digits(
+            acc, a_rows[i], base_log=params.pbs_base_log, levels=levels)
+        d = (digits.view(levels, kp1, b_ct, n).permute(2, 0, 1, 3)
+             .reshape(b_ct, cin, n))                 # Cin = lev*(k+1) + r
+        ext_d = torch.cat([-d[..., 1:], d], dim=-1)  # (B, Cin, 2N-1)
+        vv_d = lb.i32_digits_to_balanced_i8(ext_d, a_limbs) \
+            .permute(1, 0, 3, 2).contiguous()        # (Cin, B, A, 2N-1)
+        w_raw = bsk.planes[i][..., n - 1:]           # (Cin, k+1, S, N)
+        lhs = w_raw.permute(2, 1, 0, 3).reshape(-1, kp1, cin * n) \
+            .contiguous()                            # (S, k+1, Cin*N)
+        prods = bm.banded_matmul(lhs, vv_d)          # (k+1, B, S+A-1, N)
+        rc.recombine_accumulate(prods.view(kp1 * b_ct, -1, n), acc,
+                                limb_offset=bsk.truncate_limbs)
+    return acc.view(kp1, b_ct, n).transpose(0, 1).contiguous()
 
 
 def sample_extract(acc: torch.Tensor, index: int = 0) -> torch.Tensor:

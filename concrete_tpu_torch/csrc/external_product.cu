@@ -3,8 +3,9 @@
 // u64 accumulator in place.
 //
 // Replaces the TPU kernels concrete_tpu/ops/pallas_dot_recombine.py
-// dot_recombine (:288) and dot_recombine_hi (:203), and
-// concrete_tpu/ops/pallas_step.py recombine_accumulate (:385).  On the TPU
+// dot_recombine (:288) and dot_recombine_hi (:203); its epilogue does the
+// shift-add of concrete_tpu/ops/pallas_step.py recombine_accumulate (:385),
+// which csrc/recombine_accumulate.cu ports on its own.  On the TPU
 // the product is one MXU matmul against a Toeplitz rhs materialised from
 // the BSK step (64 MB per step at N=1024, build_fused_rhs), followed by an
 // epilogue on (lo, hi) u32 pairs.  Here the Toeplitz structure is read

@@ -1,9 +1,9 @@
 """Kernel B of the blind-rotate step: external product + recombine-accumulate.
 
 Counterpart of ``concrete_tpu/ops/pallas_dot_recombine.py`` (``dot_recombine``
-and ``dot_recombine_hi``) and of ``pallas_step.recombine_accumulate``; the
-CUDA source is ``csrc/external_product.cu`` (its header says what bounds it
-and how).  The kernel reads the banded BSK step directly and never builds
+and ``dot_recombine_hi``); its epilogue does the shift-add that
+``ops/recombine.py`` ports alone.  The CUDA source is
+``csrc/external_product.cu`` (its header says what bounds it and how).  The kernel reads the banded BSK step directly and never builds
 the Toeplitz rhs; the plain version does build it, for ``torch._int_mm``.
 
 ``external_product_accumulate`` launches the kernel on CUDA tensors and runs

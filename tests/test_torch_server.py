@@ -406,6 +406,8 @@ def test_port_imports_no_jax():
     code = ("import sys, concrete_tpu_torch, concrete_tpu_torch.compilation."
             "executor, concrete_tpu_torch.ops.step, "
             "concrete_tpu_torch.ops.fused_ntt, concrete_tpu_torch.ops.ntt, "
+            "concrete_tpu_torch.ops.banded_mm, "
+            "concrete_tpu_torch.ops.recombine, "
             "concrete_tpu_torch.optimizer.v0; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'concrete_tpu' or m.startswith('concrete_tpu.')]"

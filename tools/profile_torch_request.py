@@ -1,6 +1,6 @@
 """Device-time breakdown of one request of the PyTorch port on a GPU.
 
-    python3 tools/profile_torch_request.py [table|mlp ...]
+    python3 tools/profile_torch_request.py [table|mlp|table:MODE ...]
 
 For each named committed archive (default: ``table``):
 
@@ -9,14 +9,20 @@ For each named committed archive (default: ``table``):
 - ``mlp``: ``concrete_tpu_torch/fixtures/mlp_q2_b64.zip``, the benchmark
   QuantizedMLP over 64 samples, 256 lookups at 128-bit N=4096 parameters
   (CRT-NTT blind rotate);
+- ``table:MODE``: the table archive with ``kernels.BANDED_MM_MODE`` set to
+  MODE, one of the JAX package's banded modes (``auto``,
+  ``fusedrecombine``, ``pallas``, ``fuseddot``, ``planes``), e.g.
+  ``table:pallas`` for kernels A, 9 and the standalone recombine;
 
 loads it on CUDA, generates keys from a fixed seed, runs one request (which
 packs the keys), one untraced request, then one request under
 ``torch.profiler`` (CPU and CUDA activities).  Prints the card, the
 requests' wall times, the summed device time of the traced request, the
 device's idle share of its wall time, and the device time by kernel name;
-writes the same as JSON to ``chiprun_out/torch_request_profile.json``
-(``table``) or ``chiprun_out/torch_request_profile_mlp.json`` (``mlp``).
+writes the same as JSON into the repo's git-ignored output directory, as
+``torch_request_profile.json`` (``table``),
+``torch_request_profile_mlp.json`` (``mlp``) or
+``torch_request_profile_table_MODE.json`` (``table:MODE``).
 Needs a GPU; exits non-zero without one.
 """
 
@@ -49,9 +55,24 @@ ARCHIVES = {
 
 
 def profile(name: str, card: str) -> dict:
+    """Trace one request of archive `name`, or of ``table:MODE`` in the
+    banded mode MODE."""
+    from concrete_tpu_torch.core import kernels
+    name, _, mode = name.partition(":")
+    archive, out_name, make_inputs = ARCHIVES[name]
+    if mode:
+        out_name = f"torch_request_profile_{name}_{mode}.json"
+    kernels.BANDED_MM_MODE = mode or "auto"
+    try:
+        return _profile(archive, out_name, make_inputs, card, mode)
+    finally:
+        kernels.BANDED_MM_MODE = "auto"
+
+
+def _profile(archive: str, out_name: str, make_inputs, card: str,
+             mode: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as trace
-    archive, out_name, make_inputs = ARCHIVES[name]
     server = tfhe.Server.load(os.path.join(FIXTURES, archive))
     client = tfhe.Client(server.client_specs)
     client.keygen(seed=1)
@@ -81,13 +102,15 @@ def profile(name: str, card: str) -> dict:
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows)
-    out = {"card": card, "archive": archive, "lookups": lookups,
+    out = {"card": card, "archive": archive, "banded_mode": mode or "auto",
+           "lookups": lookups,
            "first_request_s": first_s, "untraced_request_s": untraced_s,
            "traced_request_s": traced_s, "device_ms": device_ms,
            "idle_share": 1 - device_ms / 1e3 / traced_s,
            "by_kernel": [{"name": k, "launches": c, "device_ms": ms}
                          for k, c, ms in rows]}
-    print(f"{archive}: {lookups} lookups; request: first {first_s:.3f} s "
+    print(f"{archive} ({out['banded_mode']} banded mode): {lookups} "
+          f"lookups; request: first {first_s:.3f} s "
           f"(with key packing), untraced {untraced_s:.3f} s, traced "
           f"{traced_s:.3f} s; device busy {device_ms:.1f} ms, idle share "
           f"{out['idle_share']:.4f}")
@@ -102,10 +125,18 @@ def profile(name: str, card: str) -> dict:
 def main(names: list[str]) -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_torch_request: no GPU")
-    unknown = [n for n in names if n not in ARCHIVES]
+    from concrete_tpu_torch.core.kernels import BANDED_MM_MODES
+
+    def known(name: str) -> bool:
+        archive, colon, mode = name.partition(":")
+        return archive in ARCHIVES and (
+            not colon or (archive == "table" and mode in BANDED_MM_MODES))
+
+    unknown = [n for n in names if not known(n)]
     if unknown:
-        sys.exit(f"profile_torch_request: unknown archive(s) {unknown}; "
-                 f"choose from {sorted(ARCHIVES)}")
+        sys.exit(f"profile_torch_request: unknown argument(s) {unknown}; "
+                 f"choose from {sorted(ARCHIVES)} or table:MODE with MODE "
+                 f"in {BANDED_MM_MODES}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
