@@ -8,11 +8,14 @@
 2. holds each banded kernel (A, B, 9 ``banded_matmul`` and the standalone
    ``recombine_accumulate``) bit-exact against its plain PyTorch version
    on the card, at the shapes the 128-bit N=1024 server path gives it
-   (and at limb_offset 0 / keep 8, with two digit limbs at a small shape,
-   and kernel 9 at the latency path's k+1 = 2 rows with Cout = B in
-   {1, 4}), and times kernel, plain version and, for the two products,
-   the ``torch._int_mm`` of the same product against a pre-built
-   Toeplitz matrix (a yardstick the port never calls);
+   (kernel 9 on kernel A's digit planes in place, and on the JAX
+   package's stacked lhs; limb_offset 0 / keep 8; two digit limbs at a
+   small shape; kernel 9 at the latency path's k+1 = 2 rows with Cout = B
+   in {1, 4}, and kernel 1 on a full accumulator at its 2 and 8 rows),
+   and times kernel, plain version and, for the two products, the
+   ``torch._int_mm`` of the same product against a pre-built Toeplitz
+   matrix, its lhs zero-padded to 17 rows where it has fewer (a yardstick
+   the port never calls);
 3. serves the committed deployment archive (``table[x] - y`` over 1024
    encrypted 4-bit pairs, 128-bit parameters, N=1024): ``Server.load`` on
    CUDA, ``Client.keygen`` from a seed, three requests, decryptions checked
@@ -24,7 +27,9 @@
    the five banded modes, whose accumulators must be equal; then the
    latency blind rotate (B <= 4) at the ``pbs_latency_b1`` configuration
    (BENCH_PARAMS_4BIT_TPUOPT, truncated key): lookups at B = 1 and 4
-   decrypted right, three single lookups timed;
+   decrypted right, three single lookups timed, and the B = 1 and 4
+   outputs equal, bit for bit, to ``pbs_batch`` on CPU copies of the keys
+   and ciphertexts (every kernel's plain version);
 4. holds each kernel of the CRT-NTT blind rotate bit-exact against its
    plain PyTorch version on the card, over a few blind-rotate steps at the
    shapes the N=4096 QuantizedMLP archive gives them (256 ciphertexts,
@@ -232,35 +237,83 @@ def check_external_product(rng, *, batch, levels, kp1, n, a_limbs,
 
 
 def check_banded_matmul(rng, *, a_limbs, rows, cin, cout, s_planes, n,
-                        timed):
-    """Kernel 9 against its plain version (per-J-block torch._int_mm)."""
+                        timed, levels=None):
+    """Kernel 9 against its plain version (per-J-block torch._int_mm); with
+    `levels`, on kernel A's digit planes (l*A, B*(k+1), N) read in place,
+    as the "pallas" step passes them."""
     import torch
     from concrete_tpu_torch.ops import banded_mm as bm
     from concrete_tpu_torch.ops import external_product as xp
-    lhs = rand_i8(rng, (a_limbs, rows, cin * n), "cuda")
+    if levels is None:
+        lhs = rand_i8(rng, (a_limbs, rows, cin * n), "cuda")
+    else:
+        lhs = rand_i8(rng, (levels * a_limbs, rows * cin // levels, n),
+                      "cuda")
     vv = rand_i8(rng, (cin, cout, s_planes, 2 * n - 1), "cuda")
-    got = bm.banded_matmul(lhs, vv)
-    want = bm.banded_matmul_plain(lhs, vv)
+    got = bm.banded_matmul(lhs, vv, levels=levels)
+    want = bm.banded_matmul_plain(lhs, vv, levels=levels)
     torch.cuda.synchronize()
     shape = (f"A={a_limbs} B={rows} Cin={cin} Cout={cout} S={s_planes} "
-             f"N={n}")
+             f"N={n} levels={levels}")
     if not torch.equal(got, want):
         fail(f"banded_matmul differs from its plain version at {shape}")
     rec = {"max_abs_err": max_abs_err(got, want)}
     if timed:
-        rec["ms"] = cuda_ms(lambda: bm.banded_matmul(lhs, vv), 20)
-        rec["plain_ms"] = cuda_ms(lambda: bm.banded_matmul_plain(lhs, vv), 3)
-        rec["library_ms"] = None
-        if rows > 16:         # torch._int_mm needs more than 16 rows
-            lhs_cat = lhs.permute(1, 0, 2).reshape(rows, -1).contiguous()
-            rhs = xp.toeplitz_rhs(vv, a_limbs, got.shape[2]).contiguous()
-            rec["library_ms"] = cuda_ms(lambda: torch._int_mm(lhs_cat, rhs),
-                                        10)
+        rec["ms"] = cuda_ms(lambda: bm.banded_matmul(lhs, vv, levels=levels),
+                            20)
+        rec["plain_ms"] = cuda_ms(lambda: bm.banded_matmul_plain(
+            lhs, vv, levels=levels), 3)
+        if levels is None:
+            lhs_cat = lhs.permute(1, 0, 2).reshape(rows, -1)
+        else:
+            lhs_cat = xp.digit_lhs(lhs, cin // levels, levels)
+            # the same product on the JAX package's stacked copy, and the
+            # copy itself: what reading kernel A's planes in place saves
+            stacked = bm.stacked_lhs(lhs, cin // levels, levels)
+            rec["stacked_ms"] = cuda_ms(lambda: bm.banded_matmul(stacked, vv),
+                                        20)
+            rec["stack_copy_ms"] = cuda_ms(lambda: bm.stacked_lhs(
+                lhs, cin // levels, levels), 20)
+        # torch._int_mm takes more than 16 rows: zero rows pad the lhs
+        lhs_cat = torch.nn.functional.pad(
+            lhs_cat, (0, 0, 0, max(0, 17 - rows))).contiguous()
+        rhs = xp.toeplitz_rhs(vv, a_limbs, got.shape[2]).contiguous()
+        rec["library_ms"] = cuda_ms(lambda: torch._int_mm(lhs_cat, rhs), 10)
         macs = rows * cout * a_limbs * s_planes * cin * n * n
         rec.update(bound(2 * macs / PEAK_INT8_OPS * 1e3,
                          lhs.numel() + vv.numel() + got.numel() * 4,
-                         macs=macs))
+                         macs=macs, library_rows=lhs_cat.shape[0]))
     print(f"banded_matmul bit-exact at {shape}: {rec}", flush=True)
+    return rec
+
+
+def check_digits(rng, *, rows, n, base_log, levels, timed, clock):
+    """Kernel 1 on a full int64 accumulator against its plain version: the
+    latency path's front, at its shapes (k+1 rows per ciphertext)."""
+    import numpy as np
+    import torch
+    from concrete_tpu_torch.ops import step
+    acc = rand_torus(rng, (rows, n), "cuda")
+    a_rows = torch.from_numpy(rng.integers(0, 2 * n, rows)
+                              .astype(np.int32)).cuda()
+    kw = dict(base_log=base_log, levels=levels)
+    got = step.rotate_decompose_digits(acc, a_rows, **kw)
+    want = step.rotate_decompose_digits_plain(acc, a_rows, **kw)
+    torch.cuda.synchronize()
+    shape = f"rows={rows} N={n} base_log={base_log} l={levels} full"
+    if not torch.equal(got, want):
+        fail(f"rotate_decompose_digits differs from its plain version at "
+             f"{shape}")
+    rec = {"max_abs_err": max_abs_err(got, want)}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: step.rotate_decompose_digits(
+            acc, a_rows, **kw), 50)
+        rec["plain_ms"] = cuda_ms(lambda: step.rotate_decompose_digits_plain(
+            acc, a_rows, **kw), 5)
+        rec.update(bound(tally_ms(rows * n * (10 + 6 * levels), clock),
+                         acc.numel() * 8 + rows * 4 + got.numel() * 4),
+                   library_ms=None)
+    print(f"rotate_decompose_digits bit-exact at {shape}: {rec}", flush=True)
     return rec
 
 
@@ -433,7 +486,10 @@ def latency_lookups(rng):
     """The latency blind rotate (B <= LATENCY_BATCH_MAX) at the
     pbs_latency_b1 configuration, BENCH_PARAMS_4BIT_TPUOPT with its key
     truncation: keys from a seed, pbs_batch at B = 1 and 4 with the
-    decryptions checked, then three timed single lookups."""
+    decryptions checked, then three timed single lookups; then the B = 1
+    and B = 4 outputs against the same pbs_batch on CPU copies of the keys
+    and ciphertexts (the plain versions of every kernel), bit for bit."""
+    import dataclasses
     import numpy as np
     import torch
     from concrete_tpu_torch import params as pp
@@ -478,19 +534,33 @@ def latency_lookups(rng):
                      f"{counts.get(name)} times, want {n_small}")
         if wrong:
             fail(f"latency lookups at B={batch}: {wrong} wrong of {batch}")
-        return wall, counts
+        return wall, counts, ct, out
 
     _build.reset_launches()               # the latency path starts here
-    checked = {batch: lookup(batch)[0] for batch in (1, 4)}
+    checked = {batch: lookup(batch) for batch in (1, 4)}
     timed = [lookup(1) for _ in range(3)]
     launches = dict(_build.LAUNCHES)       # ... and ends here
-    walls = [w for w, _ in timed]
-    print(f"latency lookups right at B=1 and B=4 ({checked} s); three B=1 "
+    walls = [w for w, *_ in timed]
+    print(f"latency lookups right at B=1 and B=4 "
+          f"({ {b: r[0] for b, r in checked.items()} } s); three B=1 "
           f"lookups {[f'{w * 1e3:.1f}' for w in walls]} ms, launches per "
           f"lookup {timed[0][1]}", flush=True)
+    ksk_cpu = dataclasses.replace(ksk, planes=ksk.planes.cpu())
+    bsk_cpu = dataclasses.replace(bsk, planes=bsk.planes.cpu())
+    cpu_s = {}
+    for batch, (_, _, ct, out) in checked.items():
+        t0 = time.perf_counter()
+        want = kn.pbs_batch(ct.cpu(), ksk_cpu, bsk_cpu, lut.cpu(), params, 4)
+        cpu_s[batch] = time.perf_counter() - t0
+        if not torch.equal(out.cpu(), want):
+            fail(f"the B={batch} latency lookup's output differs from the "
+                 f"plain path's on the CPU")
+    print(f"latency outputs at B=1 and B=4 equal the plain path's on the "
+          f"CPU, bit for bit ({cpu_s} s)", flush=True)
     return {"setup_s": setup_s, "truncate_limbs": trunc, "checked_s":
-            checked, "b1_walls_s": walls, "per_lookup": timed[0][1],
-            "launches": launches}
+            {b: r[0] for b, r in checked.items()}, "b1_walls_s": walls,
+            "per_lookup": timed[0][1], "launches": launches,
+            "cpu_plain_s": cpu_s}
 
 
 def sm_clock() -> tuple[int, float, str]:
@@ -908,9 +978,12 @@ def main() -> None:
     # digit limbs, and at the latency path's (k+1 rows, Cout = B, the 4
     # kept BSK limb planes as lhs limbs, 1 digit limb)
     rec_bm = check_banded_matmul(rng, a_limbs=1, rows=1024, cin=8, cout=2,
-                                 s_planes=4, n=1024, timed=True)
-    check_banded_matmul(rng, a_limbs=2, rows=16, cin=4, cout=2, s_planes=8,
-                        n=256, timed=False)
+                                 s_planes=4, n=1024, levels=4, timed=True)
+    check_banded_matmul(rng, a_limbs=1, rows=1024, cin=8, cout=2,
+                        s_planes=4, n=1024, timed=False)
+    for levels in (None, 2):
+        check_banded_matmul(rng, a_limbs=2, rows=16, cin=4, cout=2,
+                            s_planes=8, n=256, levels=levels, timed=False)
     rec_bm_lat = check_banded_matmul(rng, a_limbs=4, rows=2, cin=8, cout=1,
                                      s_planes=1, n=1024, timed=True)
     check_banded_matmul(rng, a_limbs=4, rows=2, cin=8, cout=4, s_planes=1,
@@ -921,6 +994,14 @@ def main() -> None:
                     timed=False)
     check_recombine(rng, rows=8, n_planes=4, n=1024, limb_offset=4,
                     timed=False)
+
+    # kernel 1 on the full accumulator at the latency path's k+1 = 2 rows
+    # per ciphertext, B = 1 and 4, N=1024, l=4, base 2^5
+    clock = sm_clock()
+    rec_d_lat = check_digits(rng, rows=2, n=1024, base_log=5, levels=4,
+                             timed=True, clock=clock)
+    check_digits(rng, rows=8, n=1024, base_log=5, levels=4, timed=False,
+                 clock=clock)
 
     # the serve phase runs n_small steps of both kernels per request
     est_s = REQUESTS * 698 * (rec_a["ms"] + rec_b["ms"]) / 1e3
@@ -949,7 +1030,6 @@ def main() -> None:
     # ciphertexts x (k+1)=2 rows, N=4096, l=2, base 2^8, its 3 primes,
     # t=0, acc32), the full accumulator, N=16384, and a truncated key
     from concrete_tpu_torch.core import ntt as host
-    clock = sm_clock()
     mix = sass_mix()
     print(f"{clock[2]}; instructions per operation by pipe, from the "
           f"probes' SASS: {mix}", flush=True)
@@ -1066,6 +1146,8 @@ def main() -> None:
                               "external_product_accumulate": rec_b,
                               "banded_matmul": rec_bm,
                               "banded_matmul_latency_b1": rec_bm_lat,
+                              "rotate_decompose_digits_latency_b1":
+                                  rec_d_lat,
                               "recombine_accumulate": rec_rc,
                               "ntt_forward": rec_ntt, "ntt_inverse": rec_inv,
                               **rec_f},

@@ -254,17 +254,6 @@ def _switch_and_init(ct_small: torch.Tensor, lut_poly: torch.Tensor,
     return a_t, acc
 
 
-def _banded_lhs(planes: torch.Tensor, kp1: int, levels: int) -> torch.Tensor:
-    """Kernel A's planes (l*A, B*(k+1), N) as the banded matmul's lhs
-    (A, B, Cin*N), Cin = lev*(k+1) + r: the JAX package's per-limb
-    concatenation over the levels."""
-    la, rows, n = planes.shape
-    a_limbs = la // levels
-    return (planes.view(levels, a_limbs, rows // kp1, kp1, n)
-            .permute(1, 2, 0, 3, 4)
-            .reshape(a_limbs, rows // kp1, levels * kp1 * n).contiguous())
-
-
 def blind_rotate(ct_small: torch.Tensor, bsk, lut_poly: torch.Tensor,
                  params: CryptoParams) -> torch.Tensor:
     """Batched blind rotation: (B, n+1) ct, (N,) or (B, N) LUT ->
@@ -314,7 +303,7 @@ def blind_rotate(ct_small: torch.Tensor, bsk, lut_poly: torch.Tensor,
         else:
             matmul = bm.banded_matmul if mode == "pallas" \
                 else bm.banded_matmul_plain
-            prods = matmul(_banded_lhs(planes, kp1, levels), w_vv)
+            prods = matmul(planes, w_vv, levels=levels)
         # planes past keep sit at shifts >= 64 and add nothing
         rc.recombine_accumulate(prods.view(b_ct * kp1, -1, n), acc,
                                 limb_offset=bsk.truncate_limbs)

@@ -11,6 +11,10 @@
 // lhs (A, B, Cin*N) int8, vv (Cin, Cout, S, 2N-1) int8 (the negacyclic
 // extension [-w[1:], w] of each limb plane), out (B, Cout, S+A-1, N) int32,
 // sums wrapping mod 2^32 as the MXU's preferred_element_type=int32 does.
+// The lhs may also be kernel A's digit planes (l*A, B*(k+1), N), read in
+// place with Cin = lev*(k+1) + r: row (lev, r) of lhs row b is plane
+// lev*A + a, row b*(k+1) + r.  With l = 1 and k+1 = Cin that is the layout
+// above, so the kernel takes kp1 = Cin / l and always indexes this way.
 //
 // Bound: operations.  B * Cout * (A*S pairs) * Cin * N^2 int8 MACs: 6.87e10
 // at the 128-bit N=1024 table step (B=1024, Cin=8, Cout=2, S=4, A=1), about
@@ -30,7 +34,10 @@
 //    register (4 consecutive j at one output t) is a funnel shift of two
 //    aligned words of it;
 //  - the lhs is staged 64 rows x 128 j at a time with 16-byte loads, in
-//    rows padded to 144 bytes so the A fragments' loads hit 32 banks;
+//    rows padded to 144 bytes so the A fragments' loads hit 32 banks; each
+//    thread's two 16-byte pieces have their offsets computed once, which
+//    keeps the kernel at 64 registers, 4 blocks per SM (recomputing them
+//    per chunk took 95 registers, 2 blocks, and 21% more time on the H100);
 //  - 8 warps, each 32 rows x 32 coefficients (2 x 4 MMA tiles); rows past
 //    B are staged as zeros and not stored (the latency path has 2 rows).
 // Not yet: wgmma, a cp.async/TMA pipeline, reuse of the window words
@@ -59,7 +66,7 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
 
 __global__ void __launch_bounds__(THREADS) banded_matmul_kernel(
     const int8_t* __restrict__ lhs, const int8_t* __restrict__ vv,
-    int* __restrict__ out, int a_limbs, int rows, int cin, int cout,
+    int* __restrict__ out, int a_limbs, int rows, int cin, int kp1, int cout,
     int s_planes, int n) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* as = smem;                 // [BM][ASTR]
@@ -73,8 +80,22 @@ __global__ void __launch_bounds__(THREADS) banded_matmul_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const int g = lane >> 2, tg = lane & 3;
-  const size_t k_len = (size_t)cin * n;
+  const size_t row_len = (size_t)kp1 * n;         // one lhs row of a plane
+  const size_t plane = (size_t)rows * row_len;     // one (lev, a) plane
   const size_t vlen = 2 * (size_t)n - 1;
+
+  // this thread's staging slots: a 16-byte piece of one lhs row; offsets
+  // within a plane, which the wrapper keeps under 2^32 bytes
+  constexpr int SLOTS = BM * (JC / 16) / THREADS;
+  unsigned s_src[SLOTS], s_dst[SLOTS];
+  bool s_ok[SLOTS];
+#pragma unroll
+  for (int k = 0; k < SLOTS; ++k) {
+    const int i = tid + k * THREADS, r = i / (JC / 16), q = i % (JC / 16);
+    s_ok[k] = b0 + r < rows;
+    s_src[k] = (unsigned)((b0 + r) * row_len + 16 * q);
+    s_dst[k] = r * ASTR + 16 * q;
+  }
 
   int acc[2][4][4];
 #pragma unroll
@@ -87,8 +108,9 @@ __global__ void __launch_bounds__(THREADS) banded_matmul_kernel(
   for (int a = 0; a < a_limbs; ++a) {
     const int s = p - a;
     if (s < 0 || s >= s_planes) continue;       // uniform over the block
-    const int8_t* lrow = lhs + (size_t)a * rows * k_len;
     for (int ci = 0; ci < cin; ++ci) {
+      const int8_t* lrow = lhs + (size_t)((ci / kp1) * a_limbs + a) * plane
+                           + (size_t)(ci % kp1) * n;
       const int8_t* vrow = vv + ((size_t)(ci * cout + co) * s_planes + s) * vlen;
       for (int jc = 0; jc < n; jc += JC) {
         __syncthreads();                         // the last chunk is used
@@ -99,13 +121,12 @@ __global__ void __launch_bounds__(THREADS) banded_matmul_kernel(
             rv[y] = y < n + BN - 1
                 ? (unsigned char)vrow[n - 1 + t0 + BN - 1 - y] : 0;
         }
-        for (int i = tid; i < BM * (JC / 16); i += THREADS) {
-          const int r = i / (JC / 16), q = i % (JC / 16);
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) {
           uint4 val = make_uint4(0, 0, 0, 0);
-          if (b0 + r < rows)
-            val = *reinterpret_cast<const uint4*>(
-                lrow + (size_t)(b0 + r) * k_len + (size_t)ci * n + jc + 16 * q);
-          *reinterpret_cast<uint4*>(as + r * ASTR + 16 * q) = val;
+          if (s_ok[k])
+            val = *reinterpret_cast<const uint4*>(lrow + s_src[k] + jc);
+          *reinterpret_cast<uint4*>(as + s_dst[k]) = val;
         }
         __syncthreads();
 #pragma unroll
@@ -158,17 +179,15 @@ __global__ void __launch_bounds__(THREADS) banded_matmul_kernel(
 }  // namespace
 
 extern "C" int banded_matmul(const void* lhs, const void* vv, void* out,
-                             int a_limbs, int rows, int cin, int cout,
-                             int s_planes, int n, void* stream) {
+                             int a_limbs, int rows, int cin, int kp1,
+                             int cout, int s_planes, int n, void* stream) {
+  // 9.4 KB + N: within the 48 KB any kernel may take without opting in
   const size_t smem = (size_t)BM * ASTR + (size_t)n + BN + 16;
-  cudaError_t err = cudaFuncSetAttribute(
-      banded_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const dim3 grid(n / BN, (rows + BM - 1) / BM,
                   cout * (s_planes + a_limbs - 1));
   banded_matmul_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const int8_t*)lhs, (const int8_t*)vv, (int*)out, a_limbs, rows, cin,
-      cout, s_planes, n);
+      kp1, cout, s_planes, n);
   return (int)cudaGetLastError();
 }

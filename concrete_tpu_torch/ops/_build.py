@@ -56,8 +56,8 @@ _SIGNATURES = {
                              _P],
     # residues, acc, constants, n_primes, elems, shift, acc32, stream
     "garner_accumulate": [_P, _P, _P, _I, _L, _I, _I, _P],
-    # lhs, vv, out, a_limbs, rows, cin, cout, s_planes, n, stream
-    "banded_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # lhs, vv, out, a_limbs, rows, cin, kp1, cout, s_planes, n, stream
+    "banded_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # planes, acc, rows, n_planes, n, limb_offset, stream
     "recombine_accumulate": [_P, _P, _I, _I, _I, _I, _P],
 }

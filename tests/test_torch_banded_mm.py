@@ -73,10 +73,38 @@ def test_banded_matmul_plain_latency_shapes(rows, cout, s_limbs, a_limbs, n):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("levels,kp1,a_limbs,n", [
+    (4, 2, 1, 128), (3, 2, 2, 128), (1, 3, 2, 64)])
+def test_banded_matmul_digit_planes_match_pallas(levels, kp1, a_limbs, n):
+    """With `levels`, the lhs is kernel A's digit planes (l*A, B*(k+1), N)
+    read in place; the result == banded_matmul_fused in interpret mode on
+    the JAX package's per-limb concatenation of those planes."""
+    rng = np.random.default_rng(60 + levels * kp1 + a_limbs)
+    b_ct, s_limbs = 8, 4
+    planes = rand_i8(rng, (levels * a_limbs, b_ct * kp1, n))
+    vv = rand_i8(rng, (levels * kp1, kp1, s_limbs, 2 * n - 1))
+    got = tbm.banded_matmul(torch.from_numpy(planes), torch.from_numpy(vv),
+                            levels=levels)
+    lhs_list = [np.concatenate(
+        [planes[lev * a_limbs + a].reshape(b_ct, kp1, n)
+         for lev in range(levels)], axis=1).reshape(b_ct, levels * kp1 * n)
+        for a in range(a_limbs)]
+    want = banded_matmul_fused([jnp.asarray(x) for x in lhs_list],
+                               jnp.asarray(vv), min(128, n), interpret=True,
+                               b_tile=8)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    stacked = tbm.stacked_lhs(torch.from_numpy(planes), kp1, levels)
+    assert np.array_equal(stacked.numpy(), np.stack(lhs_list))
+
+
 def test_banded_matmul_rejects_mismatched_operands():
     lhs = torch.zeros((1, 2, 3 * 64), dtype=torch.int8)
     with pytest.raises(ValueError, match="does not match"):
         tbm.banded_matmul(lhs, torch.zeros((2, 1, 1, 127), dtype=torch.int8))
+    with pytest.raises(ValueError, match="does not match"):
+        tbm.banded_matmul(torch.zeros((4, 6, 64), dtype=torch.int8),
+                          torch.zeros((3, 2, 1, 127), dtype=torch.int8),
+                          levels=2)
     with pytest.raises(ValueError, match="unsupported device"):
         tbm.banded_matmul(lhs.to("meta"),
                           torch.zeros((3, 1, 1, 127), dtype=torch.int8))
