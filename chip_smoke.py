@@ -11,7 +11,9 @@
    (kernel 9 on kernel A's digit planes in place, and on the JAX
    package's stacked lhs; limb_offset 0 / keep 8; two digit limbs at a
    small shape; kernel 9 at the latency path's k+1 = 2 rows with Cout = B
-   in {1, 4}, and kernel 1 on a full accumulator at its 2 and 8 rows),
+   in {1, 4}, and kernel 1 on a full accumulator at its 2 and 8 rows;
+   kernel B also at N=2048, l=2 and at batches of 200 and 1000, which
+   leave its last 128-ciphertext tile part empty),
    and times kernel, plain version and, for the two products, the
    ``torch._int_mm`` of the same product against a pre-built Toeplitz
    matrix, its lhs zero-padded to 17 rows where it has fewer (a yardstick
@@ -34,7 +36,8 @@
    plain PyTorch version on the card, over a few blind-rotate steps at the
    shapes the N=4096 QuantizedMLP archive gives them (256 ciphertexts,
    l=2, 3 primes, acc32 and full accumulator), at N=16384 with a small
-   batch, and with a truncated key (t > 0), and times them; the NTT
+   batch, with a truncated key (t > 0), and at B=5 for N in 1024 ..
+   8192 (kernel 3 is compiled once per N), and times them; the NTT
    kernels' operations bounds count the instructions nvcc emitted, per
    pipe, from the SASS of the probes in ``csrc/op_probes.cu``;
 5. serves the committed ``mlp_q2_b64.zip`` archive (the repo's benchmark
@@ -563,6 +566,25 @@ def latency_lookups(rng):
             "cpu_plain_s": cpu_s}
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's -Xptxas -v log: its
+    (mangled) name, registers, and spill stores and loads."""
+    lines, name = [], None
+    for line in log.splitlines():
+        head = re.search(r"Compiling entry function '(\S+)'", line)
+        if head:
+            name = head.group(1)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            spills = f"spills {spill.group(1)}/{spill.group(2)} B"
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            lines.append(f"{name}: {regs.group(1)} registers, {spills}")
+            name = None
+    return lines
+
+
 def sm_clock() -> tuple[int, float, str]:
     """The card's SM count and maximum SM clock (Hz), and the clocks as
     nvidia-smi reads them."""
@@ -946,9 +968,8 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s, "
           f"{[os.path.basename(s) for s in _build.BUILD_INFO['sources']]}",
           flush=True)
-    for line in _build.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    for line in ptxas_summary(_build.BUILD_INFO["log"]):
+        print("  ptxas:", line, flush=True)
     card_line = card()
     print(f"card: {card_line}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -974,6 +995,14 @@ def main() -> None:
                            s_planes=8, keep=8, limb_offset=0, timed=False)
     check_external_product(rng, batch=3, levels=3, kp1=2, n=512, a_limbs=2,
                            s_planes=4, keep=4, limb_offset=4, timed=False)
+    # the banded form of GameOfLife(8, 8)'s 5-bit parameters (N=2048, l=2),
+    # and batches that leave the last 128-ciphertext tile part empty
+    check_external_product(rng, batch=200, levels=2, kp1=2, n=2048,
+                           a_limbs=1, s_planes=4, keep=4, limb_offset=4,
+                           timed=False)
+    check_external_product(rng, batch=1000, levels=4, kp1=2, n=1024,
+                           a_limbs=1, s_planes=4, keep=4, limb_offset=4,
+                           timed=False)
     # kernel 9 at the table step (the "pallas" mode's shape), with two
     # digit limbs, and at the latency path's (k+1 rows, Cout = B, the 4
     # kept BSK limb planes as lhs limbs, 1 digit limb)
@@ -1044,6 +1073,14 @@ def main() -> None:
         check_fused_steps(rng, batch=4, n=16384, levels=2, base_log=8,
                           primes=host.special_ntt_primes(16384, 128)[:3],
                           trunc_bits=0, acc32=acc32, steps=2, clock=clock,
+                          mix=mix, timed=False)
+    # one ciphertext per block, so any batch fills its blocks; an odd one,
+    # and the transform sizes the smoke's paths do not reach (the kernel is
+    # compiled once per N)
+    for n in (1024, 2048, 4096, 8192):
+        check_fused_steps(rng, batch=5, n=n, levels=2, base_log=8,
+                          primes=host.special_ntt_primes(n, 128)[:3],
+                          trunc_bits=0, acc32=False, steps=1, clock=clock,
                           mix=mix, timed=False)
     # the 6-bit N=4096 benchmark parameters truncate their key (t > 0)
     p6 = fused_params(4096, 1, 22, 880)

@@ -41,8 +41,8 @@ class EvaluationKeys:
         """(LimbKSK, LimbBSK or FusedBSK) on `device` (default CUDA) for
         Server.run, with the JAX package's BSK form and truncation policy;
         cached per arguments."""
-        from concrete_tpu_torch.compilation.keys import (pack_evaluation,
-                                                         resolve_device)
+        from concrete_tpu_torch.compilation.keys import pack_evaluation
+        from concrete_tpu_torch.core.kernels import resolve_device
         device = resolve_device(device)
         key = (message_bits, float(norm2), str(device))
         cache = self.__dict__.setdefault("_packed_cache", {})

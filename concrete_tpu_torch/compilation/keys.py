@@ -21,21 +21,6 @@ from concrete_tpu_torch.core.refimpl import SecretKeys, ServerKeys
 from concrete_tpu_torch.params import CryptoParams, choose_truncate_limbs
 
 
-def resolve_device(device):
-    """The port's entry points run on the card unless the caller asks for
-    the CPU: None means CUDA, and CUDA must then be available."""
-    import torch
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run the port's "
-                "plain PyTorch path on the host")
-        if device.index is None:     # tensors report cuda:<index>
-            device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 def pack_evaluation(params: CryptoParams, bsk: np.ndarray, ksk: np.ndarray,
                     message_bits: Optional[int], norm2: float, device):
     """(LimbKSK, LimbBSK) or (LimbKSK, FusedBSK) on `device`: the packing
@@ -115,7 +100,7 @@ class Keys:
                        device=None):
         """Packed (LimbKSK, LimbBSK or FusedBSK) on `device` (default
         CUDA)."""
-        device = resolve_device(device)
+        device = kn.resolve_device(device)
         key = (message_bits, float(norm2), str(device))
         if key not in self._packed:
             self._packed[key] = pack_evaluation(

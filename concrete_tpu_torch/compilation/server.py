@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from concrete_tpu_torch.compilation.executor import GraphExecutor, to_torus
-from concrete_tpu_torch.compilation.keys import resolve_device
 from concrete_tpu_torch.compilation.specs import ClientSpecs
+from concrete_tpu_torch.core.kernels import resolve_device
 from concrete_tpu_torch.representation import Graph
 
 

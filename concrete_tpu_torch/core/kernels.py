@@ -136,6 +136,20 @@ def encode_expand_lut(table_vals: torch.Tensor, poly_size: int,
 # Key material pre-processing (host numpy, then one copy to the device)
 # ---------------------------------------------------------------------------
 
+def resolve_device(device) -> torch.device:
+    """The port's entry points run on the card unless the caller asks for
+    the CPU: None means CUDA, and CUDA must then be available."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the port's "
+                "plain PyTorch path on the host")
+        if device.index is None:     # tensors report cuda:<index>
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 @dataclasses.dataclass(frozen=True)
 class LimbBSK:
     """Bootstrap key as negacyclically-extended int8 limb planes:
@@ -168,11 +182,13 @@ class LimbKSK:
 
 
 def pack_bsk(bsk_u64: np.ndarray, params: CryptoParams,
-             truncate_limbs: int = 0, device="cpu") -> LimbBSK:
+             truncate_limbs: int = 0, device=None) -> LimbBSK:
     """u64 BSK (n, l, k+1, k+1, N) -> banded limb planes (n, Cin, Cout, S,
     2N-1) with Cin = lev * (k+1) + r and the last axis the negacyclic
     extension [-(w[1:]), w] (u64 negation first, then the limb split).
-    `truncate_limbs` drops that many low limb planes (S = 8 - t)."""
+    `truncate_limbs` drops that many low limb planes (S = 8 - t).  The
+    planes go to `device`, CUDA by default (``resolve_device``)."""
+    device = resolve_device(device)
     bsk_u64 = np.asarray(bsk_u64)
     n, l, kp1, _, big_n = bsk_u64.shape
     ext = np.concatenate(
@@ -186,8 +202,10 @@ def pack_bsk(bsk_u64: np.ndarray, params: CryptoParams,
 
 
 def pack_ksk(ksk_u64: np.ndarray, params: CryptoParams,
-             device="cpu") -> LimbKSK:
-    """u64 KSK (n_in, l, n_out+1) -> int8 limb planes (n_in, l, n_out+1, 8)."""
+             device=None) -> LimbKSK:
+    """u64 KSK (n_in, l, n_out+1) -> int8 limb planes (n_in, l, n_out+1, 8)
+    on `device`, CUDA by default (``resolve_device``)."""
+    device = resolve_device(device)
     limbs = lb.u64_to_balanced_i8(np.asarray(ksk_u64))
     return LimbKSK(planes=torch.from_numpy(limbs).to(device),
                    base_log=params.ks_base_log, levels=params.ks_level)

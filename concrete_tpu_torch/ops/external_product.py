@@ -3,8 +3,15 @@
 Counterpart of ``concrete_tpu/ops/pallas_dot_recombine.py`` (``dot_recombine``
 and ``dot_recombine_hi``); its epilogue does the shift-add that
 ``ops/recombine.py`` ports alone.  The CUDA source is
-``csrc/external_product.cu`` (its header says what bounds it and how).  The kernel reads the banded BSK step directly and never builds
-the Toeplitz rhs; the plain version does build it, for ``torch._int_mm``.
+``csrc/external_product.cu``.  The product is bound by the int8
+tensor-core rate, so the kernel runs on Hopper's ``wgmma``: the key band is
+the register operand (each fragment register a funnel shift of the key
+window read straight from the banded BSK step, so no Toeplitz rhs is
+built), the digit tiles the shared-memory operand in the 128-byte swizzle,
+one warpgroup per kept plane, a ring of tiles paced by mbarriers; the
+source's header gives the layout, the bound and what stands between
+them.  The plain version does build the Toeplitz rhs, for
+``torch._int_mm``.
 
 ``external_product_accumulate`` launches the kernel on CUDA tensors and runs
 ``external_product_accumulate_plain`` on CPU ones; there is no other
@@ -90,11 +97,12 @@ def external_product_accumulate(planes: torch.Tensor, vv: torch.Tensor,
                 or t.device != planes.device:
             raise ValueError(f"{NAME}: {name} must be contiguous {dtype} on "
                              f"{planes.device}")
-    if acc.shape != (b_ct * kp1, n) or planes.data_ptr() % 4:
+    if acc.shape != (b_ct * kp1, n) or planes.data_ptr() % 16:
         raise ValueError(f"{NAME}: acc must be ({b_ct * kp1}, {n}) and "
-                         "planes 4-byte aligned")
-    if n % 4 or (n > 128 and n % 128) or not 1 <= keep <= 8 \
-            or b_ct > 4 * 65535:
+                         "planes 16-byte aligned")
+    # the kernel stages the digits 256 j at a time, 128 ciphertexts a
+    # block, and its shared memory holds 4 tiles and the key windows
+    if n % 256 or n > 8192 or not 1 <= keep <= 8 or b_ct > 128 * 65535:
         raise ValueError(f"{NAME}: unsupported shape N={n}, keep={keep}, "
                          f"batch={b_ct}")
     lib = _build.library()

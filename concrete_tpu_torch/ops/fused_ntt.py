@@ -9,7 +9,10 @@ of three hand-written CUDA kernels per step:
    X^a acc - acc and its int32 gadget digits;
 2. ``crt_external_product`` (``csrc/crt_external_product.cu``): per prime,
    the digits' forward NTTs, the multiply-accumulate with the step's BSK
-   spectra and the inverse NTTs, as residues of the exact product;
+   spectra and the inverse NTTs, as residues of the exact product; each
+   thread carries 16 residues through up to 4 butterfly stages in
+   registers between exchanges (``pair_tables`` gives the twiddles as the
+   kernel reads them);
 3. ``garner_accumulate`` (``csrc/garner_accumulate.cu``): explicit CRT,
    the truncation shift, and the update of the accumulator in place.
 
@@ -40,6 +43,7 @@ from concrete_tpu_torch.ops import step
 XP, GARNER = "crt_external_product", "garner_accumulate"
 _M32 = 0xFFFFFFFF
 _GARNER_CONSTANTS: dict = {}
+_PAIR_TABLES: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +72,13 @@ class FusedBSK:
 
 def pack_bsk_fused(bsk_u64: np.ndarray, params, message_bits: int = None,
                    norm2: float = 1, primes: tuple = None,
-                   trunc_bits: int = None, device="cpu") -> FusedBSK:
-    """u64 BSK (n, l, k+1, k+1, N) -> FusedBSK on `device`.  The
-    truncation is part of the key (the oracle is refimpl on
-    truncate_bsk_u64(bsk, t)); the transforms run where the key goes."""
+                   trunc_bits: int = None, device=None) -> FusedBSK:
+    """u64 BSK (n, l, k+1, k+1, N) -> FusedBSK on `device`, CUDA by
+    default (``core.kernels.resolve_device``).  The truncation is part of
+    the key (the oracle is refimpl on truncate_bsk_u64(bsk, t)); the
+    transforms run where the key goes."""
+    from concrete_tpu_torch.core.kernels import resolve_device
+    device = resolve_device(device)
     if primes is None or trunc_bits is None:
         primes, trunc_bits = host.choose_fused_primes(params, message_bits,
                                                       norm2)
@@ -108,6 +115,20 @@ def acc32_eligible(bsk: FusedBSK) -> bool:
 # Kernel 3: the external product per prime
 # ---------------------------------------------------------------------------
 
+def pair_tables(n: int, primes: tuple, device) -> torch.Tensor:
+    """Kernel 3's twiddles: (P, 2, N, 2) int32 holding u32, [pr, 0, i] =
+    (psi^bitrev(i), its Shoup companion) and [pr, 1, i] the same for
+    psi^-bitrev(i) — the rows of ``core.ntt.twiddle_tables`` paired, so
+    one 8-byte load gives a butterfly both words; cached."""
+    key = (n, tuple(primes), str(device))
+    if key not in _PAIR_TABLES:
+        tw = host.twiddle_tables(n, tuple(primes))        # (P, 4, N)
+        pairs = np.stack([tw[:, 0::2], tw[:, 1::2]], axis=-1)
+        _PAIR_TABLES[key] = torch.from_numpy(
+            np.ascontiguousarray(pairs).view(np.int32)).to(device)
+    return _PAIR_TABLES[key]
+
+
 def crt_external_product_plain(digits: torch.Tensor, spec: torch.Tensor,
                                spec_sh: torch.Tensor, primes: tuple,
                                kp1: int) -> torch.Tensor:
@@ -139,9 +160,10 @@ def crt_external_product(digits: torch.Tensor, spec: torch.Tensor,
     levels, rows, n = digits.shape
     n_p = len(primes)
     host.check_poly_size(n)
-    if rows % kp1 or (kp1 + 1) * n * 4 > 227 * 1024:
-        raise ValueError(f"{XP}: unsupported shape rows={rows}, k+1={kp1}, "
-                         f"N={n} (shared memory holds (k+2) N residues)")
+    if rows % kp1 or kp1 not in (2, 3):
+        raise ValueError(f"{XP}: unsupported shape rows={rows}, k+1={kp1} "
+                         "(the kernel keeps k+1 in {2, 3} accumulators in "
+                         "registers)")
     for name, t in (("digits", digits), ("spec", spec),
                     ("spec_sh", spec_sh)):
         if t.dtype != torch.int32 or not t.is_contiguous() \
@@ -152,7 +174,8 @@ def crt_external_product(digits: torch.Tensor, spec: torch.Tensor,
             or spec_sh.shape != spec.shape:
         raise ValueError(f"{XP}: spectra {tuple(spec.shape)} do not match "
                          f"{n_p} primes, {levels} levels, k+1={kp1}, N={n}")
-    tw, cst = tn.tables(n, primes, digits.device)
+    tw = pair_tables(n, primes, digits.device)
+    cst = tn.tables(n, primes, digits.device)[1]
     out = torch.empty((n_p, rows, n), dtype=torch.int32, device=digits.device)
     _build.check(XP, _build.library().crt_external_product(
         digits.data_ptr(), spec.data_ptr(), spec_sh.data_ptr(),

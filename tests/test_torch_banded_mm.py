@@ -176,7 +176,8 @@ def test_blind_rotate_modes_match_xla(mode, truncate, wide_keys,
     lut_poly = ref.encode_expand_lut(table, params.polynomial_size, 3)
     monkeypatch.setattr(tk, "BANDED_MM_MODE", mode)
     got = u64(tk.blind_rotate(t64(ct_small),
-                              tk.pack_bsk(server.bsk, params, truncate),
+                              tk.pack_bsk(server.bsk, params, truncate,
+                                          device="cpu"),
                               t64(lut_poly), params))
     want = np.asarray(kn._blind_rotate_xla(
         jnp.asarray(ct_small), kn.pack_bsk(server.bsk, params, truncate),
@@ -190,7 +191,8 @@ def test_unknown_banded_mode_raises(wide_keys, monkeypatch):
     ct_small = _small_cts(params, server, sk, 6, 1)
     monkeypatch.setattr(tk, "BANDED_MM_MODE", "dense")
     with pytest.raises(ValueError, match="unknown banded-matmul mode"):
-        tk.blind_rotate(t64(ct_small), tk.pack_bsk(server.bsk, params),
+        tk.blind_rotate(t64(ct_small),
+                        tk.pack_bsk(server.bsk, params, device="cpu"),
                         t64(np.zeros(params.polynomial_size, np.uint64)),
                         params)
 
@@ -216,9 +218,9 @@ def test_pbs_batch_latency_matches_jax(params, truncate, batch):
         truncate = choose_truncate_limbs(params, p_bits)
     assert batch <= tk.LATENCY_BATCH_MAX == kn.LATENCY_BATCH_MAX
     got = u64(tk.pbs_batch(
-        t64(ct), tk.pack_ksk(server.ksk, params),
-        tk.pack_bsk(server.bsk, params, truncate), t64(lut_poly), params,
-        p_bits))
+        t64(ct), tk.pack_ksk(server.ksk, params, device="cpu"),
+        tk.pack_bsk(server.bsk, params, truncate, device="cpu"),
+        t64(lut_poly), params, p_bits))
     want = np.asarray(kn.pbs_batch(
         jnp.asarray(ct), kn.pack_ksk(server.ksk, params),
         kn.pack_bsk(server.bsk, params, truncate), jnp.asarray(lut_poly),

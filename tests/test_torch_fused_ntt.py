@@ -159,7 +159,7 @@ def test_pack_bsk_fused_matches_reference(n_primes):
             - (math.prod(primes).bit_length() - 1))
     assert (t > 0) == (n_primes == 2)
     got = tfn.pack_bsk_fused(bsk, _tparams(params), primes=primes,
-                             trunc_bits=t)
+                             trunc_bits=t, device="cpu")
     want = jfn.pack_bsk_fused(bsk, params, primes=primes, trunc_bits=t)
     for g, w in ((got.spec_val, want.spec_val), (got.spec_sh, want.spec_sh)):
         assert np.array_equal(
@@ -175,7 +175,7 @@ def _oracle_case(n, n_primes, acc32):
     t = max(0, tntt.required_bits(params, 0)
             - (math.prod(primes).bit_length() - 1))
     fbsk = tfn.pack_bsk_fused(bsk, _tparams(params), primes=primes,
-                              trunc_bits=t)
+                              trunc_bits=t, device="cpu")
     got = u64(tfn.blind_rotate_fused(t64(ct), fbsk, t64(lut),
                                      _tparams(params), acc32=acc32))
     return params, bsk, ct, lut, primes, t, got
@@ -217,7 +217,7 @@ def test_blind_rotate_fused_matches_pallas_interpret():
     assert (primes, t) == tntt.choose_fused_primes(_tparams(params), 3)
     jbsk = jfn.pack_bsk_fused(bsk, params, primes=primes, trunc_bits=t)
     tbsk = tfn.pack_bsk_fused(bsk, _tparams(params), primes=primes,
-                              trunc_bits=t)
+                              trunc_bits=t, device="cpu")
     assert jfn.acc32_eligible(jbsk) and tfn.acc32_eligible(tbsk)
     want = np.asarray(jfn.blind_rotate_fused(
         jnp.asarray(ct), jbsk, jnp.asarray(lut), params, interpret=True))
@@ -323,4 +323,190 @@ def test_poly_sizes_outside_the_fused_range_raise():
     params = _tparams(_params(512))
     with pytest.raises(ValueError, match="N in 1024"):
         tfn.pack_bsk_fused(np.zeros((1, 2, 2, 2, 512), np.uint64), params,
-                           primes=(2147352577,), trunc_bits=0)
+                           primes=(2147352577,), trunc_bits=0,
+                           device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3's register schedule, rehearsed in numpy
+# ---------------------------------------------------------------------------
+#
+# csrc/crt_external_product.cu runs each transform as passes of up to 4
+# radix-2 stages on the 16 residues a thread holds, with an exchange through
+# a swizzled shared-memory buffer between passes.  The emulation below runs
+# every thread's group at once, reads the twiddles from ``pair_tables`` at
+# the indices the kernel computes, and moves the residues through the
+# swizzled buffer, with Shoup's products as the kernel computes them.
+
+E = 16                  # residues per thread and group (the kernel's E)
+M32 = np.uint64(0xFFFFFFFF)
+
+
+def register_passes(n):
+    """The kernel's schedule for size N: per pass, (first stage, stages,
+    log2 of the stride between a group's residues).  Pass q runs stages
+    4q .. 4q+R-1 in registers; group g's residue k sits at _pos(g, ls, k)
+    (pass_ls / pass_stages in the kernel)."""
+    log_n = n.bit_length() - 1
+    return [(4 * q, min(4, log_n - 4 * q), max(0, log_n - 4 * q - 4))
+            for q in range((log_n + 3) // 4)]
+
+
+def _swz(j):
+    return j ^ ((j >> 4) & 31)
+
+
+def _pos(g, ls, k):
+    return ((g >> ls) << (ls + 4)) + (g & ((1 << ls) - 1)) + (k << ls)
+
+
+def _shoup(a, w, w_sh, p):
+    r = (a * w - ((a * w_sh) >> np.uint64(32)) * p) & M32
+    return np.where(r >= p, r - p, r)
+
+
+def _sched_pass(x, ls, s0, r, tw, p, inverse):
+    """pass<R, INV>: stages s0 .. s0+R-1 on every group's 16 residues (x is
+    (groups, 16) u64), twiddle pairs tw (N, 2) u64."""
+    blk = np.arange(x.shape[0]) >> ls
+    for qq in range(r):
+        q = r - 1 - qq if inverse else qq
+        base = (1 << (s0 + q)) + (blk << (4 - r + q))
+        dk = 1 << (r - 1 - q)
+        for k in range(E):
+            if k & dk:
+                continue
+            s, s_sh = tw[base + (k >> (r - q))].T
+            u, v = x[:, k], x[:, k + dk]
+            if inverse:
+                d = (u + p - v) % p
+                x[:, k], x[:, k + dk] = (u + v) % p, _shoup(d, s, s_sh, p)
+            else:
+                sv = _shoup(v, s, s_sh, p)
+                x[:, k], x[:, k + dk] = (u + sv) % p, (u + p - sv) % p
+
+
+def _exchange(x, ls_from, ls_to):
+    """The residues through the swizzled buffer, from one pass's layout to
+    the next's."""
+    g = np.arange(x.shape[0])[:, None]
+    k = np.arange(E)[None, :]
+    buf = np.full(x.size, np.uint64(1 << 40))
+    buf[_swz(_pos(g, ls_from, k))] = x
+    return buf[_swz(_pos(g, ls_to, k))]
+
+
+def _sched_forward(coeffs, tw, p, n):
+    passes = register_passes(n)
+    g = np.arange(n // E)[:, None]
+    x = coeffs[_pos(g, passes[0][2], np.arange(E)[None, :])]
+    for q, (s0, r, ls) in enumerate(passes):
+        if q:
+            x = _exchange(x, passes[q - 1][2], ls)
+        _sched_pass(x, ls, s0, r, tw, p, inverse=False)
+    return x          # group g holds spectrum residues 16g .. 16g+15
+
+
+def _sched_inverse(x, tw, p, n, n_inv, n_inv_sh):
+    passes = register_passes(n)
+    for q in range(len(passes) - 1, -1, -1):
+        if q < len(passes) - 1:
+            x = _exchange(x, passes[q + 1][2], passes[q][2])
+        s0, r, ls = passes[q]
+        _sched_pass(x, ls, s0, r, tw, p, inverse=True)
+    out = np.empty(n, np.uint64)
+    g = np.arange(n // E)[:, None]
+    out[_pos(g, passes[0][2], np.arange(E)[None, :])] = \
+        _shoup(x, n_inv, n_inv_sh, p)
+    return out
+
+
+def _pairs(n, primes):
+    return tfn.pair_tables(n, primes, "cpu").numpy().view(np.uint32) \
+        .astype(np.uint64)
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 16384])
+def test_register_schedule_covers_every_stage(n):
+    """The passes split log2 N stages 4 at a time, the last pass's groups
+    are 16 consecutive residues, and the swizzled exchange is a bijection
+    whose stores and loads are free of bank conflicts in every pass."""
+    passes = register_passes(n)
+    assert [s0 for s0, _, _ in passes] == list(range(0, n.bit_length() - 1,
+                                                     4))
+    assert sum(r for _, r, _ in passes) == n.bit_length() - 1
+    assert passes[-1][2] == 0
+    assert np.array_equal(np.sort(_swz(np.arange(n))), np.arange(n))
+    lanes = np.arange(32)
+    for _, _, ls in passes:
+        for warp in range(0, n // E, 32):
+            for k in range(E):
+                banks = _swz(_pos(warp + lanes, ls, k)) % 32
+                assert len(set(banks.tolist())) == 32
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_register_schedule_matches_transforms(n):
+    """The kernel's schedule == ntt_forward_plain (bit-reversed spectrum)
+    and the JAX package's host transform (natural order); its inverse ==
+    ntt_inverse_plain and gives the coefficients back."""
+    primes = tntt.special_ntt_primes(n, 128)[:2]
+    rng = np.random.default_rng(n + 1)
+    digits = rng.integers(-128, 128, (1, n)).astype(np.int32)
+    pairs = _pairs(n, primes)
+    cst = tntt.prime_constants(n, primes).astype(np.uint64)
+    want = tn.ntt_forward_plain(torch.from_numpy(digits), primes).numpy() \
+        .view(np.uint32)
+    back_want = tn.ntt_inverse_plain(torch.from_numpy(want.view(np.int32)),
+                                     primes).numpy().view(np.uint32)
+    for i, p in enumerate(primes):
+        coeffs = (digits[0].astype(np.int64) % p).astype(np.uint64)
+        spec = _sched_forward(coeffs, pairs[i, 0], np.uint64(p), n)
+        assert np.array_equal(spec.reshape(-1), want[i, 0])
+        nat = jntt_host.ntt_forward(digits[0].astype(np.int64) % p, n, p)
+        assert np.array_equal(spec.reshape(-1)[tntt.bit_reverse(n)], nat)
+        back = _sched_inverse(spec, pairs[i, 1], np.uint64(p), n, cst[i, 1],
+                              cst[i, 2])
+        assert np.array_equal(back, back_want[i, 0])
+        assert np.array_equal(back, coeffs)
+
+
+def test_register_schedule_matches_crt_external_product_plain():
+    """One blind-rotate step as the kernel runs it per (ciphertext, prime):
+    forward transforms of the Cin digit rows, the multiply-add with the
+    key spectra read at 16g .. 16g+15, the k+1 inverses and the 1/N
+    scaling, stored at the first pass's positions; == the plain version."""
+    n, levels, kp1, b_ct = 1024, 2, 2, 2
+    params = _params(n, n_small=1)
+    rng = np.random.default_rng(17)
+    bsk, _, _ = _random_inputs(rng, params, 1)
+    primes = tntt.special_ntt_primes(n, 128)[:3]
+    fbsk = tfn.pack_bsk_fused(bsk, _tparams(params), primes=primes,
+                              trunc_bits=0, device="cpu")
+    digits = rng.integers(-128, 128, (levels, b_ct * kp1, n)).astype(np.int32)
+    spec = fbsk.spec_val[0].numpy().view(np.uint32).astype(np.uint64)
+    spec_sh = fbsk.spec_sh[0].numpy().view(np.uint32).astype(np.uint64)
+    want = tfn.crt_external_product_plain(
+        torch.from_numpy(digits), fbsk.spec_val[0], fbsk.spec_sh[0], primes,
+        kp1).numpy().view(np.uint32)
+    pairs = _pairs(n, primes)
+    cst = tntt.prime_constants(n, primes).astype(np.uint64)
+    cin = levels * kp1
+    for pr, p in enumerate(primes):
+        p64 = np.uint64(p)
+        for b in range(b_ct):
+            acc = np.zeros((kp1, n // E, E), np.uint64)
+            for ci in range(cin):
+                lev, comp = divmod(ci, kp1)
+                d = digits[lev, b * kp1 + comp].astype(np.int64)
+                x = _sched_forward(np.where(d < 0, d + p, d).astype(np.uint64),
+                                   pairs[pr, 0], p64, n)
+                for co in range(kp1):
+                    row = (pr * cin + ci) * kp1 + co
+                    kv = spec[row].reshape(n // E, E)
+                    ks = spec_sh[row].reshape(n // E, E)
+                    acc[co] = (acc[co] + _shoup(x, kv, ks, p64)) % p64
+            for co in range(kp1):
+                out = _sched_inverse(acc[co], pairs[pr, 1], p64, n,
+                                     cst[pr, 1], cst[pr, 2])
+                assert np.array_equal(out, want[pr, b * kp1 + co])

@@ -113,9 +113,10 @@ def test_pack_keys(truncate):
     p = TEST_PARAMS_TINY
     bsk = rand_u64(rng, (3, p.pbs_level, 3, 3, p.polynomial_size))
     ksk = rand_u64(rng, (10, p.ks_level, 5))
-    assert np.array_equal(tk.pack_bsk(bsk, p, truncate).planes.numpy(),
+    assert np.array_equal(tk.pack_bsk(bsk, p, truncate,
+                                      device="cpu").planes.numpy(),
                           np.asarray(kn.pack_bsk(bsk, p, truncate).planes))
-    assert np.array_equal(tk.pack_ksk(ksk, p).planes.numpy(),
+    assert np.array_equal(tk.pack_ksk(ksk, p, device="cpu").planes.numpy(),
                           np.asarray(kn.pack_ksk(ksk, p).planes))
 
 
@@ -128,7 +129,7 @@ def test_keyswitch(ks_level, ks_base_log):
                      security_level=0)
     ksk = rand_u64(rng, (64, ks_level, 17))
     ct = rand_u64(rng, (9, 65))
-    got = u64(tk.keyswitch(t64(ct), tk.pack_ksk(ksk, p)))
+    got = u64(tk.keyswitch(t64(ct), tk.pack_ksk(ksk, p, device="cpu")))
     assert np.array_equal(got, np.asarray(kn.keyswitch(
         jnp.asarray(ct), kn.pack_ksk(ksk, p))))
     assert np.array_equal(got, ref.keyswitch(ct, ksk, ks_base_log, ks_level))
@@ -265,9 +266,9 @@ def test_pbs_batch(params, truncate, signed):
         assert truncate == 4 and ps.digits_lo_free(params.pbs_base_log,
                                                    params.pbs_level)
     got = u64(tk.pbs_batch(
-        t64(ct), tk.pack_ksk(server.ksk, params),
-        tk.pack_bsk(server.bsk, params, truncate), t64(lut_poly), params,
-        p_bits, signed=signed))
+        t64(ct), tk.pack_ksk(server.ksk, params, device="cpu"),
+        tk.pack_bsk(server.bsk, params, truncate, device="cpu"),
+        t64(lut_poly), params, p_bits, signed=signed))
     want = np.asarray(kn.pbs_batch(
         jnp.asarray(ct), kn.pack_ksk(server.ksk, params),
         kn.pack_bsk(server.bsk, params, truncate), jnp.asarray(lut_poly),

@@ -8,6 +8,7 @@ packages, the committed fixture is what the JAX package compiles, and the
 port neither imports JAX nor falls back to the CPU.
 """
 
+import dataclasses
 import importlib.util
 import io
 import json
@@ -379,13 +380,35 @@ def test_tested_params_take_the_banded_path():
 
 
 def test_default_device_is_cuda():
+    """Server.load, the evaluation keys and the three key packers put
+    their tensors on the card unless asked for the CPU, and raise without
+    one."""
+    from concrete_tpu_torch.core import kernels as tk
+    from concrete_tpu_torch.ops import fused_ntt as tfn
+    p = _tparams(TEST_PARAMS_TINY)
+    kp1, n = p.glwe_dimension + 1, p.polynomial_size
+    bsk = np.zeros((1, p.pbs_level, kp1, kp1, n), np.uint64)
+    ksk = np.zeros((1, p.ks_level, p.n_small + 1), np.uint64)
+    fused = dataclasses.replace(p, polynomial_size=1024, glwe_dimension=1)
+    fused_bsk = np.zeros((1, fused.pbs_level, 2, 2, 1024), np.uint64)
+    packers = [lambda: tk.pack_bsk(bsk, p), lambda: tk.pack_ksk(ksk, p),
+               lambda: tfn.pack_bsk_fused(fused_bsk, fused,
+                                          primes=(2147352577,),
+                                          trunc_bits=0)]
     if torch.cuda.is_available():
         assert tfhe.Server.load(FIXTURE).device.type == "cuda"
+        for pack in packers:
+            assert pack().device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             tfhe.Server.load(FIXTURE)
         with pytest.raises(RuntimeError, match="CUDA"):
             TKeys(_tparams(TEST_PARAMS_TINY)).evaluation_for()
+        for pack in packers:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                pack()
+    assert tk.pack_bsk(bsk, p, device="cpu").device.type == "cpu"
+    assert tk.pack_ksk(ksk, p, device="cpu").device.type == "cpu"
 
 
 def test_unported_operations_raise(tmp_path):
