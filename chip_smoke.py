@@ -12,8 +12,9 @@
    package's stacked lhs; limb_offset 0 / keep 8; two digit limbs at a
    small shape; kernel 9 at the latency path's k+1 = 2 rows with Cout = B
    in {1, 4}, and kernel 1 on a full accumulator at its 2 and 8 rows;
-   kernel B also at N=2048, l=2 and at batches of 200 and 1000, which
-   leave its last 128-ciphertext tile part empty),
+   kernel B also at N=2048, l=2, at batches of 200 and 1000, which
+   leave its last 128-ciphertext tile part empty, and at N=16384, where
+   three planes' key windows fill a block),
    and times kernel, plain version and, for the two products, the
    ``torch._int_mm`` of the same product against a pre-built Toeplitz
    matrix, its lhs zero-padded to 17 rows where it has fewer (a yardstick
@@ -36,8 +37,10 @@
    plain PyTorch version on the card, over a few blind-rotate steps at the
    shapes the N=4096 QuantizedMLP archive gives them (256 ciphertexts,
    l=2, 3 primes, acc32 and full accumulator), at N=16384 with a small
-   batch, with a truncated key (t > 0), and at B=5 for N in 1024 ..
-   8192 (kernel 3 is compiled once per N), and times them; the NTT
+   batch, with a truncated key (t > 0), at B=5 for N in 1024 .. 8192
+   (kernel 3 is compiled once per N), and with k+1 = 3 (N=2048 and
+   16384, both accumulator modes), 4 and 7 (kernel 3's accumulators
+   beyond two in shared memory), and times them; the NTT
    kernels' operations bounds count the instructions nvcc emitted, per
    pipe, from the SASS of the probes in ``csrc/op_probes.cu``;
 5. serves the committed ``mlp_q2_b64.zip`` archive (the repo's benchmark
@@ -663,16 +666,17 @@ def ntt_work(transforms: int, n: int, inverse: bool = False) -> dict:
     return {"ct_butterfly": bfly}
 
 
-def fused_params(n: int, levels: int, base_log: int, n_small: int):
+def fused_params(n: int, levels: int, base_log: int, n_small: int,
+                 kp1: int = 2):
     from concrete_tpu_torch.params import CryptoParams
-    return CryptoParams(n_small=n_small, glwe_dimension=1,
+    return CryptoParams(n_small=n_small, glwe_dimension=kp1 - 1,
                         polynomial_size=n, pbs_level=levels,
                         pbs_base_log=base_log, ks_level=1, ks_base_log=2,
                         lwe_std=0.0, glwe_std=0.0, security_level=0)
 
 
 def check_fused_steps(rng, *, batch, n, levels, base_log, primes,
-                      trunc_bits, acc32, steps, clock, mix, timed):
+                      trunc_bits, acc32, steps, clock, mix, timed, kp1=2):
     """A few CRT-NTT blind-rotate steps on random keys and accumulators:
     every launch of the three step kernels, on the evolving accumulator,
     is held bit-exact against its plain version on the same inputs."""
@@ -680,13 +684,14 @@ def check_fused_steps(rng, *, batch, n, levels, base_log, primes,
     import torch
     from concrete_tpu_torch.ops import fused_ntt as fn
     from concrete_tpu_torch.ops import step
-    dev, kp1 = "cuda", 2
+    dev = "cuda"
     rows, n_p = batch * kp1, len(primes)
-    shape = (f"B={batch} N={n} l={levels} base_log={base_log} P={n_p} "
-             f"t={trunc_bits} {'acc32' if acc32 else 'full'}")
+    shape = (f"B={batch} N={n} k+1={kp1} l={levels} base_log={base_log} "
+             f"P={n_p} t={trunc_bits} {'acc32' if acc32 else 'full'}")
     bsk = rng.integers(0, 1 << 64, (steps, levels, kp1, kp1, n),
                        dtype=np.uint64)
-    fbsk = fn.pack_bsk_fused(bsk, fused_params(n, levels, base_log, steps),
+    fbsk = fn.pack_bsk_fused(bsk, fused_params(n, levels, base_log, steps,
+                                               kp1),
                              primes=primes, trunc_bits=trunc_bits,
                              device=dev)
     if acc32:
@@ -965,9 +970,10 @@ def main() -> None:
 
     t0 = time.perf_counter()
     _build.library()
-    print(f"build: {time.perf_counter() - t0:.1f} s, "
-          f"{[os.path.basename(s) for s in _build.BUILD_INFO['sources']]}",
-          flush=True)
+    per_source = {k: round(v, 1)
+                  for k, v in _build.BUILD_INFO["source_seconds"].items()}
+    print(f"build: {time.perf_counter() - t0:.1f} s; nvcc seconds per "
+          f"source, all started together: {per_source}", flush=True)
     for line in ptxas_summary(_build.BUILD_INFO["log"]):
         print("  ptxas:", line, flush=True)
     card_line = card()
@@ -1002,6 +1008,11 @@ def main() -> None:
                            timed=False)
     check_external_product(rng, batch=1000, levels=4, kp1=2, n=1024,
                            a_limbs=1, s_planes=4, keep=4, limb_offset=4,
+                           timed=False)
+    # N=16384 (banded, as CONCRETE_TPU_FUSED_NTT=0 forces it): the key
+    # windows of 3 planes fit a block, so keep=4 takes two blocks per tile
+    check_external_product(rng, batch=4, levels=1, kp1=2, n=16384,
+                           a_limbs=1, s_planes=2, keep=4, limb_offset=4,
                            timed=False)
     # kernel 9 at the table step (the "pallas" mode's shape), with two
     # digit limbs, and at the latency path's (k+1 rows, Cout = B, the 4
@@ -1082,6 +1093,20 @@ def main() -> None:
                           primes=host.special_ntt_primes(n, 128)[:3],
                           trunc_bits=0, acc32=False, steps=1, clock=clock,
                           mix=mix, timed=False)
+    # k >= 2: the accumulators beyond the two in registers live in shared
+    # memory; k+1 = 3 at N=2048 and at N=16384 (the most it fits there),
+    # 4, and 7 (the optimizer's largest k) at N=2048 and N=8192
+    for n, batch, kp1 in ((2048, 5, 3), (16384, 4, 3)):
+        for acc32 in (True, False):
+            check_fused_steps(rng, batch=batch, n=n, levels=2, base_log=8,
+                              primes=host.special_ntt_primes(n, 128)[:3],
+                              trunc_bits=0, acc32=acc32, steps=2, kp1=kp1,
+                              clock=clock, mix=mix, timed=False)
+    for n, batch, kp1 in ((4096, 5, 4), (2048, 3, 7), (8192, 2, 7)):
+        check_fused_steps(rng, batch=batch, n=n, levels=2, base_log=8,
+                          primes=host.special_ntt_primes(n, 128)[:3],
+                          trunc_bits=0, acc32=False, steps=1, kp1=kp1,
+                          clock=clock, mix=mix, timed=False)
     # the 6-bit N=4096 benchmark parameters truncate their key (t > 0)
     p6 = fused_params(4096, 1, 22, 880)
     primes6, t6 = host.choose_fused_primes(p6, 6)
@@ -1188,7 +1213,9 @@ def main() -> None:
                               "recombine_accumulate": rec_rc,
                               "ntt_forward": rec_ntt, "ntt_inverse": rec_inv,
                               **rec_f},
-                   "build_s": _build.BUILD_INFO["seconds"]}, f, indent=1)
+                   "build_s": _build.BUILD_INFO["seconds"],
+                   "build_source_s": _build.BUILD_INFO["source_seconds"]},
+                  f, indent=1)
     print(f"card: {card()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 
 from concrete_tpu_torch.params import CryptoParams
+from concrete_tpu_torch.utils.device import resolve_device
 
 _FORMAT_VERSION = 1
 
@@ -42,7 +43,6 @@ class EvaluationKeys:
         Server.run, with the JAX package's BSK form and truncation policy;
         cached per arguments."""
         from concrete_tpu_torch.compilation.keys import pack_evaluation
-        from concrete_tpu_torch.core.kernels import resolve_device
         device = resolve_device(device)
         key = (message_bits, float(norm2), str(device))
         cache = self.__dict__.setdefault("_packed_cache", {})

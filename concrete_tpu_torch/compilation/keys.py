@@ -19,6 +19,7 @@ from concrete_tpu_torch.core import keygen as kg
 from concrete_tpu_torch.core import kernels as kn
 from concrete_tpu_torch.core.refimpl import SecretKeys, ServerKeys
 from concrete_tpu_torch.params import CryptoParams, choose_truncate_limbs
+from concrete_tpu_torch.utils.device import resolve_device
 
 
 def pack_evaluation(params: CryptoParams, bsk: np.ndarray, ksk: np.ndarray,
@@ -100,7 +101,7 @@ class Keys:
                        device=None):
         """Packed (LimbKSK, LimbBSK or FusedBSK) on `device` (default
         CUDA)."""
-        device = kn.resolve_device(device)
+        device = resolve_device(device)
         key = (message_bits, float(norm2), str(device))
         if key not in self._packed:
             self._packed[key] = pack_evaluation(

@@ -17,8 +17,8 @@ import torch
 
 from concrete_tpu_torch.compilation.executor import GraphExecutor, to_torus
 from concrete_tpu_torch.compilation.specs import ClientSpecs
-from concrete_tpu_torch.core.kernels import resolve_device
 from concrete_tpu_torch.representation import Graph
+from concrete_tpu_torch.utils.device import resolve_device
 
 
 class Server:

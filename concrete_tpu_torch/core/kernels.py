@@ -44,6 +44,7 @@ from concrete_tpu_torch.ops import external_product as xp
 from concrete_tpu_torch.ops import recombine as rc
 from concrete_tpu_torch.ops import step
 from concrete_tpu_torch.params import CryptoParams
+from concrete_tpu_torch.utils.device import resolve_device
 
 _Q_LOG = 64
 _M32 = 0xFFFFFFFF
@@ -135,20 +136,6 @@ def encode_expand_lut(table_vals: torch.Tensor, poly_size: int,
 # ---------------------------------------------------------------------------
 # Key material pre-processing (host numpy, then one copy to the device)
 # ---------------------------------------------------------------------------
-
-def resolve_device(device) -> torch.device:
-    """The port's entry points run on the card unless the caller asks for
-    the CPU: None means CUDA, and CUDA must then be available."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run the port's "
-                "plain PyTorch path on the host")
-        if device.index is None:     # tensors report cuda:<index>
-            device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
 
 @dataclasses.dataclass(frozen=True)
 class LimbBSK:

@@ -1,301 +1,20 @@
-// Kernel 3 of the CRT-NTT path: one blind-rotate step's external product
-// of the gadget digits with the bootstrap key, per CRT prime, exactly.
-//
-// Replaces the core of the TPU kernel concrete_tpu/ops/pallas_fused_ntt.py
-// blind_rotate_fused (:1223; _step_kernel :1018-1143: forward transforms,
-// the spectral multiply-accumulate with the BSK spectra, inverse
-// transforms).  The TPU kernel keeps the whole n_small-step scan in one
-// pallas_call because its grid runs in order and VMEM holds the
-// accumulator; on Hopper the blocks of a launch run in no order, so the
-// scan is a host loop of three launches per step (ops/fused_ntt.py) and
-// this kernel is the middle one.
-//
-// For ciphertext b and prime p (one block each), with Cin = levels * (k+1):
-//   acc[co] = sum_{ci < Cin} NTT(d[ci] mod p) (.) S[p, ci, co]   (mod p)
-//   out[p][b*(k+1) + co] = INTT(acc[co])                          (k+1 rows)
-// d[ci] = digits[lev][b*(k+1) + comp] for ci = lev*(k+1) + comp, the
-// signed gadget digits of csrc/rotate_decompose.cu; S is one step of the
-// packed BSK spectra (P, Cin, k+1, N) in the forward's bit-reversed order,
-// with Shoup companions.  The residues are those of the exact integer
-// external product z (|z| <= P/4 by required_bits), which kernel 4
-// (csrc/garner_accumulate.cu) recombines.
-//
-// Bound: operations.  Per step (Cin + k + 1) transforms of (N/2) log2 N
-// butterflies per (ciphertext, prime), plus Cin (k+1) N Shoup
-// multiply-adds; the digits (4 B), key spectra (8 B) and residues (4 B)
-// per coefficient are far fewer bytes.  The butterflies are those of
-// csrc/ntt.cuh (ct_butterfly, gs_butterfly, mul_add), so the transform
-// computes the same integers as ntt_forward / ntt_inverse.  What the
-// design spends beside them is the schedule, and it keeps that small:
-//  - registers, not shared memory, carry the transform: each of N/16
-//    threads holds 16 residues and runs up to 4 radix-2 stages on them
-//    between exchanges (a "pass"), so a transform of N = 4096 takes 3
-//    passes and 2 exchanges through shared memory, one barrier each (two
-//    buffers alternate), where the radix-2 schedule took 12 round trips;
-//  - pass q's 16 residues of group g sit at stride 2^ls, ls = log2 N -
-//    4q - 4 (clamped at 0): the first pass reads the digits from global
-//    memory and the inverse's last writes the residues, both coalesced;
-//    the last forward pass leaves residues 16g..16g+15 of the bit-reversed
-//    spectrum in thread g, which is where the multiply-add reads the key
-//    (four 16-byte loads per polynomial) and where the inverse's first pass
-//    starts, so neither needs an exchange;
-//  - the exchange buffer is swizzled, index j at j ^ ((j >> 4) & 31), which
-//    makes every pass's loads and stores free of bank conflicts;
-//  - the twiddles are paired with their Shoup companions (one 8-byte load
-//    each, ops/fused_ntt.py pair_tables), loaded at each butterfly; a
-//    pass's 32 butterflies read 15 distinct pairs, so all but the first
-//    load of each hit L1, and no stage holds its pairs in registers;
-//  - the k+1 accumulators live in registers across the Cin digit
-//    polynomials: no shared-memory accumulator and no barrier in the
-//    multiply-add.
-// N = 16384 runs 512 threads of two groups each; N <= 8192 one group.  The
-// kernel is compiled once per N (log2 N in 10 .. 14), so every pass's
-// strides, twiddle offsets and exchange addresses are constants.  What is
-// left above the bound (PERF.md): the exchanges' index math and barriers,
-// the twiddle loads, two blocks of 8 warps per SM (128 registers), and each
-// block's reading of the step's key spectra, 201 MB of L2 traffic per
-// launch at the MLP shape (tools/ablate_kernels.py times it).
+// Kernel 3 of the CRT-NTT path (the design is in crt_external_product.cuh):
+// its C entry point, and the kernel compiled for k+1 = 2.
 
-#include <cstdint>
-#include <cuda_runtime.h>
-
-#include "ntt.cuh"
-
-namespace {
-
-constexpr int E = 16;          // residues per thread per group
-constexpr int MAX_THREADS = 512;
-
-// Exchange-buffer slot of index j (a bijection on each 512-word block).
-__device__ __forceinline__ int swz(int j) { return j ^ ((j >> 4) & 31); }
-
-// Index of residue k of group g in a pass whose groups have stride 2^ls.
-__device__ __forceinline__ int pos(int g, int ls, int k) {
-  return ((g >> ls) << (ls + 4)) + (g & ((1 << ls) - 1)) + (k << ls);
-}
-
-// R radix-2 stages s0 .. s0+R-1 on one group in registers: forward
-// Cooley-Tukey (INV false) or, in reverse stage order, inverse
-// Gentleman-Sande.  Stage s0+q pairs residues k and k + 2^(R-1-q) and
-// reads twiddle m + (j >> (log2 N - s0 - q)) = 2^(s0+q) + (blk << (4-R+q))
-// + (k >> (R-q)) for blk = g >> ls: 2^(4-R+q) distinct pairs per stage.
-template <int R, bool INV>
-__device__ __forceinline__ void pass(uint32_t (&x)[E], int g, int ls,
-                                     int s0, const uint2* __restrict__ tw,
-                                     uint32_t p) {
-  const int blk = g >> ls;
-#pragma unroll
-  for (int qq = 0; qq < R; ++qq) {
-    const int q = INV ? R - 1 - qq : qq;
-    const int base = (1 << (s0 + q)) + (blk << (4 - R + q));
-    const int dk = 1 << (R - 1 - q);
-#pragma unroll
-    for (int k = 0; k < E; ++k) {
-      if (k & dk) continue;
-      // each butterfly loads its pair (an L1 hit after the first): fewer
-      // live registers than a stage's pairs gathered up front
-      const uint2 s = __ldg(tw + base + (k >> (R - q)));
-      if (INV)
-        ntt::gs_butterfly(x[k], x[k + dk], s.x, s.y, p);
-      else
-        ntt::ct_butterfly(x[k], x[k + dk], s.x, s.y, p);
-    }
-  }
-}
-
-template <bool INV>
-__device__ __forceinline__ void run_pass(int r, uint32_t (&x)[E], int g,
-                                       int ls, int s0,
-                                       const uint2* __restrict__ tw,
-                                       uint32_t p) {
-  switch (r) {
-    case 4: pass<4, INV>(x, g, ls, s0, tw, p); break;
-    case 3: pass<3, INV>(x, g, ls, s0, tw, p); break;
-    case 2: pass<2, INV>(x, g, ls, s0, tw, p); break;
-    default: pass<1, INV>(x, g, ls, s0, tw, p); break;
-  }
-}
-
-// Stride exponent and stage count of pass q of a size-2^log_n transform.
-__device__ __forceinline__ int pass_ls(int log_n, int q) {
-  const int ls = log_n - 4 * q - 4;
-  return ls > 0 ? ls : 0;
-}
-__device__ __forceinline__ int pass_stages(int log_n, int q) {
-  const int r = log_n - 4 * q;
-  return r < 4 ? r : 4;
-}
-
-// Move G groups from pass `from`'s layout to pass `to`'s through the
-// next exchange buffer: one barrier.
-template <int G>
-__device__ __forceinline__ void exchange(uint32_t (&x)[G][E], uint32_t* buf,
-                                         int n, int& ex, int log_n, int from,
-                                         int to) {
-  uint32_t* b = buf + (ex++ & 1) * n;
-  const int ls_from = pass_ls(log_n, from), ls_to = pass_ls(log_n, to);
-#pragma unroll
-  for (int i = 0; i < G; ++i) {
-    const int g = threadIdx.x + i * blockDim.x;
-#pragma unroll
-    for (int k = 0; k < E; ++k) b[swz(pos(g, ls_from, k))] = x[i][k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < G; ++i) {
-    const int g = threadIdx.x + i * blockDim.x;
-#pragma unroll
-    for (int k = 0; k < E; ++k) x[i][k] = b[swz(pos(g, ls_to, k))];
-  }
-}
-
-template <int G, int KP1, int LOG_N>
-__global__ void __launch_bounds__(MAX_THREADS) crt_external_product_kernel(
-    const int32_t* __restrict__ digits, const uint32_t* __restrict__ spec,
-    const uint32_t* __restrict__ spec_sh, uint32_t* __restrict__ out,
-    const uint2* __restrict__ tw, const uint32_t* __restrict__ consts,
-    int batch, int levels) {
-  extern __shared__ uint32_t buf[];          // [2][N], swizzled
-  constexpr int log_n = LOG_N, n = 1 << LOG_N, npass = (LOG_N + 3) / 4;
-  const int b = blockIdx.x, pr = blockIdx.y;
-  const int rows = batch * KP1, cin = levels * KP1;
-  const uint32_t p = consts[3 * pr];
-  const uint2* fwd = tw + (size_t)pr * 2 * n;
-  const uint2* inv = fwd + n;
-  int ex = 0;
-
-  uint32_t acc[KP1][G][E];
-#pragma unroll
-  for (int co = 0; co < KP1; ++co)
-#pragma unroll
-    for (int i = 0; i < G; ++i)
-#pragma unroll
-      for (int k = 0; k < E; ++k) acc[co][i][k] = 0;
-
-  for (int ci = 0; ci < cin; ++ci) {
-    const int lev = ci / KP1, comp = ci % KP1;
-    const int32_t* src = digits + ((size_t)lev * rows + b * KP1 + comp) * n;
-    uint32_t x[G][E];
-    const int ls0 = pass_ls(log_n, 0);
-#pragma unroll
-    for (int i = 0; i < G; ++i) {
-      const int g = threadIdx.x + i * blockDim.x;
-#pragma unroll
-      for (int k = 0; k < E; ++k) {
-        const int32_t d = __ldg(src + pos(g, ls0, k));   // |d| < p
-        x[i][k] = d < 0 ? (uint32_t)(d + (int32_t)p) : (uint32_t)d;
-      }
-      pass<4, false>(x[i], g, ls0, 0, fwd, p);
-    }
-#pragma unroll
-    for (int q = 1; q < npass; ++q) {
-      exchange<G>(x, buf, n, ex, log_n, q - 1, q);
-#pragma unroll
-      for (int i = 0; i < G; ++i)
-        run_pass<false>(pass_stages(log_n, q), x[i],
-                      threadIdx.x + i * blockDim.x, pass_ls(log_n, q), 4 * q,
-                      fwd, p);
-    }
-    // thread g now holds spectrum residues 16g .. 16g+15 of each group
-#pragma unroll
-    for (int co = 0; co < KP1; ++co) {
-      const size_t key = ((size_t)(pr * cin + ci) * KP1 + co) * n;
-#pragma unroll
-      for (int i = 0; i < G; ++i) {
-        const int j0 = E * (threadIdx.x + i * blockDim.x);
-        const uint4* kv = reinterpret_cast<const uint4*>(spec + key + j0);
-        const uint4* ks = reinterpret_cast<const uint4*>(spec_sh + key + j0);
-#pragma unroll
-        for (int v = 0; v < E / 4; ++v) {
-          const uint4 kw = __ldg(kv + v), sw = __ldg(ks + v);
-          uint32_t* a = acc[co][i] + 4 * v;
-          const uint32_t* xv = x[i] + 4 * v;
-          a[0] = ntt::mul_add(a[0], xv[0], kw.x, sw.x, p);
-          a[1] = ntt::mul_add(a[1], xv[1], kw.y, sw.y, p);
-          a[2] = ntt::mul_add(a[2], xv[2], kw.z, sw.z, p);
-          a[3] = ntt::mul_add(a[3], xv[3], kw.w, sw.w, p);
-        }
-      }
-    }
-  }
-
-  const uint32_t n_inv = consts[3 * pr + 1], n_inv_sh = consts[3 * pr + 2];
-  const int ls0 = pass_ls(log_n, 0);
-#pragma unroll
-  for (int co = 0; co < KP1; ++co) {
-#pragma unroll
-    for (int q = npass - 1; q >= 0; --q) {
-      if (q < npass - 1) exchange<G>(acc[co], buf, n, ex, log_n, q + 1, q);
-#pragma unroll
-      for (int i = 0; i < G; ++i)
-        run_pass<true>(pass_stages(log_n, q), acc[co][i],
-                     threadIdx.x + i * blockDim.x, pass_ls(log_n, q), 4 * q,
-                     inv, p);
-    }
-    uint32_t* dst = out + ((size_t)pr * rows + (size_t)b * KP1 + co) * n;
-#pragma unroll
-    for (int i = 0; i < G; ++i) {
-      const int g = threadIdx.x + i * blockDim.x;
-#pragma unroll
-      for (int k = 0; k < E; ++k)
-        dst[pos(g, ls0, k)] = ntt::shoup_mul(acc[co][i][k], n_inv, n_inv_sh,
-                                             p);
-    }
-  }
-}
-
-template <int KP1, int LOG_N>
-cudaError_t launch(const void* digits, const void* spec, const void* spec_sh,
-                   void* out, const void* tw, const void* consts, int batch,
-                   int levels, int n_primes, void* stream) {
-  constexpr int G = LOG_N == 14 ? 2 : 1;   // 1024 groups: 512 threads of 2
-  constexpr int smem = (int)(sizeof(uint32_t) * 2 << LOG_N);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        crt_external_product_kernel<G, KP1, LOG_N>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((unsigned)batch, (unsigned)n_primes);
-  crt_external_product_kernel<G, KP1, LOG_N>
-      <<<grid, (1 << LOG_N) / (E * G), smem, (cudaStream_t)stream>>>(
-          (const int32_t*)digits, (const uint32_t*)spec,
-          (const uint32_t*)spec_sh, (uint32_t*)out, (const uint2*)tw,
-          (const uint32_t*)consts, batch, levels);
-  return cudaGetLastError();
-}
-
-template <int KP1>
-cudaError_t launch_n(int log_n, const void* digits, const void* spec,
-                     const void* spec_sh, void* out, const void* tw,
-                     const void* consts, int batch, int levels, int n_primes,
-                     void* stream) {
-#define CRT_XP_CASE(L)                                                    \
-  case L:                                                                 \
-    return launch<KP1, L>(digits, spec, spec_sh, out, tw, consts, batch,  \
-                          levels, n_primes, stream);
-  switch (log_n) {
-    CRT_XP_CASE(10) CRT_XP_CASE(11) CRT_XP_CASE(12) CRT_XP_CASE(13)
-    CRT_XP_CASE(14)
-    default: return cudaErrorInvalidValue;
-  }
-#undef CRT_XP_CASE
-}
-
-}  // namespace
+#include "crt_external_product.cuh"
 
 // tw: the paired tables of ops/fused_ntt.pair_tables, (P, 2, N) pairs of
 // (twiddle, Shoup companion), forward then inverse; consts (P, 3) u32.
+// k+1 >= 2; (k+1) N 4 bytes of shared memory.
 extern "C" int crt_external_product(const void* digits, const void* spec,
                                     const void* spec_sh, void* out,
                                     const void* tw, const void* consts,
                                     int batch, int levels, int kp1,
                                     int n_primes, int log_n, void* stream) {
-  if (kp1 == 2)
-    return (int)launch_n<2>(log_n, digits, spec, spec_sh, out, tw, consts,
-                            batch, levels, n_primes, stream);
-  if (kp1 == 3)
-    return (int)launch_n<3>(log_n, digits, spec, spec_sh, out, tw, consts,
-                            batch, levels, n_primes, stream);
-  return (int)cudaErrorInvalidValue;
+  if (kp1 == KR)
+    return launch_n<false>(digits, spec, spec_sh, out, tw, consts, batch,
+                           levels, kp1, n_primes, log_n, stream);
+  return crt_external_product_wide(digits, spec, spec_sh, out, tw, consts,
+                                   batch, levels, kp1, n_primes, log_n,
+                                   stream);
 }

@@ -41,8 +41,9 @@
 //    32-byte step of the descriptor's start address.  Without the swizzle
 //    the 8-row groups, 1024 bytes apart, share banks, and the kernel is
 //    11% slower (tools/ablate_kernels.py, PERF.md);
-//  - one warpgroup per kept plane p (up to 4 per block; more planes take
-//    more blocks, whose sums meet in acc through 64-bit atomics, exact mod
+//  - one warpgroup per kept plane p (up to 4 per block, fewer where their
+//    key windows do not fit: 3 at N = 16384, 1 at N = 32768; more planes
+//    take more blocks, whose sums meet in acc through 64-bit atomics, exact mod
 //    2^64 in any order): the planes' int32 sums overflow int32 once shifted,
 //    so each keeps its own accumulator (64 registers at N = 128);
 //  - a 4-slot cp.async ring of 128 b x 256 j digit tiles (32 KB), staged
@@ -58,7 +59,8 @@
 // digit staging, 16 t-blocks x 2 outputs re-read every digit, 256 MB of L2
 // traffic per launch at the table step (about a third of the time); the
 // fragment build; each chunk's wgmma.wait_group 0 and the grid's two
-// waves.
+// waves.  The tool times those parts through the ABLATE_* switches below,
+// which only its builds set.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -67,7 +69,11 @@ namespace {
 
 constexpr int TM = 64;            // output coefficients per block (wgmma M)
 constexpr int BN = 128;           // ciphertexts per block (wgmma N)
+#ifdef ABLATE_JC128
+constexpr int JC = 128;           // (one swizzle atom: the same function)
+#else
 constexpr int JC = 256;           // j per staged digit tile (2 swizzle atoms)
+#endif
 constexpr int KSTEPS = JC / 32;   // wgmma k-steps per tile
 constexpr int JQ = JC / 16;       // 16-byte pieces per tile row
 constexpr int STAGES = 4;         // ring slots
@@ -76,6 +82,8 @@ constexpr int MAX_WG = 4;         // planes per block, one warpgroup each
 constexpr int TILE = BN * JC;     // bytes of one digit tile
 constexpr int RED = TM + 4;       // padded row of the epilogue's staging
 constexpr int WIN_PAD = 80;       // key window bytes beyond N per slot
+// dynamic shared memory per block: the H100's 227 KB less the barriers
+constexpr size_t MAX_SMEM = 227 * 1024 - 2 * STAGES * 8;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -122,21 +130,36 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
 // address, leading byte offset unused (1), stride byte offset 1024 between
 // 8-row atoms, layout type 1.
 __device__ __forceinline__ uint64_t digit_desc(uint32_t saddr) {
+#ifdef ABLATE_NO_SWIZZLE
+  // no swizzle: core matrices of 8 rows x 16 bytes, j-adjacent ones 128
+  // bytes apart, 8-row groups JQ * 128 bytes apart
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(JQ * 128 >> 4) << 32);
+#else
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+#endif
 }
 
 // Start address of k-step kk (32 j) of a tile: its 128-j atom column, then
 // 32 bytes into the atom's rows.
 __device__ __forceinline__ uint32_t kstep_addr(uint32_t tile, int kk) {
+#ifdef ABLATE_NO_SWIZZLE
+  return tile + kk * 256;
+#else
   return tile + (kk >> 2) * (BN * 128) + (kk & 3) * 32;
+#endif
 }
 
 // Byte offset in a tile of the 16-byte piece jq (j = 16 jq ..) of row
 // 8 grp + r8.
 __device__ __forceinline__ uint32_t piece_dst(int grp, int r8, int jq) {
+#ifdef ABLATE_NO_SWIZZLE
+  return grp * (JQ * 128) + jq * 128 + r8 * 16;
+#else
   return (jq >> 3) * (BN * 128) + grp * 1024 + r8 * 128 +
          (((jq & 7) ^ r8) << 4);
+#endif
 }
 
 __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64],
@@ -219,6 +242,9 @@ __device__ __forceinline__ void issue_chunk(const Shape& sh, int c,
                                             unsigned char* tiles,
                                             unsigned char* wins, int b0,
                                             int t0, int cout, int p_lo) {
+#ifdef ABLATE_NO_STAGING
+  return;                        // (leaves work out: times the rest)
+#endif
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lev = k.cin / sh.kp1, r = k.cin - lev * sh.kp1;
   const size_t row_bytes = (size_t)sh.kp1 * sh.n;
@@ -328,10 +354,16 @@ __global__ void __launch_bounds__(MAX_WG * 128, 1) external_product_kernel(
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
         const uint32_t* wk = w - 8 * kk;
+#ifdef ABLATE_NO_FRAGMENTS
+        // (leaves the fragment build out: times the rest)
+        af[kk][0] = tid + kk; af[kk][1] = (uint32_t)(uintptr_t)wk;
+        af[kk][2] = shift + kk; af[kk][3] = c;
+#else
         af[kk][2] = band_word(wk[0], wk[1], shift);   // row g,   j + 16
         af[kk][3] = band_word(wk[2], wk[3], shift);   // row g+8, j + 16
         af[kk][0] = band_word(wk[4], wk[5], shift);   // row g,   j
         af[kk][1] = band_word(wk[6], wk[7], shift);   // row g+8, j
+#endif
       }
       const uint32_t tile = smem_addr(tiles + (c % STAGES) * TILE);
       fence_acc(d);
@@ -389,21 +421,29 @@ extern "C" int external_product_accumulate(
   const int planes_used = keep < 8 - limb_offset ? keep : 8 - limb_offset;
   if (planes_used <= 0 || batch <= 0) return (int)cudaSuccess;
   if (n % JC) return (int)cudaErrorInvalidValue;
-  const int n_wg = planes_used < MAX_WG ? planes_used : MAX_WG;
+  // a window slot is rewritten STAGES chunks after its last use began
+  // only if the window spans 3 chunks or more; else one slot per ring slot
+  const int jcn = n / JC, win_slots = jcn >= 3 ? 2 : STAGES;
+  // shared memory of n_wg warpgroups: the ring and their key windows, or
+  // the epilogue's staging, and 1024 bytes to align the tiles
+  auto smem_for = [&](int wg) {
+    const size_t ring = (size_t)STAGES * TILE +
+                        (size_t)win_slots * wg * (n + WIN_PAD);
+    const size_t red = (size_t)wg * BN * RED * sizeof(int);
+    return (ring > red ? ring : red) + 1024;
+  };
+  // as many planes per block as fit: at N = 16384 the windows of 4 do not
+  int n_wg = planes_used < MAX_WG ? planes_used : MAX_WG;
+  while (n_wg > 1 && smem_for(n_wg) > MAX_SMEM) --n_wg;
+  const size_t smem = smem_for(n_wg);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int groups = (planes_used + n_wg - 1) / n_wg;
   const int cin_n = levels * kp1;
   const long long vv_bytes =
       (long long)cin_n * kp1 * s_planes * (2LL * n - 1);
-  // a window slot is rewritten STAGES chunks after its last use began
-  // only if the window spans 3 chunks or more; else one slot per ring slot
-  const int jcn = n / JC, win_slots = jcn >= 3 ? 2 : STAGES;
   Shape sh{(const int8_t*)planes, (const int8_t*)vv,
            (const int8_t*)vv + vv_bytes, batch, a_limbs, kp1, n, s_planes,
            cin_n, jcn, n_wg, win_slots};
-  const size_t ring = (size_t)STAGES * TILE +
-                      (size_t)win_slots * n_wg * (n + WIN_PAD);
-  const size_t red = (size_t)n_wg * BN * RED * sizeof(int);
-  const size_t smem = (ring > red ? ring : red) + 1024;
   cudaError_t err = cudaFuncSetAttribute(
       external_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name -> launches made by its wrapper since the last reset
 LAUNCHES: collections.Counter = collections.Counter()
-#: set by the first build or load: seconds taken, library path, ptxas log
+#: set by the first build or load: seconds taken, library path, ptxas log,
+#: each source's compile seconds (empty when the library was loaded)
 BUILD_INFO: dict = {}
 
 _LIB = None
@@ -75,20 +76,32 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _build(sources: list[str], so_path: str) -> str:
-    """Compile each source in parallel, link one library; return the log."""
+def _build(sources: list[str], so_path: str) -> tuple[str, dict]:
+    """Compile each source in parallel, link one library; return the log
+    and each source's compile seconds."""
     nvcc = _nvcc()
     tmp = tempfile.mkdtemp(dir=BUILD_DIR)
     objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(sources, objs)]
+    logs = [os.path.join(tmp, os.path.basename(s) + ".log") for s in sources]
+    t0 = time.perf_counter()
+    procs = {}
+    for src, obj, log_path in zip(sources, objs, logs):
+        with open(log_path, "w") as out:
+            procs[src] = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj], stdout=out,
+                stderr=subprocess.STDOUT)
+    seconds = {}
+    while len(seconds) < len(procs):
+        for src, proc in procs.items():
+            if src not in seconds and proc.poll() is not None:
+                seconds[src] = time.perf_counter() - t0
+        time.sleep(0.05)
     log = []
-    for src, proc in zip(sources, procs):
-        out, _ = proc.communicate()
+    for src, log_path in zip(sources, logs):
+        with open(log_path) as f:
+            out = f.read()
         log.append(out)
-        if proc.returncode:
+        if procs[src].returncode:
             raise RuntimeError(f"nvcc failed on {src}:\n{out}")
     lib_tmp = os.path.join(tmp, "lib.so")
     link = subprocess.run([nvcc, "-shared", "-o", lib_tmp, *objs],
@@ -98,7 +111,7 @@ def _build(sources: list[str], so_path: str) -> str:
     # rename into place: a concurrent process never loads a partial file
     os.replace(lib_tmp, so_path)
     shutil.rmtree(tmp)
-    return "".join(log)
+    return "".join(log), {os.path.basename(s): t for s, t in seconds.items()}
 
 
 def library() -> ctypes.CDLL:
@@ -114,9 +127,9 @@ def library() -> ctypes.CDLL:
     os.makedirs(BUILD_DIR, exist_ok=True)
     so_path = os.path.join(BUILD_DIR, f"libkernels_{h.hexdigest()[:16]}.so")
     t0 = time.perf_counter()
-    log = ""
+    log, seconds = "", {}
     if not os.path.exists(so_path):
-        log = _build(sources, so_path)
+        log, seconds = _build(sources, so_path)
     lib = ctypes.CDLL(so_path)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -125,7 +138,7 @@ def library() -> ctypes.CDLL:
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=so_path,
-                      log=log, sources=sources)
+                      log=log, sources=sources, source_seconds=seconds)
     _LIB = lib
     return lib
 

@@ -101,8 +101,9 @@ def external_product_accumulate(planes: torch.Tensor, vv: torch.Tensor,
         raise ValueError(f"{NAME}: acc must be ({b_ct * kp1}, {n}) and "
                          "planes 16-byte aligned")
     # the kernel stages the digits 256 j at a time, 128 ciphertexts a
-    # block, and its shared memory holds 4 tiles and the key windows
-    if n % 256 or n > 8192 or not 1 <= keep <= 8 or b_ct > 128 * 65535:
+    # block, and its shared memory holds 4 tiles and the key windows of
+    # as many planes as fit: 1 at N=32768
+    if n % 256 or n > 32768 or not 1 <= keep <= 8 or b_ct > 128 * 65535:
         raise ValueError(f"{NAME}: unsupported shape N={n}, keep={keep}, "
                          f"batch={b_ct}")
     lib = _build.library()

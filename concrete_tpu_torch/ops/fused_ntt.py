@@ -12,7 +12,8 @@ of three hand-written CUDA kernels per step:
    spectra and the inverse NTTs, as residues of the exact product; each
    thread carries 16 residues through up to 4 butterfly stages in
    registers between exchanges (``pair_tables`` gives the twiddles as the
-   kernel reads them);
+   kernel reads them), and any k+1 whose (k+1) N 4 bytes of shared memory
+   fit (``check_kernel_shape``);
 3. ``garner_accumulate`` (``csrc/garner_accumulate.cu``): explicit CRT,
    the truncation shift, and the update of the accumulator in place.
 
@@ -39,11 +40,13 @@ from concrete_tpu_torch.core import ntt as host
 from concrete_tpu_torch.ops import _build
 from concrete_tpu_torch.ops import ntt as tn
 from concrete_tpu_torch.ops import step
+from concrete_tpu_torch.utils.device import resolve_device
 
 XP, GARNER = "crt_external_product", "garner_accumulate"
 _M32 = 0xFFFFFFFF
 _GARNER_CONSTANTS: dict = {}
 _PAIR_TABLES: dict = {}
+XP_SMEM_BYTES = 227 * 1024      # shared memory per block, H100 (opt-in)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +77,10 @@ def pack_bsk_fused(bsk_u64: np.ndarray, params, message_bits: int = None,
                    norm2: float = 1, primes: tuple = None,
                    trunc_bits: int = None, device=None) -> FusedBSK:
     """u64 BSK (n, l, k+1, k+1, N) -> FusedBSK on `device`, CUDA by
-    default (``core.kernels.resolve_device``).  The truncation is part of
+    default (``utils.device.resolve_device``).  The truncation is part of
     the key (the oracle is refimpl on truncate_bsk_u64(bsk, t)); the
-    transforms run where the key goes."""
-    from concrete_tpu_torch.core.kernels import resolve_device
+    transforms run where the key goes; a key for the card is refused here
+    at a shape kernel 3 cannot run (``check_kernel_shape``)."""
     device = resolve_device(device)
     if primes is None or trunc_bits is None:
         primes, trunc_bits = host.choose_fused_primes(params, message_bits,
@@ -86,6 +89,8 @@ def pack_bsk_fused(bsk_u64: np.ndarray, params, message_bits: int = None,
     host.check_poly_size(params.polynomial_size)
     bsk_u64 = np.ascontiguousarray(bsk_u64, dtype=np.uint64)
     n_small, levels, kp1, _, n = bsk_u64.shape
+    if device.type == "cuda":
+        check_kernel_shape(n, kp1)
     rows = levels * kp1 * kp1
     raw = torch.from_numpy(bsk_u64.view(np.int64)).to(device)
     # (b >> t << t) as a signed value, >> t: one arithmetic shift
@@ -103,6 +108,17 @@ def pack_bsk_fused(bsk_u64: np.ndarray, params, message_bits: int = None,
     return FusedBSK(spec_val=spec, spec_sh=sh, primes=primes,
                     trunc_bits=int(trunc_bits),
                     base_log=params.pbs_base_log, levels=params.pbs_level)
+
+
+def check_kernel_shape(n: int, kp1: int) -> None:
+    """Raise unless kernel 3 runs at N, k+1: k >= 1, and its shared memory,
+    two exchange buffers and the k-1 accumulators beyond the two it keeps
+    in registers, (k+1) N 4 bytes, within the H100's 227 KB per block
+    (k+1 <= 3 at N=16384, <= 7 at N=8192)."""
+    if kp1 < 2 or kp1 * n * 4 > XP_SMEM_BYTES:
+        raise ValueError(
+            f"{XP}: k+1={kp1} at N={n} needs {kp1 * n * 4} bytes of shared "
+            f"memory per block (k+1 >= 2 and (k+1) N 4 <= {XP_SMEM_BYTES})")
 
 
 def acc32_eligible(bsk: FusedBSK) -> bool:
@@ -160,10 +176,10 @@ def crt_external_product(digits: torch.Tensor, spec: torch.Tensor,
     levels, rows, n = digits.shape
     n_p = len(primes)
     host.check_poly_size(n)
-    if rows % kp1 or kp1 not in (2, 3):
-        raise ValueError(f"{XP}: unsupported shape rows={rows}, k+1={kp1} "
-                         "(the kernel keeps k+1 in {2, 3} accumulators in "
-                         "registers)")
+    if rows % kp1:
+        raise ValueError(f"{XP}: {rows} rows are not a multiple of "
+                         f"k+1={kp1}")
+    check_kernel_shape(n, kp1)
     for name, t in (("digits", digits), ("spec", spec),
                     ("spec_sh", spec_sh)):
         if t.dtype != torch.int32 or not t.is_contiguous() \

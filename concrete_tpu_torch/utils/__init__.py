@@ -1,1 +1,1 @@
-"""Host utilities (the ChaCha20 CSPRNG)."""
+"""Host utilities (the ChaCha20 CSPRNG, the device rule)."""

@@ -36,6 +36,8 @@ from concrete_tpu_torch.ops import external_product as txp
 # the kernel's tile constants (csrc/external_product.cu)
 TM, BN, JC, MAX_WG, WIN_PAD = 64, 128, 256, 4, 80
 KSTEPS, JQ = JC // 32, JC // 16
+STAGES, RED = 4, TM + 4       # ring slots; the epilogue's padded row
+MAX_SMEM = 227 * 1024 - 2 * STAGES * 8   # dynamic shared memory per block
 SBO = 1024                    # the digit descriptor's stride byte offset
 SWIZZLE = True                # its layout type: the 128-byte swizzle
 M64 = (1 << 64) - 1
@@ -120,21 +122,38 @@ def _band_registers(w32, m, n, jc):
     return regs
 
 
-def emulate(planes, vv, acc, keep, limb_offset, misalign):
+def planes_per_block(n, used):
+    """The kernel's host rule for its warpgroups per block: one per kept
+    plane, at most MAX_WG, fewer while the ring, their key windows (or the
+    epilogue's staging) and 1024 bytes of alignment exceed MAX_SMEM."""
+    win_slots = 2 if n // JC >= 3 else STAGES
+
+    def smem(wg):
+        return max(STAGES * BN * JC + win_slots * wg * (n + WIN_PAD),
+                   wg * BN * RED * 4) + 1024
+    n_wg = min(used, MAX_WG)
+    while n_wg > 1 and smem(n_wg) > MAX_SMEM:
+        n_wg -= 1
+    return n_wg
+
+
+def emulate(planes, vv, acc, keep, limb_offset, misalign, n_wg=None):
     """acc (u64) += kernel B's result, moving bytes as the kernel does;
-    vv lies `misalign` bytes past a 4-byte boundary.  One BLAS thread: its
-    products are small, and the test workers share the host's cores."""
+    vv lies `misalign` bytes past a 4-byte boundary; `n_wg` planes per
+    block (default: the kernel's rule).  One BLAS thread: its products
+    are small, and the test workers share the host's cores."""
     with threadpool_limits(1):
-        return _emulate(planes, vv, acc, keep, limb_offset, misalign)
+        return _emulate(planes, vv, acc, keep, limb_offset, misalign, n_wg)
 
 
-def _emulate(planes, vv, acc, keep, limb_offset, misalign):
+def _emulate(planes, vv, acc, keep, limb_offset, misalign, n_wg):
     la, rows, n = planes.shape
     cin_n, kp1, s_planes, _ = vv.shape
     levels, batch = cin_n // kp1, rows // kp1
     a_limbs = la // levels
     used = min(keep, 8 - limb_offset)
-    n_wg = min(used, MAX_WG)
+    if n_wg is None:
+        n_wg = planes_per_block(n, used)
     groups = -(-used // n_wg)
     mem = np.zeros(misalign + vv.size + 8, np.uint8)
     mem[misalign:misalign + vv.size] = vv.reshape(-1).view(np.uint8)
@@ -222,6 +241,24 @@ def test_operand_plan_matches_plain(n, a_limbs, keep, batch, misalign):
     planes, vv, acc, limb_offset = _case(n, a_limbs, keep, batch)
     got = emulate(planes, vv, acc, keep, limb_offset, misalign)
     assert np.array_equal(got, _plain(planes, vv, acc, keep, limb_offset))
+
+
+@pytest.mark.parametrize("n,used,n_wg", [(1024, 4, 4), (8192, 4, 4),
+                                         (8192, 8, 4), (16384, 4, 3),
+                                         (32768, 4, 1), (256, 2, 2)])
+def test_planes_per_block(n, used, n_wg):
+    """Four planes' key windows fit a block up to N=8192; at N=16384
+    three, at N=32768 one."""
+    assert planes_per_block(n, used) == n_wg
+
+
+@pytest.mark.parametrize("n_wg", [3, 1])
+def test_operand_plan_with_fewer_planes_per_block(n_wg):
+    """Fewer warpgroups than kept planes (as at N >= 16384): the planes
+    take more blocks, the last partly idle, and their sums meet in acc."""
+    planes, vv, acc, limb_offset = _case(256, 1, 4, 5, seed=2)
+    got = emulate(planes, vv, acc, 4, limb_offset, misalign=2, n_wg=n_wg)
+    assert np.array_equal(got, _plain(planes, vv, acc, 4, limb_offset))
 
 
 @pytest.mark.parametrize("n,a_limbs,keep,batch", [(256, 2, 4, 5),

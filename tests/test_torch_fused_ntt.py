@@ -476,9 +476,34 @@ def test_register_schedule_matches_crt_external_product_plain():
     forward transforms of the Cin digit rows, the multiply-add with the
     key spectra read at 16g .. 16g+15, the k+1 inverses and the 1/N
     scaling, stored at the first pass's positions; == the plain version."""
-    n, levels, kp1, b_ct = 1024, 2, 2, 2
-    params = _params(n, n_small=1)
-    rng = np.random.default_rng(17)
+    _rehearse_step(kp1=2, b_ct=2)
+
+
+@pytest.mark.parametrize("kp1", [3, 4])
+def test_register_schedule_with_shared_accumulators(kp1):
+    """k >= 2: the accumulators beyond the kernel's two in registers live
+    in shared memory, residue k of thread t's group i of accumulator 2 + c
+    at ((c G + i) 16 + k) T + t; the slots are a bijection onto (k-1) N
+    words, each thread's own, and the step still == the plain version."""
+    _rehearse_step(kp1=kp1, b_ct=3)
+
+
+def test_kernel_shape_limits():
+    """Kernel 3 takes k+1 >= 2 while (k+1) N 4 bytes of shared memory fit
+    227 KB: k+1 <= 3 at N=16384, <= 7 at N=8192; beyond, the wrapper and
+    the key pack for the card refuse it with the reason."""
+    for n, kp1 in ((16384, 3), (8192, 7), (4096, 14), (2048, 7)):
+        tfn.check_kernel_shape(n, kp1)
+    for n, kp1 in ((16384, 4), (8192, 8), (1024, 1)):
+        with pytest.raises(ValueError, match="shared memory"):
+            tfn.check_kernel_shape(n, kp1)
+
+
+def _rehearse_step(kp1, b_ct):
+    n, levels = 1024, 2
+    params = dataclasses.replace(_params(n, n_small=1),
+                                 glwe_dimension=kp1 - 1)
+    rng = np.random.default_rng(17 + kp1)
     bsk, _, _ = _random_inputs(rng, params, 1)
     primes = tntt.special_ntt_primes(n, 128)[:3]
     fbsk = tfn.pack_bsk_fused(bsk, _tparams(params), primes=primes,
@@ -492,10 +517,19 @@ def test_register_schedule_matches_crt_external_product_plain():
     pairs = _pairs(n, primes)
     cst = tntt.prime_constants(n, primes).astype(np.uint64)
     cin = levels * kp1
+    threads, kr = n // E, 2            # one group per thread below N=16384
+    # the shared accumulators' slots: [c][k][t] -> ((c G + i) E + k) T + t
+    c, k, t = np.meshgrid(np.arange(kp1 - kr), np.arange(E),
+                          np.arange(threads), indexing="ij")
+    slot = (c * E + k) * threads + t
+    assert np.array_equal(np.sort(slot.reshape(-1)),
+                          np.arange((kp1 - kr) * n))
     for pr, p in enumerate(primes):
         p64 = np.uint64(p)
         for b in range(b_ct):
-            acc = np.zeros((kp1, n // E, E), np.uint64)
+            acc = np.zeros((kr, n // E, E), np.uint64)
+            shared = np.full((kp1 - kr) * n, np.uint64(1 << 40))
+            shared[slot] = 0
             for ci in range(cin):
                 lev, comp = divmod(ci, kp1)
                 d = digits[lev, b * kp1 + comp].astype(np.int64)
@@ -505,8 +539,14 @@ def test_register_schedule_matches_crt_external_product_plain():
                     row = (pr * cin + ci) * kp1 + co
                     kv = spec[row].reshape(n // E, E)
                     ks = spec_sh[row].reshape(n // E, E)
-                    acc[co] = (acc[co] + _shoup(x, kv, ks, p64)) % p64
+                    prod = _shoup(x, kv, ks, p64)
+                    if co < kr:
+                        acc[co] = (acc[co] + prod) % p64
+                    else:       # slot[c, k, t] holds thread t's residue k
+                        s = slot[co - kr]
+                        shared[s] = (shared[s] + prod.T) % p64
             for co in range(kp1):
-                out = _sched_inverse(acc[co], pairs[pr, 1], p64, n,
+                a = acc[co] if co < kr else shared[slot[co - kr]].T
+                out = _sched_inverse(a.copy(), pairs[pr, 1], p64, n,
                                      cst[pr, 1], cst[pr, 2])
                 assert np.array_equal(out, want[pr, b * kp1 + co])

@@ -2,11 +2,13 @@
 
     python3 tools/ablate_kernels.py
 
-Each variant is a committed kernel source (``csrc/external_product.cu``,
-``csrc/crt_external_product.cu``) with a few lines substituted (the lists
-below), compiled by ``nvcc`` with the port's flags into its own library
-and launched through the same C entry point at the main path's shape,
-beside the committed kernel, in one process on one card:
+Each variant is a committed kernel source (``csrc/external_product.cu``;
+``csrc/crt_external_product.cuh`` through its two sources) built with some
+of its ``ABLATE_*``
+switches defined (the lists below; the port's own build defines none), by
+``nvcc`` with the port's flags into its own library, and launched through
+the same C entry point at the main path's shape, beside the committed
+kernel, in one process on one card:
 
 - kernel B at the table step (B=1024, l=4, k+1=2, N=1024, A=1,
   S=keep=4, limb_offset 4);
@@ -39,77 +41,33 @@ sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402
 from concrete_tpu_torch.ops import _build  # noqa: E402
 
-XP_B, XP_3 = "external_product.cu", "crt_external_product.cu"
-_NO_STAGING = ("  const int tid = threadIdx.x, nthreads = blockDim.x;\n"
-               "  const int lev = k.cin / sh.kp1",
-               "  return;\n  const int tid = threadIdx.x, nthreads = "
-               "blockDim.x;\n  const int lev = k.cin / sh.kp1")
-_NO_FRAGMENTS = (
-    "        af[kk][2] = band_word(wk[0], wk[1], shift);   // row g,   j + 16\n"
-    "        af[kk][3] = band_word(wk[2], wk[3], shift);   // row g+8, j + 16\n"
-    "        af[kk][0] = band_word(wk[4], wk[5], shift);   // row g,   j\n"
-    "        af[kk][1] = band_word(wk[6], wk[7], shift);   // row g+8, j\n",
-    "        af[kk][0] = tid + kk; af[kk][1] = (uint32_t)(uintptr_t)wk;\n"
-    "        af[kk][2] = shift + kk; af[kk][3] = c;\n")
-# the digit tile without the swizzle: core matrices of 8 rows x 16 bytes,
-# j-adjacent ones 128 bytes apart, 8-row groups JQ * 128 bytes apart
-_NO_SWIZZLE = [
-    ("((uint64_t)1 << 16) |\n         ((uint64_t)(1024 >> 4) << 32) | "
-     "((uint64_t)1 << 62);",
-     "((uint64_t)(128 >> 4) << 16) |\n         ((uint64_t)(JQ * 128 >> 4) "
-     "<< 32);"),
-    ("  return tile + (kk >> 2) * (BN * 128) + (kk & 3) * 32;",
-     "  return tile + kk * 256;"),
-    ("  return (jq >> 3) * (BN * 128) + grp * 1024 + r8 * 128 +\n"
-     "         (((jq & 7) ^ r8) << 4);",
-     "  return grp * (JQ * 128) + jq * 128 + r8 * 16;"),
-]
+XP_B = ("external_product.cu",)
+XP_3 = ("crt_external_product.cu", "crt_external_product_wide.cu")
 VARIANTS_B = {
     "committed": [],
-    "no swizzle (same function)": _NO_SWIZZLE,
-    "128-j chunks (same function)": [
-        ("constexpr int JC = 256;", "constexpr int JC = 128;")],
-    "no fragment build": [_NO_FRAGMENTS],
-    "no digit staging": [_NO_STAGING],
-    "no fragment build, no digit staging": [_NO_FRAGMENTS, _NO_STAGING],
+    "no swizzle (same function)": ["ABLATE_NO_SWIZZLE"],
+    "128-j chunks (same function)": ["ABLATE_JC128"],
+    "no fragment build": ["ABLATE_NO_FRAGMENTS"],
+    "no digit staging": ["ABLATE_NO_STAGING"],
+    "no fragment build, no digit staging": ["ABLATE_NO_FRAGMENTS",
+                                            "ABLATE_NO_STAGING"],
 }
 VARIANTS_3 = {
     "committed": [],
     "a stage's twiddle pairs gathered into registers first (same "
-    "function)": [
-        ("      // each butterfly loads its pair (an L1 hit after the first): "
-         "fewer\n      // live registers than a stage's pairs gathered up "
-         "front\n      const uint2 s = __ldg(tw + base + (k >> (R - q)));",
-         "      const uint2 s = w[k >> (R - q)];"),
-        ("    const int dk = 1 << (R - 1 - q);\n",
-         "    const int dk = 1 << (R - 1 - q);\n    uint2 w[8];\n#pragma unroll\n"
-         "    for (int c = 0; c < (1 << (4 - R + q)); ++c) "
-         "w[c] = __ldg(tw + base + c);\n")],
-    "no key-spectrum loads": [
-        ("          const uint4 kw = __ldg(kv + v), sw = __ldg(ks + v);",
-         "          const uint4 kw = make_uint4(ci, co, v, 7),\n"
-         "                      sw = make_uint4(v, ci, 3, co);")],
+    "function)": ["ABLATE_TWIDDLE_GATHER"],
+    "no key-spectrum loads": ["ABLATE_NO_KEY_LOADS"],
 }
 
 
-def build(tmp: str, src: str, name: str, subs: list):
-    """Start nvcc on `src` with `subs` applied, into tmp/<name>.so; `load`
-    waits for the returned process."""
-    with open(os.path.join(_build.CSRC, src)) as f:
-        text = f.read()
-    for old, new in subs:
-        if text.count(old) != 1:
-            sys.exit(f"ablate_kernels: {name}: substitution not found once "
-                     f"in {src}: {old[:60]!r}")
-        text = text.replace(old, new)
-    path = os.path.join(tmp, f"{name}.cu")
-    with open(path, "w") as f:
-        f.write(text)
+def build(tmp: str, sources: tuple, name: str, switches: list):
+    """Start nvcc on `sources` with `switches` defined, into
+    tmp/<name>.so; `load` waits for the returned process."""
     return subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-shared",
-         "-o",
-         os.path.join(tmp, f"{name}.so"), path], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+        [_build._nvcc(), *_build.NVCC_FLAGS, *[f"-D{d}" for d in switches],
+         "-shared", "-o", os.path.join(tmp, f"{name}.so"),
+         *[os.path.join(_build.CSRC, src) for src in sources]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def load(tmp: str, name: str, proc, entry: str):
@@ -137,9 +95,9 @@ def main() -> None:
     names = {}
     for kernel, src, variants in (("B", XP_B, VARIANTS_B),
                                   ("3", XP_3, VARIANTS_3)):
-        for i, (label, subs) in enumerate(variants.items()):
+        for i, (label, switches) in enumerate(variants.items()):
             name = f"{kernel}_{i}"
-            names[name] = (label, build(tmp, src, name, subs))
+            names[name] = (label, build(tmp, src, name, switches))
     stream = torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(cs.SEED)
     results = []
