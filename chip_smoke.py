@@ -5,17 +5,21 @@
 
 1. builds the port's CUDA kernels from ``concrete_tpu_torch/csrc`` (nvcc,
    sm_90a) and prints the build time and the card's name and power limit;
-2. holds each banded kernel (A, B, 9 ``banded_matmul`` and the standalone
-   ``recombine_accumulate``) bit-exact against its plain PyTorch version
-   on the card, at the shapes the 128-bit N=1024 server path gives it
-   (kernel 9 on kernel A's digit planes in place, and on the JAX
-   package's stacked lhs; limb_offset 0 / keep 8; two digit limbs at a
-   small shape; kernel 9 at the latency path's k+1 = 2 rows with Cout = B
-   in {1, 4}, and kernel 1 on a full accumulator at its 2 and 8 rows;
-   kernel B also at N=2048, l=2, at batches of 200 and 1000, which
-   leave its last 128-ciphertext tile part empty, and at N=16384, where
-   three planes' key windows fill a block),
-   and times kernel, plain version and, for the two products, the
+2. holds each banded kernel (A, B, kernel 9 ``banded_matmul`` in its
+   table and latency forms, and the standalone ``recombine_accumulate``)
+   bit-exact against its plain PyTorch version on the card, at the shapes
+   the 128-bit N=1024 server path gives it (kernel 9's table form on
+   kernel A's digit planes in place, and on the JAX package's stacked
+   lhs, also at batches of 200 and 1000, which leave its last 128-row
+   tile part empty; limb_offset 0 / keep 8; two digit limbs at a small
+   shape; kernel 9 with the latency path's k+1 = 2 rows and Cout = B in
+   {1, 4}, and its latency form as the latency step calls it, on kernel
+   1's digits and a BSK step in place, at B = 1 .. 4, k+1 = 3, two digit
+   limbs and N = 2048; the recombine and kernel 1 also at the latency
+   shape; kernel B, whose main loop kernel 9's table form shares
+   (``csrc/banded_wgmma.cuh``), also at N=2048, l=2, at batches of 200
+   and 1000, and at N=16384, where three planes' key windows fill a
+   block), and times kernel, plain version and, for the products, the
    ``torch._int_mm`` of the same product against a pre-built Toeplitz
    matrix, its lhs zero-padded to 17 rows where it has fewer (a yardstick
    the port never calls);
@@ -30,9 +34,12 @@
    the five banded modes, whose accumulators must be equal; then the
    latency blind rotate (B <= 4) at the ``pbs_latency_b1`` configuration
    (BENCH_PARAMS_4BIT_TPUOPT, truncated key): lookups at B = 1 and 4
-   decrypted right, three single lookups timed, and the B = 1 and 4
-   outputs equal, bit for bit, to ``pbs_batch`` on CPU copies of the keys
-   and ciphertexts (every kernel's plain version);
+   decrypted right, each blind-rotate step launching kernel 1, kernel 9's
+   latency form and the recombine once and no other port kernel, three
+   single lookups timed and one traced (``torch.profiler``: device-busy
+   ms, kernels run, launch calls), and the B = 1 and 4 outputs equal, bit
+   for bit, to ``pbs_batch`` on CPU copies of the keys and ciphertexts
+   (every kernel's plain version);
 4. holds each kernel of the CRT-NTT blind rotate bit-exact against its
    plain PyTorch version on the card, over a few blind-rotate steps at the
    shapes the N=4096 QuantizedMLP archive gives them (256 ciphertexts,
@@ -92,6 +99,8 @@ DIRECT_LOOKUPS = 1024
 DIRECT_TABLE = [(3 * v + 1) % 64 for v in range(64)]
 FUSED_KERNELS = ("rotate_decompose_digits", "crt_external_product",
                  "garner_accumulate")
+LATENCY_KERNELS = ("rotate_decompose_digits", "banded_matmul_latency",
+                   "recombine_accumulate")
 # Operations bounds of the CRT-NTT kernels.  The NTT kernels (2, 3) are
 # charged the instructions of their butterflies, pointwise multiply-adds
 # and 1/N scaling as nvcc compiles them: sass_mix() reads them per pipe
@@ -290,6 +299,60 @@ def check_banded_matmul(rng, *, a_limbs, rows, cin, cout, s_planes, n,
                          lhs.numel() + vv.numel() + got.numel() * 4,
                          macs=macs, library_rows=lhs_cat.shape[0]))
     print(f"banded_matmul bit-exact at {shape}: {rec}", flush=True)
+    return rec
+
+
+def check_banded_matmul_latency(rng, *, batch, kp1, levels, n, s_key,
+                                base_log, timed):
+    """Kernel 9's latency form against its plain version (the latency
+    step's glue, then banded_matmul_plain) on kernel 1's int32 digits (l,
+    (k+1)*B, N) and a BSK step (Cin, k+1, S, 2N-1) read in place, as
+    _blind_rotate_latency passes them: the second step of two, so its rows
+    lie at odd offsets as in a packed key."""
+    import numpy as np
+    import torch
+    from concrete_tpu_torch.core import limbs as lb
+    from concrete_tpu_torch.ops import banded_mm as bm
+    from concrete_tpu_torch.ops import external_product as xp
+    cin = levels * kp1
+    half = 1 << (base_log - 1)
+    digits = torch.from_numpy(rng.integers(-half, half + 1,
+                                           (levels, kp1 * batch, n))
+                              .astype(np.int32)).cuda()
+    w_vv = rand_i8(rng, (2, cin, kp1, s_key, 2 * n - 1), "cuda")[1]
+    kw = dict(kp1=kp1, levels=levels, base_log=base_log)
+    got = bm.banded_matmul_latency(digits, w_vv, **kw)
+    want = bm.banded_matmul_latency_plain(digits, w_vv, **kw)
+    torch.cuda.synchronize()
+    shape = (f"B={batch} k+1={kp1} l={levels} N={n} S={s_key} "
+             f"base_log={base_log}")
+    if not torch.equal(got, want):
+        fail(f"banded_matmul_latency differs from its plain version at "
+             f"{shape}")
+    rec = {"max_abs_err": max_abs_err(got, want)}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: bm.banded_matmul_latency(
+            digits, w_vv, **kw), 200)
+        rec["plain_ms"] = cuda_ms(lambda: bm.banded_matmul_latency_plain(
+            digits, w_vv, **kw), 3)
+        # torch._int_mm on the same product: the glue's lhs (its k+1 rows
+        # zero-padded to 17) against the Toeplitz matrix of its band
+        d_limbs = lb.num_digit_limbs(base_log)
+        d = (digits.view(levels, kp1, batch, n).permute(2, 0, 1, 3)
+             .reshape(batch, cin, n))
+        vv_d = lb.i32_digits_to_balanced_i8(
+            torch.cat([-d[..., 1:], d], dim=-1), d_limbs) \
+            .permute(1, 0, 3, 2).contiguous()
+        lhs_cat = w_vv[..., n - 1:].permute(1, 2, 0, 3).reshape(kp1, -1)
+        lhs_cat = torch.nn.functional.pad(
+            lhs_cat, (0, 0, 0, max(0, 17 - kp1))).contiguous()
+        rhs = xp.toeplitz_rhs(vv_d, s_key, got.shape[2]).contiguous()
+        rec["library_ms"] = cuda_ms(lambda: torch._int_mm(lhs_cat, rhs), 10)
+        macs = kp1 * batch * s_key * d_limbs * cin * n * n
+        nbytes = digits.numel() * 4 + cin * kp1 * s_key * n + got.numel() * 4
+        rec.update(bound(2 * macs / PEAK_INT8_OPS * 1e3, nbytes, macs=macs,
+                         library_rows=lhs_cat.shape[0]))
+    print(f"banded_matmul_latency bit-exact at {shape}: {rec}", flush=True)
     return rec
 
 
@@ -533,11 +596,10 @@ def latency_lookups(rng):
         dec = ref.decode(ref.lwe_decrypt(
             sk.lwe_big, out.cpu().numpy().view(np.uint64)), 4)
         wrong = int(np.count_nonzero(dec != np.array(TABLE)[msgs]))
-        for name in ("rotate_decompose_digits", "banded_matmul",
-                     "recombine_accumulate"):
-            if counts.get(name) != n_small:
-                fail(f"a B={batch} latency lookup launched {name} "
-                     f"{counts.get(name)} times, want {n_small}")
+        # three port kernels per blind-rotate step and no other
+        if counts != dict.fromkeys(LATENCY_KERNELS, n_small):
+            fail(f"a B={batch} latency lookup launched {counts}, want "
+                 f"{n_small} of each of {LATENCY_KERNELS}")
         if wrong:
             fail(f"latency lookups at B={batch}: {wrong} wrong of {batch}")
         return wall, counts, ct, out
@@ -551,6 +613,7 @@ def latency_lookups(rng):
           f"({ {b: r[0] for b, r in checked.items()} } s); three B=1 "
           f"lookups {[f'{w * 1e3:.1f}' for w in walls]} ms, launches per "
           f"lookup {timed[0][1]}", flush=True)
+    traced = trace_lookup(lambda: lookup(1), n_small)
     ksk_cpu = dataclasses.replace(ksk, planes=ksk.planes.cpu())
     bsk_cpu = dataclasses.replace(bsk, planes=bsk.planes.cpu())
     cpu_s = {}
@@ -566,7 +629,41 @@ def latency_lookups(rng):
     return {"setup_s": setup_s, "truncate_limbs": trunc, "checked_s":
             {b: r[0] for b, r in checked.items()}, "b1_walls_s": walls,
             "per_lookup": timed[0][1], "launches": launches,
-            "cpu_plain_s": cpu_s}
+            "cpu_plain_s": cpu_s, "traced_b1": traced}
+
+
+def trace_lookup(lookup, n_small):
+    """One B=1 latency lookup under torch.profiler: its wall, the port's
+    launches per blind-rotate step by kernel name, the device-busy ms, and
+    the kernels the device ran and the launch calls the host made, as the
+    trace counts them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, counts, *_ = lookup()
+    events = prof.key_averages()
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in events
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    kernels = sum(c for k, c, _ in rows
+                  if not k.startswith(("Memcpy", "Memset")))
+    launch_calls = sum(e.count for e in events
+                       if e.device_type == DeviceType.CPU
+                       and e.key.startswith("cudaLaunchKernel"))
+    rec = {"wall_s": wall, "device_busy_ms": sum(ms for *_, ms in rows),
+           "per_step": {k: v / n_small for k, v in counts.items()},
+           "device_kernels": kernels, "launch_calls": launch_calls,
+           "by_kernel": [{"name": k, "count": c, "device_ms": ms}
+                         for k, c, ms in rows[:12]]}
+    print(f"one traced B=1 latency lookup: wall {wall * 1e3:.1f} ms, device "
+          f"busy {rec['device_busy_ms']:.2f} ms, port launches per step "
+          f"{rec['per_step']}, kernels run {kernels}, launch calls "
+          f"{launch_calls}", flush=True)
+    for k, c, ms in rows[:8]:
+        print(f"  {ms:9.3f} ms {c:6d}x  {k[:90]}", flush=True)
+    return rec
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -1024,14 +1121,42 @@ def main() -> None:
     for levels in (None, 2):
         check_banded_matmul(rng, a_limbs=2, rows=16, cin=4, cout=2,
                             s_planes=8, n=256, levels=levels, timed=False)
-    rec_bm_lat = check_banded_matmul(rng, a_limbs=4, rows=2, cin=8, cout=1,
+    # ... and at batches that leave the last 128-row tile part empty
+    check_banded_matmul(rng, a_limbs=1, rows=200, cin=8, cout=2, s_planes=4,
+                        n=1024, levels=4, timed=False)
+    check_banded_matmul(rng, a_limbs=1, rows=1000, cin=8, cout=2,
+                        s_planes=4, n=1024, timed=False)
+    # the few-row route (the latency form with vv as the band)
+    rec_bm_few = check_banded_matmul(rng, a_limbs=4, rows=2, cin=8, cout=1,
                                      s_planes=1, n=1024, timed=True)
     check_banded_matmul(rng, a_limbs=4, rows=2, cin=8, cout=4, s_planes=1,
                         n=1024, timed=False)
+    # kernel 9's latency form as the latency step calls it (kernel 1's
+    # digits, the BSK step in place): B = 1 .. 4 at the pbs_latency_b1
+    # shape (k+1 = 2, l = 4, N = 1024, 4 kept key limbs, base 2^5), k+1 = 3,
+    # two digit limbs, N = 2048 (two 1024-j slices per ci) and N = 32768
+    rec_bm_lat = check_banded_matmul_latency(
+        rng, batch=1, kp1=2, levels=4, n=1024, s_key=4, base_log=5,
+        timed=True)
+    for batch in (2, 3, 4):
+        check_banded_matmul_latency(rng, batch=batch, kp1=2, levels=4,
+                                    n=1024, s_key=4, base_log=5, timed=False)
+    check_banded_matmul_latency(rng, batch=2, kp1=3, levels=4, n=1024,
+                                s_key=4, base_log=5, timed=False)
+    check_banded_matmul_latency(rng, batch=3, kp1=2, levels=2, n=1024,
+                                s_key=4, base_log=10, timed=False)
+    check_banded_matmul_latency(rng, batch=2, kp1=2, levels=2, n=2048,
+                                s_key=4, base_log=5, timed=False)
+    # N = 32768, l = 4: 32 slices per block, staged in two rounds
+    check_banded_matmul_latency(rng, batch=1, kp1=2, levels=4, n=32768,
+                                s_key=4, base_log=5, timed=False)
     rec_rc = check_recombine(rng, rows=2048, n_planes=4, n=1024,
                              limb_offset=4, timed=True)
     check_recombine(rng, rows=2048, n_planes=8, n=1024, limb_offset=0,
                     timed=False)
+    # ... and at the latency step's shape (B = 1: k+1 = 2 rows)
+    rec_rc_lat = check_recombine(rng, rows=2, n_planes=4, n=1024,
+                                 limb_offset=4, timed=True)
     check_recombine(rng, rows=8, n_planes=4, n=1024, limb_offset=4,
                     timed=False)
 
@@ -1156,6 +1281,13 @@ def main() -> None:
                      "banded_matmul_fused (pallas_call :117)",
          "launches": pal["launches"].get("banded_matmul", 0),
          **{k: rec_bm[k] for k in fields}},
+        {"name": "banded_matmul_latency", "route": "cuda",
+         "source": "concrete_tpu_torch/csrc/banded_mm_latency.cu",
+         "replaces": "concrete_tpu/ops/pallas_banded_mm.py:88 "
+                     "banded_matmul_fused at the latency step's shape, with "
+                     "the step's glue (concrete_tpu/core/kernels.py:752-762)",
+         "launches": latency["launches"].get("banded_matmul_latency", 0),
+         **{k: rec_bm_lat[k] for k in fields}},
         {"name": "recombine_accumulate", "route": "cuda",
          "source": "concrete_tpu_torch/csrc/recombine_accumulate.cu",
          "replaces": "concrete_tpu/ops/pallas_step.py:385 "
@@ -1208,6 +1340,8 @@ def main() -> None:
                               "external_product_accumulate": rec_b,
                               "banded_matmul": rec_bm,
                               "banded_matmul_latency_b1": rec_bm_lat,
+                              "banded_matmul_few_rows_b1": rec_bm_few,
+                              "recombine_accumulate_latency_b1": rec_rc_lat,
                               "rotate_decompose_digits_latency_b1":
                                   rec_d_lat,
                               "recombine_accumulate": rec_rc,

@@ -327,32 +327,25 @@ def _blind_rotate_latency(ct_small: torch.Tensor, bsk: LimbBSK,
     before the limb split, and the BSK step's raw limb rows w_vv[..., N-1:]
     are the lhs, one (k+1, Cin*N) block per kept BSK limb plane.  With a
     truncated key the low limbs of -w then differ from those the throughput
-    path reads, so the two paths' bits differ.  Per step: kernel 1
-    (``rotate_decompose_digits``), the limb split, ``banded_matmul`` with
-    k+1 rows and Cout = B, and ``recombine_accumulate``.  The accumulator
-    rows are ordered (r, b), the order of the product's planes.
+    path reads, so the two paths' bits differ.  Per step, three kernels:
+    kernel 1 (``rotate_decompose_digits``), kernel 9's latency form
+    (``banded_matmul_latency``, which builds the band from the digits and
+    reads the BSK step in place) and ``recombine_accumulate``.  The
+    accumulator rows are ordered (r, b), the order of the product's planes.
     """
     b_ct = ct_small.shape[0]
     n = params.polynomial_size
     kp1 = params.glwe_dimension + 1
     levels = params.pbs_level
-    cin = levels * kp1
     a_t, acc = _switch_and_init(ct_small, lut_poly, params)
     acc = acc.transpose(0, 1).contiguous().view(kp1 * b_ct, n)
     a_rows = a_t.t().repeat(1, kp1).contiguous()    # row r*B + b: a_t[b]
-    a_limbs = lb.num_digit_limbs(params.pbs_base_log)
     for i in range(bsk.n_small):
         digits = step.rotate_decompose_digits(
             acc, a_rows[i], base_log=params.pbs_base_log, levels=levels)
-        d = (digits.view(levels, kp1, b_ct, n).permute(2, 0, 1, 3)
-             .reshape(b_ct, cin, n))                 # Cin = lev*(k+1) + r
-        ext_d = torch.cat([-d[..., 1:], d], dim=-1)  # (B, Cin, 2N-1)
-        vv_d = lb.i32_digits_to_balanced_i8(ext_d, a_limbs) \
-            .permute(1, 0, 3, 2).contiguous()        # (Cin, B, A, 2N-1)
-        w_raw = bsk.planes[i][..., n - 1:]           # (Cin, k+1, S, N)
-        lhs = w_raw.permute(2, 1, 0, 3).reshape(-1, kp1, cin * n) \
-            .contiguous()                            # (S, k+1, Cin*N)
-        prods = bm.banded_matmul(lhs, vv_d)          # (k+1, B, S+A-1, N)
+        prods = bm.banded_matmul_latency(
+            digits, bsk.planes[i], kp1=kp1, levels=levels,
+            base_log=params.pbs_base_log)            # (k+1, B, S+A-1, N)
         rc.recombine_accumulate(prods.view(kp1 * b_ct, -1, n), acc,
                                 limb_offset=bsk.truncate_limbs)
     return acc.view(kp1, b_ct, n).transpose(0, 1).contiguous()

@@ -59,6 +59,10 @@ _SIGNATURES = {
     "garner_accumulate": [_P, _P, _P, _I, _L, _I, _I, _P],
     # lhs, vv, out, a_limbs, rows, cin, kp1, cout, s_planes, n, stream
     "banded_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # lhs, lhs_end, lhs strides (a, r, lev, r_in), digits, vv, out,
+    # a_limbs, rows, cin, kp1, batch, s_planes, n, stream
+    "banded_matmul_latency": [_P, _P, _L, _L, _L, _L, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _I, _P],
     # planes, acc, rows, n_planes, n, limb_offset, stream
     "recombine_accumulate": [_P, _P, _I, _I, _I, _I, _P],
 }

@@ -1,7 +1,9 @@
 """Kernel B's operand plan, rehearsed in numpy on CPU.
 
 ``csrc/external_product.cu`` runs the banded external product on Hopper's
-wgmma: the key band is the register operand A (M = 64 output coefficients
+wgmma, through the main loop of ``csrc/banded_wgmma.cuh`` (shared with
+kernel 9's table form, whose rehearsal in tests/test_torch_banded_mm.py
+calls ``core_sums`` below with its own addressing and epilogue): the key band is the register operand A (M = 64 output coefficients
 t, K = j), each fragment register a funnel shift of two aligned words of
 the key window staged as it lies in vv, byte-reversed; the digits are the
 shared-memory operand B (N = 128 ciphertexts, K-major, 128-byte swizzle),
@@ -33,7 +35,8 @@ from concrete_tpu.ops import pallas_dot_recombine as pdr
 from concrete_tpu.ops import pallas_step as ps
 from concrete_tpu_torch.ops import external_product as txp
 
-# the kernel's tile constants (csrc/external_product.cu)
+# the kernel's tile constants (csrc/banded_wgmma.cuh, and the
+# epilogue's padded row of csrc/external_product.cu)
 TM, BN, JC, MAX_WG, WIN_PAD = 64, 128, 256, 4, 80
 KSTEPS, JQ = JC // 32, JC // 16
 STAGES, RED = 4, TM + 4       # ring slots; the epilogue's padded row
@@ -142,16 +145,41 @@ def emulate(planes, vv, acc, keep, limb_offset, misalign, n_wg=None):
     vv lies `misalign` bytes past a 4-byte boundary; `n_wg` planes per
     block (default: the kernel's rule).  One BLAS thread: its products
     are small, and the test workers share the host's cores."""
+    kp1 = vv.shape[1]
+    used = min(keep, 8 - limb_offset)
+    out = acc.copy()
     with threadpool_limits(1):
-        return _emulate(planes, vv, acc, keep, limb_offset, misalign, n_wg)
+        for b0, t0, cout, p_lo, d in core_sums(
+                planes, vv, kp1, used,
+                lambda p: p < keep and 8 * (p + limb_offset) < 64,
+                misalign, n_wg):
+            # the shift-add epilogue: the planes' int32 sums, shifted, into
+            # acc (u64 arithmetic wraps mod 2^64, as the kernel's does)
+            d32 = d.astype(np.int32).astype(np.int64).view(np.uint64)
+            add = np.zeros((TM, BN), np.uint64)
+            for wg in range(d.shape[0]):
+                p = p_lo + wg
+                if p < keep and 8 * (p + limb_offset) < 64:
+                    add += d32[wg] << np.uint64(8 * (p + limb_offset))
+            nb = min(BN, planes.shape[1] // kp1 - b0)
+            rows = (b0 + np.arange(nb)) * kp1 + cout
+            out[rows, t0:t0 + TM] += add[:, :nb].T
+    return out
 
 
-def _emulate(planes, vv, acc, keep, limb_offset, misalign, n_wg):
+def core_sums(planes, vv, kp1, used, live, misalign, n_wg=None):
+    """The main loop of csrc/banded_wgmma.cuh, moving bytes as it does:
+    yields (b0, t0, cout, p_lo, d) per block, d (n_wg, TM, BN) the int64
+    sums of its warpgroups' planes p_lo + wg (zero where not `live`).
+    The lhs is addressed as the header does, planes (l*A, B*kp1, N) with
+    Cin = l*kp1 (the JAX package's stacked lhs is one level of kp1 = Cin
+    rows); vv (Cin, Cout, S, 2N-1) lies `misalign` bytes past a 4-byte
+    boundary; `used` planes, `n_wg` per block (default: the kernel's
+    rule)."""
     la, rows, n = planes.shape
-    cin_n, kp1, s_planes, _ = vv.shape
+    cin_n, cout_n, s_planes, _ = vv.shape
     levels, batch = cin_n // kp1, rows // kp1
     a_limbs = la // levels
-    used = min(keep, 8 - limb_offset)
     if n_wg is None:
         n_wg = planes_per_block(n, used)
     groups = -(-used // n_wg)
@@ -159,7 +187,6 @@ def _emulate(planes, vv, acc, keep, limb_offset, misalign, n_wg):
     mem[misalign:misalign + vv.size] = vv.reshape(-1).view(np.uint8)
     vv_end, vrow = misalign + vv.size, 2 * n - 1
     win_len = n + WIN_PAD
-    out = acc.copy()
     chunks = a_limbs * cin_n * (n // JC)
     for b0 in range(0, batch, BN):
         tiles = []
@@ -171,8 +198,8 @@ def _emulate(planes, vv, acc, keep, limb_offset, misalign, n_wg):
                 lambda b, i=lev * a_limbs + a, r=r: planes[i, b * kp1 + r],
                 b0, jc, batch))
         for t0 in range(0, n, TM):
-            for z in range(kp1 * groups):
-                cout, p_lo = z % kp1, (z // kp1) * n_wg
+            for z in range(cout_n * groups):
+                cout, p_lo = z % cout_n, (z // cout_n) * n_wg
                 d = np.zeros((n_wg, TM, BN), np.int64)
                 for c in range(chunks):
                     jc, ac = c % (n // JC), c // (n // JC)
@@ -180,11 +207,10 @@ def _emulate(planes, vv, acc, keep, limb_offset, misalign, n_wg):
                     for wg in range(n_wg):
                         p = p_lo + wg
                         s = p - a
-                        if p >= keep or 8 * (p + limb_offset) >= 64 \
-                                or not 0 <= s < s_planes:
+                        if not live(p) or not 0 <= s < s_planes:
                             continue
-                        row = misalign + ((cin * kp1 + cout) * s_planes + s) \
-                            * vrow + t0
+                        row = misalign + ((cin * cout_n + cout) * s_planes
+                                          + s) * vrow + t0
                         w32 = _window_words(mem, row & ~3, win_len, vv_end)
                         regs = _band_registers(w32, row & 3, n, jc)
                         # the KSTEPS k-steps as one product (exact in
@@ -195,18 +221,7 @@ def _emulate(planes, vv, acc, keep, limb_offset, misalign, n_wg):
                                                for kk in range(KSTEPS)], 0)
                         d[wg] += (a_op.astype(np.float64)
                                   @ b_op.astype(np.float64)).astype(np.int64)
-                # epilogue: the planes' int32 sums, shifted, into acc
-                # (u64 arithmetic wraps mod 2^64, as the kernel's does)
-                d32 = d.astype(np.int32).astype(np.int64).view(np.uint64)
-                add = np.zeros((TM, BN), np.uint64)
-                for wg in range(n_wg):
-                    p = p_lo + wg
-                    if p < keep and 8 * (p + limb_offset) < 64:
-                        add += d32[wg] << np.uint64(8 * (p + limb_offset))
-                nb = min(BN, batch - b0)
-                rows = (b0 + np.arange(nb)) * kp1 + cout
-                out[rows, t0:t0 + TM] += add[:, :nb].T
-    return out
+                yield b0, t0, cout, p_lo, d
 
 
 def _case(n, a_limbs, keep, batch, levels=2, kp1=2, seed=0):

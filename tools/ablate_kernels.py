@@ -1,10 +1,11 @@
-"""Ablations of kernel B and kernel 3 on one GPU, by variant builds.
+"""Ablations of kernels B, 3 and 9 on one GPU, by variant builds.
 
     python3 tools/ablate_kernels.py
 
-Each variant is a committed kernel source (``csrc/external_product.cu``;
-``csrc/crt_external_product.cuh`` through its two sources) built with some
-of its ``ABLATE_*``
+Each variant is a committed kernel source (``csrc/external_product.cu`` and
+``csrc/banded_mm.cu`` through their shared ``csrc/banded_wgmma.cuh``;
+``csrc/banded_mm_latency.cu``; ``csrc/crt_external_product.cuh`` through
+its two sources) built with some of its ``ABLATE_*``
 switches defined (the lists below; the port's own build defines none), by
 ``nvcc`` with the port's flags into its own library, and launched through
 the same C entry point at the main path's shape, beside the committed
@@ -12,6 +13,10 @@ kernel, in one process on one card:
 
 - kernel B at the table step (B=1024, l=4, k+1=2, N=1024, A=1,
   S=keep=4, limb_offset 4);
+- kernel 9's table form at the same step (``pallas`` mode: kernel A's
+  planes in place, Cout=2, S=4, 4 output planes);
+- kernel 9's latency form at the B=1 latency step (k+1=2, l=4, N=1024, 4
+  kept key limbs, 1 digit limb: kernel 1's digits and a BSK step in place);
 - kernel 3 at the MLP shape (B=256, N=4096, l=2, k+1=2, 3 primes).
 
 A variant that computes the same function is held bit-exact against the
@@ -43,6 +48,8 @@ from concrete_tpu_torch.ops import _build  # noqa: E402
 
 XP_B = ("external_product.cu",)
 XP_3 = ("crt_external_product.cu", "crt_external_product_wide.cu")
+BM_T = ("banded_mm.cu",)
+BM_L = ("banded_mm_latency.cu",)
 VARIANTS_B = {
     "committed": [],
     "no swizzle (same function)": ["ABLATE_NO_SWIZZLE"],
@@ -51,6 +58,21 @@ VARIANTS_B = {
     "no digit staging": ["ABLATE_NO_STAGING"],
     "no fragment build, no digit staging": ["ABLATE_NO_FRAGMENTS",
                                             "ABLATE_NO_STAGING"],
+}
+VARIANTS_9T = {
+    "committed": [],
+    "no fragment build": ["ABLATE_NO_FRAGMENTS"],
+    "no lhs staging": ["ABLATE_NO_STAGING"],
+}
+VARIANTS_9L = {
+    "committed": [],
+    "no DSMEM reduction (each block stores its own partials)":
+        ["ABLATE_NO_DSMEM"],
+    "no band staging (digit loads, negation, limb split)":
+        ["ABLATE_NO_BAND_STAGING"],
+    "no fragment build": ["ABLATE_NO_FRAGMENTS"],
+    "no in-register band build (neither of the two)":
+        ["ABLATE_NO_BAND_STAGING", "ABLATE_NO_FRAGMENTS"],
 }
 VARIANTS_3 = {
     "committed": [],
@@ -82,6 +104,29 @@ def load(tmp: str, name: str, proc, entry: str):
     return fn, regs
 
 
+def ablate(names, loaded, tmp, kernel, variants, entry, call, exact,
+           iters):
+    """Time every variant of `kernel` through `call(f)` (f its C entry
+    point), the committed build first and last; `exact()` after a call
+    says whether the output equals the plain version's."""
+    results = []
+    order = [f"{kernel}_{i}" for i in range(len(variants))] + [f"{kernel}_0"]
+    for name in order:
+        label, proc = names[name]
+        if name not in loaded:
+            loaded[name] = load(tmp, name, proc, entry)
+        f, regs = loaded[name]
+        _build.check(label, call(f))
+        torch.cuda.synchronize()
+        ok = bool(exact())
+        ms = cs.cuda_ms(lambda: call(f), iters)
+        results.append({"kernel": entry, "variant": label, "ms": ms,
+                        "exact": ok, "ptxas": regs})
+        print(f"kernel {kernel}, {label}: {ms:.4f} ms, bit-exact {ok}, "
+              f"{regs}", flush=True)
+    return results
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("ablate_kernels: no GPU")
@@ -94,6 +139,8 @@ def main() -> None:
     tmp = tempfile.mkdtemp()
     names = {}
     for kernel, src, variants in (("B", XP_B, VARIANTS_B),
+                                  ("9T", BM_T, VARIANTS_9T),
+                                  ("9L", BM_L, VARIANTS_9L),
                                   ("3", XP_3, VARIANTS_3)):
         for i, (label, switches) in enumerate(variants.items()):
             name = f"{kernel}_{i}"
@@ -136,6 +183,39 @@ def main() -> None:
                         "ptxas": regs})
         print(f"kernel B, {label}: {ms:.4f} ms, bit-exact "
               f"{results[-1]['exact']}, {regs}", flush=True)
+
+    # kernel 9's table form at the same step: kernel A's planes in place
+    from concrete_tpu_torch.ops import banded_mm as bm
+    out = torch.empty((batch, kp1, s_planes, n), dtype=torch.int32,
+                      device="cuda")
+    want = bm.banded_matmul_plain(planes, vv, levels=levels)
+
+    def call_table(f):
+        return f(planes.data_ptr(), vv.data_ptr(), out.data_ptr(), 1, batch,
+                 levels * kp1, kp1, kp1, s_planes, n, stream)
+    results += ablate(names, loaded, tmp, "9T", VARIANTS_9T, "banded_matmul",
+                      call_table, lambda: torch.equal(out, want), 50)
+
+    # kernel 9's latency form at the B=1 latency step
+    s_key, base_log = 4, 5
+    cin = levels * kp1
+    digits = torch.from_numpy(rng.integers(-16, 17, (levels, kp1, n))
+                              .astype(np.int32)).cuda()
+    w_vv = cs.rand_i8(rng, (2, cin, kp1, s_key, 2 * n - 1), "cuda")[1]
+    out_l = torch.empty((kp1, 1, s_key, n), dtype=torch.int32,
+                        device="cuda")
+    want_l = bm.banded_matmul_latency_plain(digits, w_vv, kp1=kp1,
+                                            levels=levels, base_log=base_log)
+    vlen = 2 * n - 1
+    base = w_vv.data_ptr()
+
+    def call_latency(f):
+        return f(base + n - 1, base + w_vv.numel(), vlen, s_key * vlen, 0,
+                 kp1 * s_key * vlen, digits.data_ptr(), None,
+                 out_l.data_ptr(), s_key, kp1, cin, cin, 1, 1, n, stream)
+    results += ablate(names, loaded, tmp, "9L", VARIANTS_9L,
+                      "banded_matmul_latency", call_latency,
+                      lambda: torch.equal(out_l, want_l), 500)
 
     # kernel 3 at the MLP shape
     primes = host.special_ntt_primes(4096, 128)[:3]

@@ -1,6 +1,6 @@
 """Device-time breakdown of one request of the PyTorch port on a GPU.
 
-    python3 tools/profile_torch_request.py [table|mlp|table:MODE ...]
+    python3 tools/profile_torch_request.py [table|mlp|table:MODE|latency ...]
 
 For each named committed archive (default: ``table``):
 
@@ -13,6 +13,12 @@ For each named committed archive (default: ``table``):
   MODE, one of the JAX package's banded modes (``auto``,
   ``fusedrecombine``, ``pallas``, ``fuseddot``, ``planes``), e.g.
   ``table:pallas`` for kernels A, 9 and the standalone recombine;
+- ``latency``: one single-ciphertext ``pbs_batch`` (B=1, the latency
+  blind rotate: kernel 1, kernel 9's latency form, the recombine per
+  step) at ``BENCH_PARAMS_4BIT_TPUOPT`` with its key truncation, the JAX
+  package's ``pbs_latency_b1`` configuration, keys from a seed (it only
+  calls functions the port has had since its latency path came, so the
+  tool times an older checkout of the port too, copied into it);
 
 loads it on CUDA, generates keys from a fixed seed, runs one request (which
 packs the keys), one untraced request, then one request under
@@ -21,8 +27,10 @@ requests' wall times, the summed device time of the traced request, the
 device's idle share of its wall time, and the device time by kernel name;
 writes the same as JSON into the repo's git-ignored output directory, as
 ``torch_request_profile.json`` (``table``),
-``torch_request_profile_mlp.json`` (``mlp``) or
-``torch_request_profile_table_MODE.json`` (``table:MODE``).
+``torch_request_profile_mlp.json`` (``mlp``),
+``torch_request_profile_table_MODE.json`` (``table:MODE``) or
+``torch_request_profile_latency.json`` (``latency``; the lookup is run
+three times untraced, and each wall is kept).
 Needs a GPU; exits non-zero without one.
 """
 
@@ -55,9 +63,11 @@ ARCHIVES = {
 
 
 def profile(name: str, card: str) -> dict:
-    """Trace one request of archive `name`, or of ``table:MODE`` in the
-    banded mode MODE."""
+    """Trace one request of archive `name`, of ``table:MODE`` in the
+    banded mode MODE, or one ``latency`` lookup."""
     from concrete_tpu_torch.core import kernels
+    if name == "latency":
+        return _profile_latency(card)
     name, _, mode = name.partition(":")
     archive, out_name, make_inputs = ARCHIVES[name]
     if mode:
@@ -71,8 +81,6 @@ def profile(name: str, card: str) -> dict:
 
 def _profile(archive: str, out_name: str, make_inputs, card: str,
              mode: str) -> dict:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as trace
     server = tfhe.Server.load(os.path.join(FIXTURES, archive))
     client = tfhe.Client(server.client_specs)
     client.keygen(seed=1)
@@ -83,16 +91,73 @@ def _profile(archive: str, out_name: str, make_inputs, card: str,
     lookups = sum(int(np.prod(node.output.shape))
                   for node in server.graph.topological_order()
                   if node.name in ("tlu", "univariate"))
+    out = _measure(lambda: server.run(*args, evaluation_keys=ev), 1,
+                   {"card": card, "archive": archive,
+                    "banded_mode": mode or "auto", "lookups": lookups})
+    print(f"{archive} ({out['banded_mode']} banded mode): {lookups} "
+          f"lookups; request: first {out['first_request_s']:.3f} s "
+          f"(with key packing), untraced {out['untraced_request_s']:.3f} s, "
+          f"traced {out['traced_request_s']:.3f} s; device busy "
+          f"{out['device_ms']:.1f} ms, idle share {out['idle_share']:.4f}")
+    return _report(out, out_name)
+
+
+def _profile_latency(card: str) -> dict:
+    from concrete_tpu_torch import params as pp
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.core import keygen as kg
+    from concrete_tpu_torch.core import refimpl as ref
+    params = pp.BENCH_PARAMS_4BIT_TPUOPT
+    rng = np.random.default_rng(1)
+    sk, server_keys = kg.keygen(rng, params)
+    trunc = pp.choose_truncate_limbs(params, 4)
+    ksk = kn.pack_ksk(server_keys.ksk, params, device="cuda")
+    bsk = kn.pack_bsk(server_keys.bsk, params, trunc, device="cuda")
+    table = np.array([(3 * v + 1) % 16 for v in range(16)], dtype=np.uint64)
+    lut = torch.from_numpy(ref.encode_expand_lut(
+        table, params.polynomial_size, 4).view(np.int64)).cuda()
+    msg = rng.integers(0, 16, 1)
+    ct = torch.from_numpy(kg.encrypt_lwe_batch(
+        rng, sk.lwe_big, ref.encode(msg, 4), params.glwe_std)
+        .view(np.int64)).cuda()
+    got = []
+
+    def lookup():
+        got.append(kn.pbs_batch(ct, ksk, bsk, lut, params, 4))
+        torch.cuda.synchronize()
+    out = _measure(lookup, 3, {"card": card, "params":
+                               "BENCH_PARAMS_4BIT_TPUOPT", "batch": 1,
+                               "truncate_limbs": trunc, "lookups": 1})
+    dec = ref.decode(ref.lwe_decrypt(
+        sk.lwe_big, got[-1].cpu().numpy().view(np.uint64)), 4)
+    out["right"] = bool(dec[0] == table[msg[0]])
+    print(f"latency lookup (B=1, BENCH_PARAMS_4BIT_TPUOPT, truncation "
+          f"{trunc}): first {out['first_request_s'] * 1e3:.1f} ms, untraced "
+          f"{[round(w * 1e3, 1) for w in out['untraced_walls_s']]} ms, "
+          f"traced {out['traced_request_s'] * 1e3:.1f} ms; device busy "
+          f"{out['device_ms']:.2f} ms, idle share {out['idle_share']:.4f}, "
+          f"decrypted right {out['right']}")
+    return _report(out, "torch_request_profile_latency.json")
+
+
+def _measure(run, untraced: int, out: dict) -> dict:
+    """`run` once (packs keys, builds), `untraced` times, then once under
+    torch.profiler: walls, the device's busy ms and idle share, and the
+    device time by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as trace
     t0 = time.perf_counter()
-    server.run(*args, evaluation_keys=ev)         # packs keys, builds
+    run()
     first_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    server.run(*args, evaluation_keys=ev)
-    untraced_s = time.perf_counter() - t0
+    walls = []
+    for _ in range(untraced):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
     with trace(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.run(*args, evaluation_keys=ev)
+        run()
         traced_s = time.perf_counter() - t0
     # device-side rows only (kernels, memcpys): the CPU-side aten rows
     # repeat the device time of the kernels they launched
@@ -102,20 +167,18 @@ def _profile(archive: str, out_name: str, make_inputs, card: str,
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows)
-    out = {"card": card, "archive": archive, "banded_mode": mode or "auto",
-           "lookups": lookups,
-           "first_request_s": first_s, "untraced_request_s": untraced_s,
-           "traced_request_s": traced_s, "device_ms": device_ms,
-           "idle_share": 1 - device_ms / 1e3 / traced_s,
-           "by_kernel": [{"name": k, "launches": c, "device_ms": ms}
-                         for k, c, ms in rows]}
-    print(f"{archive} ({out['banded_mode']} banded mode): {lookups} "
-          f"lookups; request: first {first_s:.3f} s "
-          f"(with key packing), untraced {untraced_s:.3f} s, traced "
-          f"{traced_s:.3f} s; device busy {device_ms:.1f} ms, idle share "
-          f"{out['idle_share']:.4f}")
-    for k, c, ms in rows[:12]:
-        print(f"  {ms:10.3f} ms  {c:6d}x  {k[:90]}")
+    out.update(first_request_s=first_s, untraced_request_s=walls[-1],
+               untraced_walls_s=walls, traced_request_s=traced_s,
+               device_ms=device_ms, idle_share=1 - device_ms / 1e3 / traced_s,
+               by_kernel=[{"name": k, "launches": c, "device_ms": ms}
+                          for k, c, ms in rows])
+    return out
+
+
+def _report(out: dict, out_name: str) -> dict:
+    for row in out["by_kernel"][:12]:
+        print(f"  {row['device_ms']:10.3f} ms  {row['launches']:6d}x  "
+              f"{row['name'][:90]}")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", out_name), "w") as f:
         json.dump(out, f, indent=1)
@@ -129,14 +192,14 @@ def main(names: list[str]) -> None:
 
     def known(name: str) -> bool:
         archive, colon, mode = name.partition(":")
-        return archive in ARCHIVES and (
+        return name == "latency" or archive in ARCHIVES and (
             not colon or (archive == "table" and mode in BANDED_MM_MODES))
 
     unknown = [n for n in names if not known(n)]
     if unknown:
         sys.exit(f"profile_torch_request: unknown argument(s) {unknown}; "
-                 f"choose from {sorted(ARCHIVES)} or table:MODE with MODE "
-                 f"in {BANDED_MM_MODES}")
+                 f"choose from {sorted(ARCHIVES)}, latency, or table:MODE "
+                 f"with MODE in {BANDED_MM_MODES}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
