@@ -22,7 +22,13 @@
    block), and times kernel, plain version and, for the products, the
    ``torch._int_mm`` of the same product against a pre-built Toeplitz
    matrix, its lhs zero-padded to 17 rows where it has fewer (a yardstick
-   the port never calls);
+   the port never calls); and the persistent latency blind rotate
+   (``blind_rotate_latency``, every step of a B <= 4 lookup in one launch)
+   over a whole lookup's 710 steps at B = 1 and 4, against its plain
+   version and the three-kernel step loop on the card, timed beside both
+   and beside a variant built without its MMA (the chain floor), then at
+   B = 1 .. 4, k+1 = 3 with two digit limbs and a full key over a few
+   steps;
 3. serves the committed deployment archive (``table[x] - y`` over 1024
    encrypted 4-bit pairs, 128-bit parameters, N=1024): ``Server.load`` on
    CUDA, ``Client.keygen`` from a seed, three requests, decryptions checked
@@ -34,12 +40,13 @@
    the five banded modes, whose accumulators must be equal; then the
    latency blind rotate (B <= 4) at the ``pbs_latency_b1`` configuration
    (BENCH_PARAMS_4BIT_TPUOPT, truncated key): lookups at B = 1 and 4
-   decrypted right, each blind-rotate step launching kernel 1, kernel 9's
-   latency form and the recombine once and no other port kernel, three
-   single lookups timed and one traced (``torch.profiler``: device-busy
-   ms, kernels run, launch calls), and the B = 1 and 4 outputs equal, bit
-   for bit, to ``pbs_batch`` on CPU copies of the keys and ciphertexts
-   (every kernel's plain version);
+   decrypted right, each lookup one launch of the persistent kernel and
+   no other port kernel, three single lookups timed and one traced
+   (``torch.profiler``: device-busy ms, kernels run, launch calls); the
+   B = 1 and 4 outputs equal, bit for bit, to the three-kernel step loop
+   on the card (kernel 1, kernel 9's latency form and the recombine once a
+   step, counted as a path of its own) and to ``pbs_batch`` on CPU copies
+   of the keys and ciphertexts (every kernel's plain version);
 4. holds each kernel of the CRT-NTT blind rotate bit-exact against its
    plain PyTorch version on the card, over a few blind-rotate steps at the
    shapes the N=4096 QuantizedMLP archive gives them (256 ciphertexts,
@@ -47,7 +54,8 @@
    batch, with a truncated key (t > 0), at B=5 for N in 1024 .. 8192
    (kernel 3 is compiled once per N), and with k+1 = 3 (N=2048 and
    16384, both accumulator modes), 4 and 7 (kernel 3's accumulators
-   beyond two in shared memory), and times them; the NTT
+   beyond two in shared memory), k+1 = 4 at N=16384 and 8 at N=8192
+   (kernel 3 in groups of output components), and times them; the NTT
    kernels' operations bounds count the instructions nvcc emitted, per
    pipe, from the SASS of the probes in ``csrc/op_probes.cu``;
 5. serves the committed ``mlp_q2_b64.zip`` archive (the repo's benchmark
@@ -417,6 +425,110 @@ def check_recombine(rng, *, rows, n_planes, n, limb_offset, timed):
     return rec
 
 
+def build_variant(out_dir: str, sources: tuple, name: str,
+                  switches: list):
+    """Start nvcc on `sources` (in the port's csrc/) with the ABLATE_*
+    `switches` defined, into out_dir/<name>.so; `load_variant` waits for
+    the returned process."""
+    from concrete_tpu_torch.ops import _build
+    return subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, *[f"-D{d}" for d in switches],
+         "-shared", "-o", os.path.join(out_dir, f"{name}.so"),
+         *[os.path.join(_build.CSRC, src) for src in sources]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def load_variant(out_dir: str, name: str, proc, entry: str):
+    """The C entry point `entry` of a variant build, bound as the port
+    binds it, and its ptxas lines (registers, spills)."""
+    import ctypes
+    from concrete_tpu_torch.ops import _build
+    out, _ = proc.communicate()
+    if proc.returncode:
+        fail(f"nvcc failed on the variant {name}:\n{out}")
+    fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{name}.so")), entry)
+    fn.argtypes = _build._SIGNATURES[entry]
+    fn.restype = ctypes.c_int
+    regs = [line.split("info    :")[-1].strip() for line in out.splitlines()
+            if "registers" in line or "spill" in line]
+    return fn, regs
+
+
+def check_blind_rotate_latency(rng, *, batch, kp1, levels, n, s_key,
+                               base_log, n_small, limb_offset, timed,
+                               plain=True, variants=None):
+    """The persistent latency blind rotate against its plain version (the
+    step loop on the plain versions of kernel 1, kernel 9's latency form
+    and the recombine) and against the three-kernel step loop on the card,
+    on random switched masks, accumulators and keys.  Timed: ms per
+    lookup (n_small steps), beside the plain version, the step loop, and
+    each variant build in `variants` (label -> its C entry point, the
+    same arguments: "no MMA" is the chain floor).  With `plain` False the
+    plain version (about 7.5 ms a step at B=1 on the card) is left out."""
+    import numpy as np
+    import torch
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.core import limbs as lb
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.ops import latency as lat
+    cin = levels * kp1
+    a_t = torch.from_numpy(rng.integers(0, 2 * n, (batch, n_small))
+                           .astype(np.int32)).cuda()
+    acc = rand_torus(rng, (kp1, batch, n), "cuda")
+    planes = lat.with_tail(rand_i8(rng, (n_small, cin, kp1, s_key,
+                                         2 * n - 1), "cuda"))
+    kw = dict(kp1=kp1, levels=levels, base_log=base_log,
+              limb_offset=limb_offset)
+    bsk = kn.LimbBSK(planes=planes, base_log=base_log, levels=levels,
+                     truncate_limbs=limb_offset)
+    params = fused_params(n, levels, base_log, n_small, kp1)
+    got = lat.blind_rotate_latency(a_t, acc.clone(), planes, **kw)
+    want = lat.blind_rotate_latency_plain(a_t, acc, planes, **kw) \
+        if plain else got
+    steps = kn._blind_rotate_latency_steps(a_t, acc.clone(), bsk, params)
+    torch.cuda.synchronize()
+    d_limbs = lb.num_digit_limbs(base_log)
+    shape = (f"B={batch} k+1={kp1} l={levels} N={n} S={s_key} "
+             f"base_log={base_log} steps={n_small} "
+             f"limb_offset={limb_offset}")
+    if not torch.equal(got, want):
+        fail(f"blind_rotate_latency differs from its plain version at "
+             f"{shape}")
+    if not torch.equal(got, steps):
+        fail(f"blind_rotate_latency differs from the three-kernel step loop "
+             f"at {shape}")
+    rec = {"max_abs_err": max_abs_err(got, want)}
+    if timed:
+        scratch = acc.clone()     # updated in place by every timed call
+        rec["ms"] = cuda_ms(lambda: lat.blind_rotate_latency(
+            a_t, scratch, planes, **kw), 5)
+        if plain:
+            rec["plain_ms"] = cuda_ms(lambda: lat.blind_rotate_latency_plain(
+                a_t, acc, planes, **kw), 1)
+        rec["step_loop_ms"] = cuda_ms(lambda: kn._blind_rotate_latency_steps(
+            a_t, scratch, bsk, params), 1)
+        pl = lat.plan(batch, n, kp1, levels, d_limbs, s_key)
+        stream = _build.stream_of(acc)
+        rec["variants_ms"] = {}
+        for label, fn in (variants or {}).items():
+            def call(fn=fn):
+                _build.check(label, fn(
+                    a_t.data_ptr(), scratch.data_ptr(),
+                    planes.data_ptr(), planes.data_ptr() + planes.numel(),
+                    batch, n_small, kp1, levels, base_log, d_limbs, s_key, n,
+                    limb_offset, pl.cluster, stream))
+            rec["variants_ms"][label] = cuda_ms(call, 5)
+        rec["chain_floor_ms"] = rec["variants_ms"].get("no MMA")
+        macs = n_small * kp1 * batch * s_key * d_limbs * cin * n * n
+        nbytes = a_t.numel() * 4 + 2 * acc.numel() * 8 \
+            + n_small * cin * kp1 * s_key * n
+        rec.update(bound(2 * macs / PEAK_INT8_OPS * 1e3, nbytes, macs=macs),
+                   library_ms=None, cluster=pl.cluster, smem=pl.smem)
+    print(f"blind_rotate_latency bit-exact (against its plain version and "
+          f"the step loop on the card) at {shape}: {rec}", flush=True)
+    return rec
+
+
 def serve(rng):
     """The port's main path: three requests of 1024 table lookups, on the
     device Server.load picks by default (CUDA), in the default banded mode
@@ -555,9 +667,15 @@ def latency_lookups(rng):
     """The latency blind rotate (B <= LATENCY_BATCH_MAX) at the
     pbs_latency_b1 configuration, BENCH_PARAMS_4BIT_TPUOPT with its key
     truncation: keys from a seed, pbs_batch at B = 1 and 4 with the
-    decryptions checked, then three timed single lookups; then the B = 1
-    and B = 4 outputs against the same pbs_batch on CPU copies of the keys
-    and ciphertexts (the plain versions of every kernel), bit for bit."""
+    decryptions checked, each lookup one launch of the persistent kernel
+    (blind_rotate_latency) and no other port kernel, then three timed
+    single lookups and one traced; then the B = 1 and B = 4 outputs against
+    the three-kernel step loop on the card (the route of the shapes the
+    persistent kernel's rule refuses, driven here through the same
+    pbs_batch with the rule refusing every shape, its launches counted as
+    their own path) and against the same pbs_batch on CPU copies of the
+    keys and ciphertexts (the plain versions of every kernel), bit for
+    bit."""
     import dataclasses
     import numpy as np
     import torch
@@ -566,6 +684,7 @@ def latency_lookups(rng):
     from concrete_tpu_torch.core import keygen as kg
     from concrete_tpu_torch.core import refimpl as ref
     from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.ops import latency as lat
     params = pp.BENCH_PARAMS_4BIT_TPUOPT
     t0 = time.perf_counter()
     sk, server_keys = kg.keygen(np.random.default_rng(SEED), params)
@@ -581,11 +700,7 @@ def latency_lookups(rng):
     print(f"latency path: {params}, truncate_limbs {trunc}, keygen and "
           f"pack {setup_s:.2f} s", flush=True)
 
-    def lookup(batch):
-        msgs = rng.integers(0, 16, batch)
-        ct = torch.from_numpy(kg.encrypt_lwe_batch(
-            rng, sk.lwe_big, ref.encode(msgs, 4), params.glwe_std)
-            .view(np.int64)).cuda()
+    def run(ct, want_counts):
         before = dict(_build.LAUNCHES)
         t0 = time.perf_counter()
         out = kn.pbs_batch(ct, ksk, bsk, lut, params, 4)
@@ -593,13 +708,21 @@ def latency_lookups(rng):
         wall = time.perf_counter() - t0
         counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
                   if v - before.get(k, 0)}
+        if counts != want_counts:
+            fail(f"a B={ct.shape[0]} latency lookup launched {counts}, want "
+                 f"{want_counts}")
+        return wall, counts, out
+
+    def lookup(batch):
+        msgs = rng.integers(0, 16, batch)
+        ct = torch.from_numpy(kg.encrypt_lwe_batch(
+            rng, sk.lwe_big, ref.encode(msgs, 4), params.glwe_std)
+            .view(np.int64)).cuda()
+        # one launch of the persistent kernel for every step
+        wall, counts, out = run(ct, {lat.NAME: 1})
         dec = ref.decode(ref.lwe_decrypt(
             sk.lwe_big, out.cpu().numpy().view(np.uint64)), 4)
         wrong = int(np.count_nonzero(dec != np.array(TABLE)[msgs]))
-        # three port kernels per blind-rotate step and no other
-        if counts != dict.fromkeys(LATENCY_KERNELS, n_small):
-            fail(f"a B={batch} latency lookup launched {counts}, want "
-                 f"{n_small} of each of {LATENCY_KERNELS}")
         if wrong:
             fail(f"latency lookups at B={batch}: {wrong} wrong of {batch}")
         return wall, counts, ct, out
@@ -614,6 +737,25 @@ def latency_lookups(rng):
           f"lookups {[f'{w * 1e3:.1f}' for w in walls]} ms, launches per "
           f"lookup {timed[0][1]}", flush=True)
     traced = trace_lookup(lambda: lookup(1), n_small)
+
+    # the step loop's path: the same keys and ciphertexts, three port
+    # kernels per step
+    plan = lat.plan
+    lat.plan = lambda *args: None
+    _build.reset_launches()               # the step loop's path starts here
+    try:
+        steps_want = dict.fromkeys(LATENCY_KERNELS, n_small)
+        for batch, (_, _, ct, out) in checked.items():
+            if not torch.equal(run(ct, steps_want)[2], out):
+                fail(f"the B={batch} latency lookup's output differs from "
+                     f"the three-kernel step loop's on the card")
+        step_walls = [run(checked[1][2], steps_want)[0] for _ in range(3)]
+    finally:
+        lat.plan = plan
+    step_launches = dict(_build.LAUNCHES)  # ... and ends here
+    print(f"latency outputs at B=1 and B=4 equal the three-kernel step "
+          f"loop's on the card, bit for bit; its B=1 lookups "
+          f"{[f'{w * 1e3:.1f}' for w in step_walls]} ms", flush=True)
     ksk_cpu = dataclasses.replace(ksk, planes=ksk.planes.cpu())
     bsk_cpu = dataclasses.replace(bsk, planes=bsk.planes.cpu())
     cpu_s = {}
@@ -629,6 +771,8 @@ def latency_lookups(rng):
     return {"setup_s": setup_s, "truncate_limbs": trunc, "checked_s":
             {b: r[0] for b, r in checked.items()}, "b1_walls_s": walls,
             "per_lookup": timed[0][1], "launches": launches,
+            "step_loop_b1_walls_s": step_walls,
+            "step_loop_launches": step_launches,
             "cpu_plain_s": cpu_s, "traced_b1": traced}
 
 
@@ -1065,6 +1209,16 @@ def main() -> None:
         fail("concrete_tpu_torch was not found next to this script")
     import numpy as np
 
+    import shutil
+    import tempfile
+    from concrete_tpu_torch.utils.csprng import BUILD_DIR
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    var_dir = tempfile.mkdtemp(dir=BUILD_DIR)
+    # the persistent latency kernel without its MMA (its chain floor),
+    # built beside the port's library
+    var_procs = {"no MMA": build_variant(
+        var_dir, ("blind_rotate_latency.cu",), "br_no_mma",
+        ["ABLATE_NO_MMA"])}
     t0 = time.perf_counter()
     _build.library()
     per_source = {k: round(v, 1)
@@ -1150,6 +1304,31 @@ def main() -> None:
     # N = 32768, l = 4: 32 slices per block, staged in two rounds
     check_banded_matmul_latency(rng, batch=1, kp1=2, levels=4, n=32768,
                                 s_key=4, base_log=5, timed=False)
+    # the persistent latency blind rotate: a whole lookup's 710 steps at
+    # the pbs_latency_b1 shape, B = 1 (also against its plain version) and
+    # B = 4 (against the step loop on the card), timed with the chain
+    # floor; then B = 1 .. 4 over a few steps against the plain version,
+    # k+1 = 3 with two digit limbs, an odd step count, a full key
+    variants = {label: load_variant(var_dir, "br_no_mma", proc,
+                                    "blind_rotate_latency")[0]
+                for label, proc in var_procs.items()}
+    lat_kw = dict(kp1=2, levels=4, n=1024, s_key=4, base_log=5,
+                  limb_offset=4)
+    rec_br = check_blind_rotate_latency(rng, batch=1, n_small=710,
+                                        timed=True, variants=variants,
+                                        **lat_kw)
+    rec_br4 = check_blind_rotate_latency(rng, batch=4, n_small=710,
+                                         timed=True, plain=False,
+                                         variants=variants, **lat_kw)
+    for batch in (1, 2, 3, 4):
+        check_blind_rotate_latency(rng, batch=batch, n_small=8, timed=False,
+                                   **lat_kw)
+    check_blind_rotate_latency(rng, batch=2, kp1=3, levels=2, n=1024,
+                               s_key=4, base_log=10, n_small=5,
+                               limb_offset=4, timed=False)
+    check_blind_rotate_latency(rng, batch=3, kp1=2, levels=2, n=1024,
+                               s_key=8, base_log=5, n_small=3,
+                               limb_offset=0, timed=False)
     rec_rc = check_recombine(rng, rows=2048, n_planes=4, n=1024,
                              limb_offset=4, timed=True)
     check_recombine(rng, rows=2048, n_planes=8, n=1024, limb_offset=0,
@@ -1232,6 +1411,14 @@ def main() -> None:
                           primes=host.special_ntt_primes(n, 128)[:3],
                           trunc_bits=0, acc32=False, steps=1, kp1=kp1,
                           clock=clock, mix=mix, timed=False)
+    # beyond one block's shared memory, kernel 3 in groups of output
+    # components: k+1 = 4 at N=16384 (two groups of two) and k+1 = 8 at
+    # N=8192 (two of four), the key packed for the card
+    for n, kp1 in ((16384, 4), (8192, 8)):
+        check_fused_steps(rng, batch=2, n=n, levels=2, base_log=8,
+                          primes=host.special_ntt_primes(n, 128)[:3],
+                          trunc_bits=0, acc32=False, steps=2, kp1=kp1,
+                          clock=clock, mix=mix, timed=False)
     # the 6-bit N=4096 benchmark parameters truncate their key (t > 0)
     p6 = fused_params(4096, 1, 22, 880)
     primes6, t6 = host.choose_fused_primes(p6, 6)
@@ -1286,8 +1473,17 @@ def main() -> None:
          "replaces": "concrete_tpu/ops/pallas_banded_mm.py:88 "
                      "banded_matmul_fused at the latency step's shape, with "
                      "the step's glue (concrete_tpu/core/kernels.py:752-762)",
-         "launches": latency["launches"].get("banded_matmul_latency", 0),
+         "launches": latency["step_loop_launches"].get(
+             "banded_matmul_latency", 0),
          **{k: rec_bm_lat[k] for k in fields}},
+        {"name": "blind_rotate_latency", "route": "cuda",
+         "source": "concrete_tpu_torch/csrc/blind_rotate_latency.cu",
+         "replaces": "concrete_tpu/ops/pallas_step.py:322 and :385 "
+                     "(rotate_decompose_digits, recombine_accumulate) at the "
+                     "latency shape, with pallas_banded_mm.py:88 in its "
+                     "body: the scan of concrete_tpu/core/kernels.py:710",
+         "launches": latency["launches"].get("blind_rotate_latency", 0),
+         **{k: rec_br[k] for k in fields}},
         {"name": "recombine_accumulate", "route": "cuda",
          "source": "concrete_tpu_torch/csrc/recombine_accumulate.cu",
          "replaces": "concrete_tpu/ops/pallas_step.py:385 "
@@ -1340,6 +1536,8 @@ def main() -> None:
                               "external_product_accumulate": rec_b,
                               "banded_matmul": rec_bm,
                               "banded_matmul_latency_b1": rec_bm_lat,
+                              "blind_rotate_latency_b1": rec_br,
+                              "blind_rotate_latency_b4": rec_br4,
                               "banded_matmul_few_rows_b1": rec_bm_few,
                               "recombine_accumulate_latency_b1": rec_rc_lat,
                               "rotate_decompose_digits_latency_b1":
@@ -1350,6 +1548,14 @@ def main() -> None:
                    "build_s": _build.BUILD_INFO["seconds"],
                    "build_source_s": _build.BUILD_INFO["source_seconds"]},
                   f, indent=1)
+    shutil.rmtree(var_dir)
+    print(f"persistent latency blind rotate per lookup (710 steps): B=1 "
+          f"{rec_br['ms']:.4f} ms, B=4 {rec_br4['ms']:.4f} ms; bound "
+          f"{rec_br['bound_ms']:.4f} / {rec_br4['bound_ms']:.4f} ms; chain "
+          f"floor (no MMA) {rec_br['chain_floor_ms']:.4f} / "
+          f"{rec_br4['chain_floor_ms']:.4f} ms; the three-kernel step loop "
+          f"{rec_br['step_loop_ms']:.4f} / {rec_br4['step_loop_ms']:.4f} ms",
+          flush=True)
     print(f"card: {card()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,12 @@ holds them to it.  Torus values are int64 tensors (mod 2^64 wrap, logical
 right shifts through ``limbs.srl``); shapes use B = batch, n = small LWE dim,
 k = GLWE dim, N = poly size, l = decomposition levels.
 
-The blind rotate is a Python loop over the n mask coefficients, and
-dispatches as the JAX package does.  A ``FusedBSK`` runs
-``ops.fused_ntt.blind_rotate_fused`` (three kernels per step: digits,
-CRT-NTT external product, Garner).  A banded ``LimbBSK`` at a batch of at
-most ``LATENCY_BATCH_MAX`` runs ``_blind_rotate_latency``; above it, each
+The blind rotate dispatches as the JAX package does.  A ``FusedBSK`` runs
+``ops.fused_ntt.blind_rotate_fused`` (a host loop of three kernels per
+step: digits, CRT-NTT external product, Garner).  A banded ``LimbBSK`` at
+a batch of at most ``LATENCY_BATCH_MAX`` runs ``_blind_rotate_latency``:
+on the card one launch of ``ops.latency``'s persistent kernel for every
+step, at the shapes its rule takes.  Above that batch, a host loop whose
 step runs ``ops.step.rotate_decompose`` (X^a * acc - acc, gadget digits,
 int8 limbs) and then the product selected by ``BANDED_MM_MODE``:
 
@@ -41,6 +42,7 @@ import torch
 from concrete_tpu_torch.core import limbs as lb
 from concrete_tpu_torch.ops import banded_mm as bm
 from concrete_tpu_torch.ops import external_product as xp
+from concrete_tpu_torch.ops import latency as lat
 from concrete_tpu_torch.ops import recombine as rc
 from concrete_tpu_torch.ops import step
 from concrete_tpu_torch.params import CryptoParams
@@ -183,7 +185,8 @@ def pack_bsk(bsk_u64: np.ndarray, params: CryptoParams,
     limbs = np.moveaxis(lb.u64_to_balanced_i8(ext), -1, -2)
     limbs = limbs.reshape(n, l * kp1, kp1, 8, 2 * big_n - 1)
     limbs = np.ascontiguousarray(limbs[:, :, :, truncate_limbs:, :])
-    return LimbBSK(planes=torch.from_numpy(limbs).to(device),
+    # with the tail the latency kernel's bulk copies may read
+    return LimbBSK(planes=lat.with_tail(torch.from_numpy(limbs), device),
                    base_log=params.pbs_base_log, levels=params.pbs_level,
                    truncate_limbs=truncate_limbs)
 
@@ -327,18 +330,42 @@ def _blind_rotate_latency(ct_small: torch.Tensor, bsk: LimbBSK,
     before the limb split, and the BSK step's raw limb rows w_vv[..., N-1:]
     are the lhs, one (k+1, Cin*N) block per kept BSK limb plane.  With a
     truncated key the low limbs of -w then differ from those the throughput
-    path reads, so the two paths' bits differ.  Per step, three kernels:
-    kernel 1 (``rotate_decompose_digits``), kernel 9's latency form
-    (``banded_matmul_latency``, which builds the band from the digits and
-    reads the BSK step in place) and ``recombine_accumulate``.  The
-    accumulator rows are ordered (r, b), the order of the product's planes.
+    path reads, so the two paths' bits differ.  The accumulator rows are
+    ordered (r, b), the order of the product's planes.  A CUDA accumulator
+    at a shape ``ops.latency.plan`` takes runs every step in one launch of
+    the persistent kernel (``ops.latency.blind_rotate_latency``); at any
+    other shape, the step loop (``_blind_rotate_latency_steps``); a CPU one,
+    the plain version of the persistent kernel.
     """
     b_ct = ct_small.shape[0]
     n = params.polynomial_size
     kp1 = params.glwe_dimension + 1
     levels = params.pbs_level
     a_t, acc = _switch_and_init(ct_small, lut_poly, params)
-    acc = acc.transpose(0, 1).contiguous().view(kp1 * b_ct, n)
+    acc = acc.transpose(0, 1).contiguous()          # (k+1, B, N)
+    if acc.device.type == "cuda" and lat.plan(
+            b_ct, n, kp1, levels, lb.num_digit_limbs(params.pbs_base_log),
+            bsk.planes.shape[3]) is None:
+        acc = _blind_rotate_latency_steps(a_t, acc, bsk, params)
+    else:
+        acc = lat.blind_rotate_latency(
+            a_t.contiguous(), acc, bsk.planes, kp1=kp1, levels=levels,
+            base_log=params.pbs_base_log, limb_offset=bsk.truncate_limbs)
+    return acc.transpose(0, 1).contiguous()
+
+
+def _blind_rotate_latency_steps(a_t: torch.Tensor, acc: torch.Tensor,
+                                bsk: LimbBSK,
+                                params: CryptoParams) -> torch.Tensor:
+    """The latency blind rotate as a step loop of three kernels per step:
+    kernel 1 (``rotate_decompose_digits``), kernel 9's latency form
+    (``banded_matmul_latency``, which builds the band from the digits and
+    reads the BSK step in place) and ``recombine_accumulate``.  a_t (B,
+    n_small) int32, acc (k+1, B, N) int64 -> (k+1, B, N), acc updated in
+    place."""
+    kp1, b_ct, n = acc.shape
+    levels = params.pbs_level
+    acc = acc.view(kp1 * b_ct, n)
     a_rows = a_t.t().repeat(1, kp1).contiguous()    # row r*B + b: a_t[b]
     for i in range(bsk.n_small):
         digits = step.rotate_decompose_digits(
@@ -348,7 +375,7 @@ def _blind_rotate_latency(ct_small: torch.Tensor, bsk: LimbBSK,
             base_log=params.pbs_base_log)            # (k+1, B, S+A-1, N)
         rc.recombine_accumulate(prods.view(kp1 * b_ct, -1, n), acc,
                                 limb_offset=bsk.truncate_limbs)
-    return acc.view(kp1, b_ct, n).transpose(0, 1).contiguous()
+    return acc.view(kp1, b_ct, n)
 
 
 def sample_extract(acc: torch.Tensor, index: int = 0) -> torch.Tensor:

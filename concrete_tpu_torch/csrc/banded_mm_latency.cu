@@ -55,137 +55,22 @@
 //    below 2^31 (Cin*N*128*128 = 1.3e8); no .satfinite.
 // The ABLATE_* switches are set only by tools/ablate_kernels.py's variant
 // builds: each leaves one part of the work out, to time it.
+// The band build, the lhs staging and the fragment build and MMA chain
+// are device functions of banded_latency.cuh, which the persistent latency
+// blind rotate (blind_rotate_latency.cu) runs with the same arithmetic.
 
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "banded_wgmma.cuh"     // smem_addr, cp_async16
+#include "banded_latency.cuh"  // LatShape, stage_band, stage_lhs, mma_chain
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-using banded::cp_async16;
-using banded::smem_addr;
-
-constexpr int LT = 64;            // output coefficients per block: 4 x 16
-constexpr int KH = 2;             // K halves: warps 0-3 and 4-7
-constexpr int THREADS = 128 * KH; // 8 warps
 constexpr int MAX_CL = 8;         // blocks per cluster (the portable most)
-constexpr int JS_MAX = 1024;      // j per K slice
 constexpr size_t MAX_SMEM = 227 * 1024;   // per block, dynamic
-
-struct LatShape {
-  // lhs[a, r, ci, j] at lhs + a*st_a + r*st_r + (ci / kp1)*st_lev
-  //                   + (ci % kp1)*st_rin + j; nothing at or past lhs_end
-  // is read
-  const int8_t* lhs;
-  const int8_t* lhs_end;
-  long long st_a, st_r, st_lev, st_rin;
-  const int32_t* digits;      // (Cin, B, N), or null: the band is vv
-  const int8_t* vv;           // (Cin, B, S, 2N-1)
-  int* out;                   // (rows, B, A+S-1, N)
-  int a_limbs, rows, cin, kp1, batch, s_planes, n;
-  int js, jblocks, slices, cl, per_round, ncols, ntiles;
-  int band_words;             // u32 words of one staged band view
-  int band_bytes;             // the 4 S band views of a slice, 16-aligned
-  int lhs_row;                // bytes of one staged lhs row: js + 16
-  int slice_bytes;
-};
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Band row x of slice (ci, jb) holds E(u_lo + x), u_lo = t0 - jb*js - js:
-// output t meets input j at x = (t - t0) - (j - jb*js) + js.  Word w of
-// its view k holds row bytes 4w+k .. 4w+k+3 reversed (byte i is row[4w +
-// k + 3 - i], the band at j+i for one output t), built from the row's
-// words w and w+1, which pack x = 4w .. 4w+7; views (s, k) lie at
-// band + (4s + k) * band_words.
-template <bool DIGITS>
-__device__ __forceinline__ void stage_band(const LatShape& sh, uint32_t* band,
-                                           int ci, int jb, int t0, int b) {
-  const int u_lo = t0 - jb * sh.js - sh.js;
-  for (int w = threadIdx.x; w < sh.band_words; w += THREADS) {
-    const int u0 = u_lo + 4 * w;           // in [-N, N], a multiple of 4
-#ifdef ABLATE_NO_BAND_STAGING
-    for (int v = 0; v < 4 * sh.s_planes; ++v) band[v * sh.band_words + w] = w;
-    continue;                              // (leaves work out: times the rest)
-#endif
-    int x[8];                              // E(u0 .. u0+7)
-    const int8_t* vrow = nullptr;
-    if (DIGITS) {
-      const int32_t* drow = sh.digits + ((size_t)ci * sh.batch + b) * sh.n;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int u = u0 + 4 * h;
-        const int idx = u < 0 ? u + sh.n : (u >= sh.n ? u - sh.n : u);
-        const int4 v = *reinterpret_cast<const int4*>(drow + idx);
-        const int sgn = u < 0 ? -1 : 1;
-        x[4 * h] = sgn * v.x; x[4 * h + 1] = sgn * v.y;
-        x[4 * h + 2] = sgn * v.z; x[4 * h + 3] = sgn * v.w;
-      }
-    }
-    for (int s = 0; s < sh.s_planes; ++s) {
-      uint32_t lo = 0, hi = 0;
-      if (DIGITS) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const uint32_t byte = (uint32_t)x[i] & 0xFF;
-          if (i < 4) lo |= byte << (8 * i); else hi |= byte << (8 * i - 32);
-          x[i] = (x[i] - (int)(int8_t)byte) >> 8;   // the balanced carry
-        }
-      } else {
-        const long long vlen = 2LL * sh.n - 1;
-        vrow = sh.vv + (((size_t)ci * sh.batch + b) * sh.s_planes + s) * vlen;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const long long y = sh.n - 1 + u0 + i;
-          const uint32_t byte =
-              y >= 0 && y < vlen ? (uint32_t)(uint8_t)vrow[y] : 0;
-          if (i < 4) lo |= byte << (8 * i); else hi |= byte << (8 * i - 32);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        band[(4 * s + k) * sh.band_words + w] =
-            __byte_perm(__funnelshift_r(lo, hi, 8 * k), 0, 0x0123);
-    }
-  }
-}
-
-__device__ __forceinline__ const int8_t* lhs_row(const LatShape& sh, int c,
-                                                 int ci, int jb) {
-  const int r = c / sh.a_limbs, a = c - r * sh.a_limbs;
-  const int lev = ci / sh.kp1, rin = ci - lev * sh.kp1;
-  return sh.lhs + a * sh.st_a + r * sh.st_r + lev * sh.st_lev +
-         rin * sh.st_rin + (long long)jb * sh.js;
-}
-
-// The slice's ncols lhs rows, each from the 16-byte boundary at or below
-// its start (inside the key's storage), in 16-byte cp.async pieces.
-__device__ __forceinline__ void stage_lhs(const LatShape& sh,
-                                          unsigned char* rows, int ci,
-                                          int jb) {
-  const int pieces = sh.lhs_row / 16;
-  for (int i = threadIdx.x; i < sh.ncols * pieces; i += THREADS) {
-    const int c = i / pieces, pc = i - c * pieces;
-    const int8_t* base = (const int8_t*)(
-        (uintptr_t)lhs_row(sh, c, ci, jb) & ~(uintptr_t)15);
-    const int8_t* src = base + 16 * pc;
-    const long long left = (long long)(sh.lhs_end - src);
-    const int nb = left >= 16 ? 16 : (left > 0 ? (int)left : 0);
-    cp_async16(smem_addr(rows + c * sh.lhs_row + 16 * pc), nb ? src : sh.lhs,
-               nb);
-  }
-}
 
 // Block (rank, t0 / LT, b): rank takes the K slices rank, rank + cl, ...
 template <bool DIGITS>
@@ -228,10 +113,8 @@ __global__ void __launch_bounds__(THREADS) banded_latency_kernel(
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
 
-    // a0 holds band row x = y+3 .. y (y = y0 at k-step 0) for row g, a1
-    // row g+8 (y + 8), a2 bytes 16.. of row g (y - 16), a3 row g+8 (y - 8):
-    // words q, q+2, q-4, q-2 of the view y0 mod 4; this warp's K half
-    // runs k-steps [ks0, ks0 + half)
+    // y0: the band row of the warp's thread at k-step 0 (mma_chain); this
+    // warp's K half runs k-steps [ks0, ks0 + half)
     const int y0 = 16 * warp + g - 4 * tg + sh.js - 3;
     const int half = sh.js / 32 / KH, ks0 = kh * half;
     for (int s = 0; s < sh.s_planes; ++s) {
@@ -244,32 +127,8 @@ __global__ void __launch_bounds__(THREADS) banded_latency_kernel(
           const unsigned char* slot = slots + (size_t)k * sh.slice_bytes;
           const uint32_t* band = reinterpret_cast<const uint32_t*>(slot) +
                                  (4 * s + (y0 & 3)) * sh.band_words;
-          // the B fragment of column c: bytes o.. of its staged row, o = m
-          // + j (m: the row's offset past its 16-byte boundary)
-          const bool live = c < sh.ncols;
-          const int m = live ? (int)((uintptr_t)lhs_row(sh, c, ci, jb) & 15)
-                             : 0;
-          const uint32_t* lrow = reinterpret_cast<const uint32_t*>(
-              slot + sh.band_bytes + (live ? c : 0) * sh.lhs_row);
-          const int o0 = m + 4 * tg, bsh = 8 * (o0 & 3);
-#pragma unroll 4
-          for (int ks = ks0; ks < ks0 + half; ++ks) {
-            const int q = (y0 >> 2) - 8 * ks, ob = (o0 >> 2) + 8 * ks;
-            uint32_t af[4];
-#ifdef ABLATE_NO_FRAGMENTS
-            af[0] = q; af[1] = bsh; af[2] = ks; af[3] = tid;
-            uint32_t b0f = ob, b1f = bsh;
-#else
-            af[0] = band[q];
-            af[1] = band[q + 2];
-            af[2] = band[q - 4];
-            af[3] = band[q - 2];
-            uint32_t b0f = __funnelshift_r(lrow[ob], lrow[ob + 1], bsh);
-            uint32_t b1f = __funnelshift_r(lrow[ob + 4], lrow[ob + 5], bsh);
-#endif
-            if (!live) b0f = b1f = 0;
-            mma_s8(acc, af, b0f, b1f);
-          }
+          mma_chain(acc, band, slot + sh.band_bytes, sh, c, ci, jb, y0, tg,
+                    ks0, half);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) red[cell(s, nt, i)] += acc[i];

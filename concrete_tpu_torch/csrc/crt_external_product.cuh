@@ -54,7 +54,14 @@
 //    (residue k of thread t at k * threads + t: conflict-free, no
 //    barrier).  Shared memory is then (k+1) N 4 bytes, at most 227 KB:
 //    k+1 <= 3 at N = 16384, <= 7 at N = 8192, more below
-//    (ops/fused_ntt.py checks it when the key is packed).
+//    (ops/fused_ntt.py checks it when the key is packed).  Beyond that,
+//    the k+1 output components are split into groups (kernel_groups in
+//    ops/fused_ntt.py): blockIdx.z is the group, each block holds the
+//    accumulators of its group only and recomputes the digits' forward
+//    transforms, so any k+1 runs (k+1 = 4 at N = 16384 in two groups of
+//    two, both in registers; k+1 = 8 at N = 8192 in two groups of four);
+//    a cluster sharing the accumulators through distributed shared memory
+//    would need a barrier per digit polynomial.
 // N = 16384 runs 512 threads of two groups each; N <= 8192 one group.  The
 // kernel is compiled once per N (log2 N in 10 .. 14), so every pass's
 // strides, twiddle offsets and exchange addresses are constants, and twice
@@ -230,9 +237,13 @@ __global__ void __launch_bounds__(MAX_THREADS) crt_external_product_kernel(
     const int32_t* __restrict__ digits, const uint32_t* __restrict__ spec,
     const uint32_t* __restrict__ spec_sh, uint32_t* __restrict__ out,
     const uint2* __restrict__ tw, const uint32_t* __restrict__ consts,
-    int batch, int levels, int kp1_arg) {
+    int batch, int levels, int kp1_arg, int co_group) {
   const int kp1 = WIDE ? kp1_arg : KR;
-  // [2][N] exchange buffers (swizzled), then [k+1-KR][N] accumulators
+  // this block's output components co0 .. co0+ng-1 (WIDE: a group of
+  // co_group, blockIdx.z the group; else both of k+1 = 2)
+  const int co0 = WIDE ? (int)blockIdx.z * co_group : 0;
+  const int ng = WIDE ? min(co_group, kp1 - co0) : KR;
+  // [2][N] exchange buffers (swizzled), then [ng-KR][N] accumulators
   extern __shared__ uint32_t buf[];
   constexpr int log_n = LOG_N, n = 1 << LOG_N, npass = (LOG_N + 3) / 4;
   constexpr int T = n / (E * G);             // threads per block
@@ -253,7 +264,7 @@ __global__ void __launch_bounds__(MAX_THREADS) crt_external_product_kernel(
     for (int i = 0; i < G; ++i)
 #pragma unroll
       for (int k = 0; k < E; ++k) acc[co][i][k] = 0;
-  for (int c = 0; c < (kp1 - KR) * G * E; ++c) acc_sh[c * T] = 0;
+  for (int c = 0; c < (ng - KR) * G * E; ++c) acc_sh[c * T] = 0;
 
   for (int ci = 0; ci < cin; ++ci) {
     const int lev = ci / kp1, comp = ci - lev * kp1;
@@ -281,20 +292,22 @@ __global__ void __launch_bounds__(MAX_THREADS) crt_external_product_kernel(
     // thread g now holds spectrum residues 16g .. 16g+15 of each group
     const size_t key = (size_t)(pr * cin + ci) * kp1 * n;
 #pragma unroll
-    for (int co = 0; co < KR; ++co)
+    for (int co = 0; co < KR; ++co) {
+      if (WIDE && co >= ng) break;
 #pragma unroll
       for (int i = 0; i < G; ++i)
-        mac16(acc[co][i], x[i], spec + key + (size_t)co * n,
-              spec_sh + key + (size_t)co * n, E * (tid + i * T), p);
-    for (int co = KR; co < kp1; ++co) {
+        mac16(acc[co][i], x[i], spec + key + (size_t)(co0 + co) * n,
+              spec_sh + key + (size_t)(co0 + co) * n, E * (tid + i * T), p);
+    }
+    for (int co = KR; co < ng; ++co) {
       uint32_t* sh = acc_sh + (size_t)(co - KR) * n;
 #pragma unroll
       for (int i = 0; i < G; ++i) {
         uint32_t a[E];
 #pragma unroll
         for (int k = 0; k < E; ++k) a[k] = sh[(i * E + k) * T];
-        mac16(a, x[i], spec + key + (size_t)co * n,
-              spec_sh + key + (size_t)co * n, E * (tid + i * T), p);
+        mac16(a, x[i], spec + key + (size_t)(co0 + co) * n,
+              spec_sh + key + (size_t)(co0 + co) * n, E * (tid + i * T), p);
 #pragma unroll
         for (int k = 0; k < E; ++k) sh[(i * E + k) * T] = a[k];
       }
@@ -302,12 +315,14 @@ __global__ void __launch_bounds__(MAX_THREADS) crt_external_product_kernel(
   }
 
   const uint32_t n_inv = consts[3 * pr + 1], n_inv_sh = consts[3 * pr + 2];
-  uint32_t* dst = out + ((size_t)pr * rows + (size_t)b * kp1) * n;
+  uint32_t* dst = out + ((size_t)pr * rows + (size_t)b * kp1 + co0) * n;
 #pragma unroll
-  for (int co = 0; co < KR; ++co)
+  for (int co = 0; co < KR; ++co) {
+    if (WIDE && co >= ng) break;
     inverse_store<G, LOG_N>(acc[co], buf, ex, inv, p, n_inv, n_inv_sh,
                             dst + (size_t)co * n);
-  for (int co = KR; co < kp1; ++co) {
+  }
+  for (int co = KR; co < ng; ++co) {
     const uint32_t* a = acc_sh + (size_t)(co - KR) * n;
     uint32_t x[G][E];
 #pragma unroll
@@ -322,34 +337,43 @@ __global__ void __launch_bounds__(MAX_THREADS) crt_external_product_kernel(
 template <int LOG_N, bool WIDE>
 cudaError_t launch(const void* digits, const void* spec, const void* spec_sh,
                    void* out, const void* tw, const void* consts, int batch,
-                   int levels, int kp1, int n_primes, void* stream) {
+                   int levels, int kp1, int n_primes, int co_group,
+                   void* stream) {
   constexpr int G = LOG_N == 14 ? 2 : 1;   // 1024 groups: 512 threads of 2
-  const int smem = (int)(sizeof(uint32_t) * (size_t)(2 + kp1 - KR) << LOG_N);
+  const int in_smem = co_group > KR ? co_group - KR : 0;
+  const int smem = (int)(sizeof(uint32_t) * (size_t)(2 + in_smem) << LOG_N);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         crt_external_product_kernel<G, LOG_N, WIDE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((unsigned)batch, (unsigned)n_primes);
+  const dim3 grid((unsigned)batch, (unsigned)n_primes,
+                  (unsigned)((kp1 + co_group - 1) / co_group));
   crt_external_product_kernel<G, LOG_N, WIDE>
       <<<grid, (1 << LOG_N) / (E * G), smem, (cudaStream_t)stream>>>(
           (const int32_t*)digits, (const uint32_t*)spec,
           (const uint32_t*)spec_sh, (uint32_t*)out, (const uint2*)tw,
-          (const uint32_t*)consts, batch, levels, kp1);
+          (const uint32_t*)consts, batch, levels, kp1, co_group);
   return cudaGetLastError();
 }
 
-// The kernel for k+1 = 2 (WIDE false) or k+1 >= 3 at N = 2^log_n.
+// The kernel for k+1 = 2 (WIDE false: one group of both components) or
+// k+1 >= 3 at N = 2^log_n, in groups of co_group output components.
 template <bool WIDE>
 int launch_n(const void* digits, const void* spec, const void* spec_sh,
              void* out, const void* tw, const void* consts, int batch,
-             int levels, int kp1, int n_primes, int log_n, void* stream) {
-  if (WIDE ? kp1 <= KR : kp1 != KR) return (int)cudaErrorInvalidValue;
+             int levels, int kp1, int n_primes, int log_n, int co_group,
+             void* stream) {
+  if (WIDE ? kp1 <= KR || co_group < 1 || co_group > kp1
+           : kp1 != KR || co_group != KR)
+    return (int)cudaErrorInvalidValue;
 #define CRT_XP_CASE(L)                                                      \
   case L:                                                                   \
     return (int)launch<L, WIDE>(digits, spec, spec_sh, out, tw, consts,     \
-                                batch, levels, kp1, n_primes, stream);
+                                batch, levels, kp1, n_primes, co_group,   \
+                                stream);
   switch (log_n) {
     CRT_XP_CASE(10) CRT_XP_CASE(11) CRT_XP_CASE(12) CRT_XP_CASE(13)
     CRT_XP_CASE(14)
@@ -366,4 +390,4 @@ extern "C" int crt_external_product_wide(const void* digits, const void* spec,
                                          const void* tw, const void* consts,
                                          int batch, int levels, int kp1,
                                          int n_primes, int log_n,
-                                         void* stream);
+                                         int co_group, void* stream);

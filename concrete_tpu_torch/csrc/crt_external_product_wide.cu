@@ -9,7 +9,7 @@ extern "C" int crt_external_product_wide(const void* digits, const void* spec,
                                          const void* tw, const void* consts,
                                          int batch, int levels, int kp1,
                                          int n_primes, int log_n,
-                                         void* stream) {
+                                         int co_group, void* stream) {
   return launch_n<true>(digits, spec, spec_sh, out, tw, consts, batch,
-                        levels, kp1, n_primes, log_n, stream);
+                        levels, kp1, n_primes, log_n, co_group, stream);
 }

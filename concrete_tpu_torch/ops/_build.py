@@ -52,9 +52,9 @@ _SIGNATURES = {
     "ntt_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ntt_inverse": [_P, _P, _P, _P, _I, _I, _I, _P],
     # digits, spec, spec_sh, out, twiddles, prime constants, batch, levels,
-    # kp1, n_primes, log_n, stream
+    # kp1, n_primes, log_n, co_group, stream
     "crt_external_product": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _P],
+                             _I, _P],
     # residues, acc, constants, n_primes, elems, shift, acc32, stream
     "garner_accumulate": [_P, _P, _P, _I, _L, _I, _I, _P],
     # lhs, vv, out, a_limbs, rows, cin, kp1, cout, s_planes, n, stream
@@ -65,6 +65,10 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _P],
     # planes, acc, rows, n_planes, n, limb_offset, stream
     "recombine_accumulate": [_P, _P, _I, _I, _I, _I, _P],
+    # a_t, acc, planes, planes_end, batch, n_small, kp1, levels, base_log,
+    # d_limbs, s_key, n, limb_offset, cluster, stream
+    "blind_rotate_latency": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P],
 }
 
 

@@ -12,8 +12,8 @@ of three hand-written CUDA kernels per step:
    spectra and the inverse NTTs, as residues of the exact product; each
    thread carries 16 residues through up to 4 butterfly stages in
    registers between exchanges (``pair_tables`` gives the twiddles as the
-   kernel reads them), and any k+1 whose (k+1) N 4 bytes of shared memory
-   fit (``check_kernel_shape``);
+   kernel reads them); any k+1 >= 2, the output components split into
+   groups whose accumulators fit a block (``kernel_groups``);
 3. ``garner_accumulate`` (``csrc/garner_accumulate.cu``): explicit CRT,
    the truncation shift, and the update of the accumulator in place.
 
@@ -80,7 +80,7 @@ def pack_bsk_fused(bsk_u64: np.ndarray, params, message_bits: int = None,
     default (``utils.device.resolve_device``).  The truncation is part of
     the key (the oracle is refimpl on truncate_bsk_u64(bsk, t)); the
     transforms run where the key goes; a key for the card is refused here
-    at a shape kernel 3 cannot run (``check_kernel_shape``)."""
+    at a shape kernel 3 cannot run (``kernel_groups``)."""
     device = resolve_device(device)
     if primes is None or trunc_bits is None:
         primes, trunc_bits = host.choose_fused_primes(params, message_bits,
@@ -90,7 +90,7 @@ def pack_bsk_fused(bsk_u64: np.ndarray, params, message_bits: int = None,
     bsk_u64 = np.ascontiguousarray(bsk_u64, dtype=np.uint64)
     n_small, levels, kp1, _, n = bsk_u64.shape
     if device.type == "cuda":
-        check_kernel_shape(n, kp1)
+        kernel_groups(n, kp1)
     rows = levels * kp1 * kp1
     raw = torch.from_numpy(bsk_u64.view(np.int64)).to(device)
     # (b >> t << t) as a signed value, >> t: one arithmetic shift
@@ -110,15 +110,31 @@ def pack_bsk_fused(bsk_u64: np.ndarray, params, message_bits: int = None,
                     base_log=params.pbs_base_log, levels=params.pbs_level)
 
 
-def check_kernel_shape(n: int, kp1: int) -> None:
-    """Raise unless kernel 3 runs at N, k+1: k >= 1, and its shared memory,
-    two exchange buffers and the k-1 accumulators beyond the two it keeps
-    in registers, (k+1) N 4 bytes, within the H100's 227 KB per block
-    (k+1 <= 3 at N=16384, <= 7 at N=8192)."""
-    if kp1 < 2 or kp1 * n * 4 > XP_SMEM_BYTES:
+#: accumulators kernel 3 keeps in registers; the rest of a block's live in
+#: shared memory beside its two exchange buffers
+XP_REGISTER_ACCS = 2
+
+
+def kernel_groups(n: int, kp1: int,
+                  smem_bytes: int = XP_SMEM_BYTES) -> tuple[int, int]:
+    """Kernel 3's plan at N, k+1: (groups, co_group), the k+1 output
+    components split into `groups` blocks' worth of at most `co_group`
+    each.  A block holds the accumulators of its group only (two in
+    registers, the rest in shared memory beside two N-word exchange
+    buffers, (2 + co_group - 2) N 4 bytes within `smem_bytes`) and
+    recomputes the digits' forward transforms.  Every k+1 that fits one
+    block keeps one group, today's kernel (k+1 <= 3 at N=16384, <= 7 at
+    N=8192); beyond, as few groups as fit, as even as can be (k+1 = 4 at
+    N=16384: 2 of 2; k+1 = 8 at N=8192: 2 of 4; the last group may be
+    smaller).  Refuses k+1 < 2."""
+    per = XP_REGISTER_ACCS + smem_bytes // (4 * n) - 2
+    if kp1 < 2 or per < 1:
         raise ValueError(
-            f"{XP}: k+1={kp1} at N={n} needs {kp1 * n * 4} bytes of shared "
-            f"memory per block (k+1 >= 2 and (k+1) N 4 <= {XP_SMEM_BYTES})")
+            f"{XP}: k+1={kp1} at N={n} does not run: kernel 3 needs k+1 >= "
+            f"2 and two N-word exchange buffers within {smem_bytes} bytes "
+            f"of shared memory")
+    groups = -(-kp1 // per)
+    return groups, -(-kp1 // groups)
 
 
 def acc32_eligible(bsk: FusedBSK) -> bool:
@@ -179,7 +195,7 @@ def crt_external_product(digits: torch.Tensor, spec: torch.Tensor,
     if rows % kp1:
         raise ValueError(f"{XP}: {rows} rows are not a multiple of "
                          f"k+1={kp1}")
-    check_kernel_shape(n, kp1)
+    _, co_group = kernel_groups(n, kp1)
     for name, t in (("digits", digits), ("spec", spec),
                     ("spec_sh", spec_sh)):
         if t.dtype != torch.int32 or not t.is_contiguous() \
@@ -196,7 +212,7 @@ def crt_external_product(digits: torch.Tensor, spec: torch.Tensor,
     _build.check(XP, _build.library().crt_external_product(
         digits.data_ptr(), spec.data_ptr(), spec_sh.data_ptr(),
         out.data_ptr(), tw.data_ptr(), cst.data_ptr(), rows // kp1, levels,
-        kp1, n_p, n.bit_length() - 1, _build.stream_of(digits)))
+        kp1, n_p, n.bit_length() - 1, co_group, _build.stream_of(digits)))
     _build.LAUNCHES[XP] += 1
     return out
 

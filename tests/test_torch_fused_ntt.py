@@ -489,17 +489,26 @@ def test_register_schedule_with_shared_accumulators(kp1):
 
 
 def test_kernel_shape_limits():
-    """Kernel 3 takes k+1 >= 2 while (k+1) N 4 bytes of shared memory fit
-    227 KB: k+1 <= 3 at N=16384, <= 7 at N=8192; beyond, the wrapper and
-    the key pack for the card refuse it with the reason."""
-    for n, kp1 in ((16384, 3), (8192, 7), (4096, 14), (2048, 7)):
-        tfn.check_kernel_shape(n, kp1)
-    for n, kp1 in ((16384, 4), (8192, 8), (1024, 1)):
-        with pytest.raises(ValueError, match="shared memory"):
-            tfn.check_kernel_shape(n, kp1)
+    """Kernel 3 takes every k+1 >= 2 up to N=16384: one group of output
+    components while its accumulators fit one block (k+1 <= 3 at
+    N=16384, <= 7 at N=8192), and beyond that as few groups as fit, each
+    block holding its group's accumulators only; k+1 < 2 is still refused
+    with the reason."""
+    for n, kp1 in ((16384, 3), (8192, 7), (4096, 14), (2048, 7),
+                   (4096, 2)):
+        assert tfn.kernel_groups(n, kp1) == (1, kp1)
+    assert tfn.kernel_groups(16384, 4) == (2, 2)
+    assert tfn.kernel_groups(8192, 8) == (2, 4)
+    with pytest.raises(ValueError, match="k\\+1 >= 2"):
+        tfn.kernel_groups(1024, 1)
 
 
-def _rehearse_step(kp1, b_ct):
+def _rehearse_step(kp1, b_ct, smem_bytes=tfn.XP_SMEM_BYTES):
+    """Kernel 3's step in numpy, block by block: per (prime, ciphertext,
+    group of output components), the register schedule's forward
+    transforms of every digit polynomial, the group's first two
+    accumulators in registers and the rest in its shared-memory slots,
+    and the inverse transforms, == crt_external_product_plain."""
     n, levels = 1024, 2
     params = dataclasses.replace(_params(n, n_small=1),
                                  glwe_dimension=kp1 - 1)
@@ -518,35 +527,57 @@ def _rehearse_step(kp1, b_ct):
     cst = tntt.prime_constants(n, primes).astype(np.uint64)
     cin = levels * kp1
     threads, kr = n // E, 2            # one group per thread below N=16384
-    # the shared accumulators' slots: [c][k][t] -> ((c G + i) E + k) T + t
-    c, k, t = np.meshgrid(np.arange(kp1 - kr), np.arange(E),
-                          np.arange(threads), indexing="ij")
-    slot = (c * E + k) * threads + t
-    assert np.array_equal(np.sort(slot.reshape(-1)),
-                          np.arange((kp1 - kr) * n))
-    for pr, p in enumerate(primes):
-        p64 = np.uint64(p)
-        for b in range(b_ct):
-            acc = np.zeros((kr, n // E, E), np.uint64)
-            shared = np.full((kp1 - kr) * n, np.uint64(1 << 40))
-            shared[slot] = 0
-            for ci in range(cin):
-                lev, comp = divmod(ci, kp1)
-                d = digits[lev, b * kp1 + comp].astype(np.int64)
-                x = _sched_forward(np.where(d < 0, d + p, d).astype(np.uint64),
-                                   pairs[pr, 0], p64, n)
-                for co in range(kp1):
-                    row = (pr * cin + ci) * kp1 + co
-                    kv = spec[row].reshape(n // E, E)
-                    ks = spec_sh[row].reshape(n // E, E)
-                    prod = _shoup(x, kv, ks, p64)
-                    if co < kr:
-                        acc[co] = (acc[co] + prod) % p64
-                    else:       # slot[c, k, t] holds thread t's residue k
-                        s = slot[co - kr]
-                        shared[s] = (shared[s] + prod.T) % p64
-            for co in range(kp1):
-                a = acc[co] if co < kr else shared[slot[co - kr]].T
-                out = _sched_inverse(a.copy(), pairs[pr, 1], p64, n,
-                                     cst[pr, 1], cst[pr, 2])
-                assert np.array_equal(out, want[pr, b * kp1 + co])
+    groups, co_group = tfn.kernel_groups(n, kp1, smem_bytes)
+    # a block's shared memory: two exchange buffers and its group's
+    # accumulators past the two in registers
+    assert (2 + max(co_group - kr, 0)) * n * 4 <= smem_bytes
+    got = np.full((len(primes), b_ct * kp1, n), 1 << 40, np.uint64)
+    for z in range(groups):
+        co0 = z * co_group
+        ng = min(co_group, kp1 - co0)
+        # the shared accumulators' slots: [c][k][t] -> ((c G + i) E + k) T
+        # + t
+        c, k, t = np.meshgrid(np.arange(max(ng - kr, 0)), np.arange(E),
+                              np.arange(threads), indexing="ij")
+        slot = (c * E + k) * threads + t
+        assert np.array_equal(np.sort(slot.reshape(-1)),
+                              np.arange(max(ng - kr, 0) * n))
+        for pr, p in enumerate(primes):
+            p64 = np.uint64(p)
+            for b in range(b_ct):
+                acc = np.zeros((kr, n // E, E), np.uint64)
+                shared = np.full(max(ng - kr, 0) * n, np.uint64(1 << 40))
+                shared[slot] = 0
+                for ci in range(cin):
+                    lev, comp = divmod(ci, kp1)
+                    d = digits[lev, b * kp1 + comp].astype(np.int64)
+                    x = _sched_forward(
+                        np.where(d < 0, d + p, d).astype(np.uint64),
+                        pairs[pr, 0], p64, n)
+                    for co in range(ng):
+                        row = (pr * cin + ci) * kp1 + co0 + co
+                        kv = spec[row].reshape(n // E, E)
+                        ks = spec_sh[row].reshape(n // E, E)
+                        prod = _shoup(x, kv, ks, p64)
+                        if co < kr:
+                            acc[co] = (acc[co] + prod) % p64
+                        else:   # slot[c, k, t] holds thread t's residue k
+                            s = slot[co - kr]
+                            shared[s] = (shared[s] + prod.T) % p64
+                for co in range(ng):
+                    a = acc[co] if co < kr else shared[slot[co - kr]].T
+                    got[pr, b * kp1 + co0 + co] = _sched_inverse(
+                        a.copy(), pairs[pr, 1], p64, n, cst[pr, 1],
+                        cst[pr, 2])
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("kp1,groups", [(4, 2), (5, 3)])
+def test_register_schedule_in_output_groups(kp1, groups):
+    """Kernel 3 in output-component groups, rehearsed at N=1024 with a
+    shared-memory budget forced down to the two exchange buffers: each
+    group's block keeps its (at most two) accumulators in registers and
+    the step still == the plain version."""
+    smem = 2 * 1024 * 4
+    assert tfn.kernel_groups(1024, kp1, smem)[0] == groups
+    _rehearse_step(kp1=kp1, b_ct=2, smem_bytes=smem)

@@ -1,13 +1,18 @@
-"""Ablations of kernels B, 3 and 9 on one GPU, by variant builds.
+"""Ablations of kernels B, 3 and 9 and of the persistent latency blind
+rotate on one GPU, by variant builds.
 
-    python3 tools/ablate_kernels.py
+    python3 tools/ablate_kernels.py [B 9T 9L BR 3 3G ...]
+
+(the kernels to run, default all of them)
 
 Each variant is a committed kernel source (``csrc/external_product.cu`` and
 ``csrc/banded_mm.cu`` through their shared ``csrc/banded_wgmma.cuh``;
 ``csrc/banded_mm_latency.cu``; ``csrc/crt_external_product.cuh`` through
 its two sources) built with some of its ``ABLATE_*``
-switches defined (the lists below; the port's own build defines none), by
-``nvcc`` with the port's flags into its own library, and launched through
+switches defined (the lists below; the port's own build defines none; or
+``PHASE_CLOCKS``, with which the persistent latency kernel counts the
+clocks of each part of a step), by ``chip_smoke.build_variant`` with the
+port's nvcc flags into its own library, and launched through
 the same C entry point at the main path's shape, beside the committed
 kernel, in one process on one card:
 
@@ -17,7 +22,10 @@ kernel, in one process on one card:
   planes in place, Cout=2, S=4, 4 output planes);
 - kernel 9's latency form at the B=1 latency step (k+1=2, l=4, N=1024, 4
   kept key limbs, 1 digit limb: kernel 1's digits and a BSK step in place);
-- kernel 3 at the MLP shape (B=256, N=4096, l=2, k+1=2, 3 primes).
+- the persistent latency blind rotate (``csrc/blind_rotate_latency.cu``,
+  BR) over a whole B=1 lookup (710 steps) at the same latency shape;
+- kernel 3 at the MLP shape (B=256, N=4096, l=2, k+1=2, 3 primes), and
+  in groups of output components (3G) at N=16384, k+1=4, B=2.
 
 A variant that computes the same function is held bit-exact against the
 plain version; one that leaves work out ("no ...") is only timed: its
@@ -33,7 +41,6 @@ import ctypes
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 
@@ -48,6 +55,7 @@ from concrete_tpu_torch.ops import _build  # noqa: E402
 
 XP_B = ("external_product.cu",)
 XP_3 = ("crt_external_product.cu", "crt_external_product_wide.cu")
+BR = ("blind_rotate_latency.cu",)
 BM_T = ("banded_mm.cu",)
 BM_L = ("banded_mm_latency.cu",)
 VARIANTS_B = {
@@ -74,34 +82,24 @@ VARIANTS_9L = {
     "no in-register band build (neither of the two)":
         ["ABLATE_NO_BAND_STAGING", "ABLATE_NO_FRAGMENTS"],
 }
+VARIANTS_BR = {
+    "committed": [],
+    "no MMA (the chain floor)": ["ABLATE_NO_MMA"],
+    "no key prefetch (each step waits for its key rows)":
+        ["ABLATE_NO_PREFETCH"],
+    "no digits recompute": ["ABLATE_NO_DIGITS"],
+    "no band staging": ["ABLATE_NO_BAND_STAGING"],
+    "no key rows": ["ABLATE_NO_KEY"],
+    "no fragment build": ["ABLATE_NO_FRAGMENTS"],
+    "no release fence at the cluster barrier": ["ABLATE_RELAXED_ARRIVE"],
+    "clocks per phase (instrumented, same function)": ["PHASE_CLOCKS"],
+}
 VARIANTS_3 = {
     "committed": [],
     "a stage's twiddle pairs gathered into registers first (same "
     "function)": ["ABLATE_TWIDDLE_GATHER"],
     "no key-spectrum loads": ["ABLATE_NO_KEY_LOADS"],
 }
-
-
-def build(tmp: str, sources: tuple, name: str, switches: list):
-    """Start nvcc on `sources` with `switches` defined, into
-    tmp/<name>.so; `load` waits for the returned process."""
-    return subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, *[f"-D{d}" for d in switches],
-         "-shared", "-o", os.path.join(tmp, f"{name}.so"),
-         *[os.path.join(_build.CSRC, src) for src in sources]],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def load(tmp: str, name: str, proc, entry: str):
-    out, _ = proc.communicate()
-    if proc.returncode:
-        sys.exit(f"ablate_kernels: nvcc failed on {name}:\n{out}")
-    fn = getattr(ctypes.CDLL(os.path.join(tmp, f"{name}.so")), entry)
-    fn.argtypes = _build._SIGNATURES[entry]
-    fn.restype = ctypes.c_int
-    regs = [line.split("info    :")[-1].strip() for line in out.splitlines()
-            if "registers" in line or "spill" in line]
-    return fn, regs
 
 
 def ablate(names, loaded, tmp, kernel, variants, entry, call, exact,
@@ -114,7 +112,7 @@ def ablate(names, loaded, tmp, kernel, variants, entry, call, exact,
     for name in order:
         label, proc = names[name]
         if name not in loaded:
-            loaded[name] = load(tmp, name, proc, entry)
+            loaded[name] = cs.load_variant(tmp, name, proc, entry)
         f, regs = loaded[name]
         _build.check(label, call(f))
         torch.cuda.synchronize()
@@ -127,9 +125,16 @@ def ablate(names, loaded, tmp, kernel, variants, entry, call, exact,
     return results
 
 
-def main() -> None:
+KERNELS = ("B", "9T", "9L", "BR", "3", "3G")
+
+
+def main(wanted: list[str]) -> None:
     if not torch.cuda.is_available():
         sys.exit("ablate_kernels: no GPU")
+    unknown = set(wanted) - set(KERNELS)
+    if unknown:
+        sys.exit(f"ablate_kernels: unknown kernel(s) {sorted(unknown)}; "
+                 f"choose from {KERNELS}")
     from concrete_tpu_torch.core import ntt as host
     from concrete_tpu_torch.ops import external_product as xp
     from concrete_tpu_torch.ops import fused_ntt as fn
@@ -141,114 +146,170 @@ def main() -> None:
     for kernel, src, variants in (("B", XP_B, VARIANTS_B),
                                   ("9T", BM_T, VARIANTS_9T),
                                   ("9L", BM_L, VARIANTS_9L),
-                                  ("3", XP_3, VARIANTS_3)):
+                                  ("BR", BR, VARIANTS_BR),
+                                  ("3", XP_3, VARIANTS_3),
+                                  ("3G", XP_3, {"committed": []})):
+        if kernel not in wanted:
+            continue
         for i, (label, switches) in enumerate(variants.items()):
             name = f"{kernel}_{i}"
-            names[name] = (label, build(tmp, src, name, switches))
+            names[name] = (label, cs.build_variant(tmp, src, name, switches))
     stream = torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(cs.SEED)
     results = []
 
+    loaded = {}
     # kernel B at the table step
     batch, levels, kp1, n, s_planes, keep, lo = 1024, 4, 2, 1024, 4, 4, 4
     planes = cs.rand_i8(rng, (levels, batch * kp1, n), "cuda")
     vv = cs.rand_i8(rng, (levels * kp1, kp1, s_planes, 2 * n - 1), "cuda")
     acc = cs.rand_torus(rng, (batch * kp1, n), "cuda")
-    want = xp.external_product_accumulate_plain(planes, vv, acc.clone(),
-                                                keep=keep, limb_offset=lo)
-    order = [f"B_{i}" for i in range(len(VARIANTS_B))] + ["B_0"]
-    loaded = {}
-    for name in order:
-        label, proc = names[name]
-        if name not in loaded:
-            loaded[name] = load(tmp, name, proc,
-                                "external_product_accumulate")
-        f, regs = loaded[name]
+    if "B" in wanted:
+        want = xp.external_product_accumulate_plain(
+            planes, vv, acc.clone(), keep=keep, limb_offset=lo)
+        order = [f"B_{i}" for i in range(len(VARIANTS_B))] + ["B_0"]
+        for name in order:
+            label, proc = names[name]
+            if name not in loaded:
+                loaded[name] = cs.load_variant(
+                    tmp, name, proc, "external_product_accumulate")
+            f, regs = loaded[name]
 
-        def call(a, f=f):
-            return f(planes.data_ptr(), vv.data_ptr(), a.data_ptr(), batch,
-                     levels, 1, kp1, n, s_planes, keep, lo, stream)
-        if name == "B_0" and not results:          # warm the card up
+            def call(a, f=f):
+                return f(planes.data_ptr(), vv.data_ptr(), a.data_ptr(),
+                         batch, levels, 1, kp1, n, s_planes, keep, lo,
+                         stream)
+            if name == "B_0" and not results:          # warm the card up
+                scratch = acc.clone()
+                for _ in range(2000):
+                    call(scratch)
+            got = acc.clone()
+            _build.check(label, call(got))
+            torch.cuda.synchronize()
             scratch = acc.clone()
-            for _ in range(2000):
-                call(scratch)
-        got = acc.clone()
-        _build.check(label, call(got))
-        torch.cuda.synchronize()
-        scratch = acc.clone()
-        ms = cs.cuda_ms(lambda: call(scratch), 50)
-        results.append({"kernel": "external_product_accumulate",
-                        "variant": label, "ms": ms,
-                        "exact": bool(torch.equal(got, want)),
-                        "ptxas": regs})
-        print(f"kernel B, {label}: {ms:.4f} ms, bit-exact "
-              f"{results[-1]['exact']}, {regs}", flush=True)
+            ms = cs.cuda_ms(lambda: call(scratch), 50)
+            results.append({"kernel": "external_product_accumulate",
+                            "variant": label, "ms": ms,
+                            "exact": bool(torch.equal(got, want)),
+                            "ptxas": regs})
+            print(f"kernel B, {label}: {ms:.4f} ms, bit-exact "
+                  f"{results[-1]['exact']}, {regs}", flush=True)
 
     # kernel 9's table form at the same step: kernel A's planes in place
     from concrete_tpu_torch.ops import banded_mm as bm
-    out = torch.empty((batch, kp1, s_planes, n), dtype=torch.int32,
-                      device="cuda")
-    want = bm.banded_matmul_plain(planes, vv, levels=levels)
+    if "9T" in wanted:
+        out = torch.empty((batch, kp1, s_planes, n), dtype=torch.int32,
+                          device="cuda")
+        want = bm.banded_matmul_plain(planes, vv, levels=levels)
 
-    def call_table(f):
-        return f(planes.data_ptr(), vv.data_ptr(), out.data_ptr(), 1, batch,
-                 levels * kp1, kp1, kp1, s_planes, n, stream)
-    results += ablate(names, loaded, tmp, "9T", VARIANTS_9T, "banded_matmul",
-                      call_table, lambda: torch.equal(out, want), 50)
+        def call_table(f):
+            return f(planes.data_ptr(), vv.data_ptr(), out.data_ptr(), 1,
+                     batch, levels * kp1, kp1, kp1, s_planes, n, stream)
+        results += ablate(names, loaded, tmp, "9T", VARIANTS_9T,
+                          "banded_matmul", call_table,
+                          lambda: torch.equal(out, want), 50)
 
     # kernel 9's latency form at the B=1 latency step
     s_key, base_log = 4, 5
     cin = levels * kp1
-    digits = torch.from_numpy(rng.integers(-16, 17, (levels, kp1, n))
-                              .astype(np.int32)).cuda()
-    w_vv = cs.rand_i8(rng, (2, cin, kp1, s_key, 2 * n - 1), "cuda")[1]
-    out_l = torch.empty((kp1, 1, s_key, n), dtype=torch.int32,
-                        device="cuda")
-    want_l = bm.banded_matmul_latency_plain(digits, w_vv, kp1=kp1,
-                                            levels=levels, base_log=base_log)
-    vlen = 2 * n - 1
-    base = w_vv.data_ptr()
+    if "9L" in wanted:
+        digits = torch.from_numpy(rng.integers(-16, 17, (levels, kp1, n))
+                                  .astype(np.int32)).cuda()
+        w_vv = cs.rand_i8(rng, (2, cin, kp1, s_key, 2 * n - 1), "cuda")[1]
+        out_l = torch.empty((kp1, 1, s_key, n), dtype=torch.int32,
+                            device="cuda")
+        want_l = bm.banded_matmul_latency_plain(
+            digits, w_vv, kp1=kp1, levels=levels, base_log=base_log)
+        vlen = 2 * n - 1
+        base = w_vv.data_ptr()
 
-    def call_latency(f):
-        return f(base + n - 1, base + w_vv.numel(), vlen, s_key * vlen, 0,
-                 kp1 * s_key * vlen, digits.data_ptr(), None,
-                 out_l.data_ptr(), s_key, kp1, cin, cin, 1, 1, n, stream)
-    results += ablate(names, loaded, tmp, "9L", VARIANTS_9L,
-                      "banded_matmul_latency", call_latency,
-                      lambda: torch.equal(out_l, want_l), 500)
+        def call_latency(f):
+            return f(base + n - 1, base + w_vv.numel(), vlen, s_key * vlen,
+                     0, kp1 * s_key * vlen, digits.data_ptr(), None,
+                     out_l.data_ptr(), s_key, kp1, cin, cin, 1, 1, n, stream)
+        results += ablate(names, loaded, tmp, "9L", VARIANTS_9L,
+                          "banded_matmul_latency", call_latency,
+                          lambda: torch.equal(out_l, want_l), 500)
 
-    # kernel 3 at the MLP shape
-    primes = host.special_ntt_primes(4096, 128)[:3]
-    batch, n, levels = 256, 4096, 2
-    bsk = rng.integers(0, 1 << 64, (1, levels, kp1, kp1, n), dtype=np.uint64)
-    fbsk = fn.pack_bsk_fused(bsk, cs.fused_params(n, levels, 8, 1),
-                             primes=primes, trunc_bits=0, device="cuda")
-    digits = torch.from_numpy(rng.integers(-128, 128, (levels, batch * kp1, n))
-                              .astype(np.int32)).cuda()
-    sv, ss = fbsk.spec_val[0], fbsk.spec_sh[0]
-    want = fn.crt_external_product_plain(digits, sv, ss, primes, kp1)
-    tw = fn.pair_tables(n, primes, digits.device)
-    cst = tn.tables(n, primes, digits.device)[1]
-    out = torch.empty_like(want)
-    order = [f"3_{i}" for i in range(len(VARIANTS_3))] + ["3_0"]
-    for name in order:
-        label, proc = names[name]
-        if name not in loaded:
-            loaded[name] = load(tmp, name, proc, "crt_external_product")
-        f, regs = loaded[name]
+    # the persistent latency blind rotate over a B=1 lookup's 710 steps
+    if "BR" in wanted:
+        from concrete_tpu_torch.core import kernels as kn
+        from concrete_tpu_torch.ops import latency as lat
+        n_small = 710
+        a_t = torch.from_numpy(rng.integers(0, 2 * n, (1, n_small))
+                               .astype(np.int32)).cuda()
+        acc_l = cs.rand_torus(rng, (kp1, 1, n), "cuda")
+        bsk_l = kn.LimbBSK(planes=lat.with_tail(cs.rand_i8(
+            rng, (n_small, cin, kp1, s_key, 2 * n - 1), "cuda")),
+            base_log=base_log, levels=levels, truncate_limbs=lo)
+        want_br = kn._blind_rotate_latency_steps(
+            a_t, acc_l.clone(), bsk_l,
+            cs.fused_params(n, levels, base_log, n_small, kp1))
+        pl = lat.plan(1, n, kp1, levels, 1, s_key)
+        got_br = acc_l.clone()
 
-        def call(f=f):
+        def call_br(f):
+            got_br.copy_(acc_l)
+            return f(a_t.data_ptr(), got_br.data_ptr(),
+                     bsk_l.planes.data_ptr(),
+                     bsk_l.planes.data_ptr() + bsk_l.planes.numel(), 1,
+                     n_small, kp1, levels, base_log, 1, s_key, n, lo,
+                     pl.cluster, stream)
+        results += ablate(names, loaded, tmp, "BR", VARIANTS_BR,
+                          "blind_rotate_latency", call_br,
+                          lambda: torch.equal(got_br, want_br), 5)
+        # the instrumented builds: clocks per phase of one lookup's steps
+        # in block 0 of the cluster (thread 0, from one block or cluster
+        # barrier to the next)
+        phases = ("", "acc copy in", "digits", "bands and key wait",
+                  "MMA", "warp reduction", "slot release",
+                  "recombine and cluster barrier")
+        for idx, (label, switches) in enumerate(VARIANTS_BR.items()):
+            if "PHASE_CLOCKS" not in switches:
+                continue
+            lib = ctypes.CDLL(os.path.join(tmp, f"BR_{idx}.so"))
+            clocks = (ctypes.c_ulonglong * 8)()
+            _build.check(label, lib.blind_rotate_latency_phases(clocks))
+            _build.check(label, call_br(loaded[f"BR_{idx}"][0]))
+            torch.cuda.synchronize()
+            _build.check(label, lib.blind_rotate_latency_phases(clocks))
+            per_step = {phases[k]: clocks[k] / n_small for k in range(1, 8)}
+            results.append({"kernel": "blind_rotate_latency",
+                            "variant": label, "clocks_per_step": per_step})
+            print(f"kernel BR, {label}, clocks per step by phase: "
+                  f"{per_step}", flush=True)
+
+    # kernel 3 at the MLP shape, and in groups at N=16384, k+1 = 4
+    for kernel, variants, batch, n, kp1 in (("3", VARIANTS_3, 256, 4096, 2),
+                                            ("3G", {"committed": []}, 2,
+                                             16384, 4)):
+        if kernel not in wanted:
+            continue
+        primes = host.special_ntt_primes(n, 128)[:3]
+        levels = 2
+        bsk = rng.integers(0, 1 << 64, (1, levels, kp1, kp1, n),
+                           dtype=np.uint64)
+        fbsk = fn.pack_bsk_fused(bsk, cs.fused_params(n, levels, 8, 1, kp1),
+                                 primes=primes, trunc_bits=0, device="cuda")
+        digits = torch.from_numpy(rng.integers(
+            -128, 128, (levels, batch * kp1, n)).astype(np.int32)).cuda()
+        sv, ss = fbsk.spec_val[0], fbsk.spec_sh[0]
+        want = fn.crt_external_product_plain(digits, sv, ss, primes, kp1)
+        tw = fn.pair_tables(n, primes, digits.device)
+        cst = tn.tables(n, primes, digits.device)[1]
+        out = torch.empty_like(want)
+        co_group = fn.kernel_groups(n, kp1)[1]
+
+        def call_3(f, batch=batch, n=n, kp1=kp1, sv=sv, ss=ss, tw=tw,
+                   cst=cst, out=out, digits=digits, co_group=co_group):
             return f(digits.data_ptr(), sv.data_ptr(), ss.data_ptr(),
                      out.data_ptr(), tw.data_ptr(), cst.data_ptr(), batch,
-                     levels, kp1, len(primes), n.bit_length() - 1, stream)
-        _build.check(label, call())
-        torch.cuda.synchronize()
-        exact = bool(torch.equal(out, want))
-        ms = cs.cuda_ms(call, 50)
-        results.append({"kernel": "crt_external_product", "variant": label,
-                        "ms": ms, "exact": exact, "ptxas": regs})
-        print(f"kernel 3, {label}: {ms:.4f} ms, bit-exact {exact}, {regs}",
-              flush=True)
+                     levels, kp1, len(primes), n.bit_length() - 1, co_group,
+                     stream)
+        results += ablate(names, loaded, tmp, kernel, variants,
+                          "crt_external_product", call_3,
+                          lambda out=out, want=want: torch.equal(out, want),
+                          50)
     shutil.rmtree(tmp)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "ablate_kernels.json"),
@@ -257,4 +318,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:] or list(KERNELS))

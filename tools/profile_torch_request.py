@@ -14,17 +14,20 @@ For each named committed archive (default: ``table``):
   ``fusedrecombine``, ``pallas``, ``fuseddot``, ``planes``), e.g.
   ``table:pallas`` for kernels A, 9 and the standalone recombine;
 - ``latency``: one single-ciphertext ``pbs_batch`` (B=1, the latency
-  blind rotate: kernel 1, kernel 9's latency form, the recombine per
-  step) at ``BENCH_PARAMS_4BIT_TPUOPT`` with its key truncation, the JAX
-  package's ``pbs_latency_b1`` configuration, keys from a seed (it only
-  calls functions the port has had since its latency path came, so the
-  tool times an older checkout of the port too, copied into it);
+  blind rotate: one launch of the persistent kernel
+  ``blind_rotate_latency`` for every step; before it, kernel 1, kernel
+  9's latency form and the recombine per step) at
+  ``BENCH_PARAMS_4BIT_TPUOPT`` with its key truncation, the JAX package's
+  ``pbs_latency_b1`` configuration, keys from a seed (it only calls
+  functions the port has had since its latency path came, so the tool
+  times an older checkout of the port too, copied into it);
 
 loads it on CUDA, generates keys from a fixed seed, runs one request (which
 packs the keys), one untraced request, then one request under
 ``torch.profiler`` (CPU and CUDA activities).  Prints the card, the
 requests' wall times, the summed device time of the traced request, the
-device's idle share of its wall time, and the device time by kernel name;
+device's idle share of its wall time, the kernels the device ran and the
+launch calls the host made in it, and the device time by kernel name;
 writes the same as JSON into the repo's git-ignored output directory, as
 ``torch_request_profile.json`` (``table``),
 ``torch_request_profile_mlp.json`` (``mlp``),
@@ -136,7 +139,8 @@ def _profile_latency(card: str) -> dict:
           f"{[round(w * 1e3, 1) for w in out['untraced_walls_s']]} ms, "
           f"traced {out['traced_request_s'] * 1e3:.1f} ms; device busy "
           f"{out['device_ms']:.2f} ms, idle share {out['idle_share']:.4f}, "
-          f"decrypted right {out['right']}")
+          f"kernels run {out['kernels_run']}, launch calls "
+          f"{out['launch_calls']}, decrypted right {out['right']}")
     return _report(out, "torch_request_profile_latency.json")
 
 
@@ -167,9 +171,15 @@ def _measure(run, untraced: int, out: dict) -> dict:
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows)
+    kernels = sum(c for k, c, _ in rows
+                  if not k.startswith(("Memcpy", "Memset")))
+    launch_calls = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU
+                       and e.key.startswith("cudaLaunch"))
     out.update(first_request_s=first_s, untraced_request_s=walls[-1],
                untraced_walls_s=walls, traced_request_s=traced_s,
                device_ms=device_ms, idle_share=1 - device_ms / 1e3 / traced_s,
+               kernels_run=kernels, launch_calls=launch_calls,
                by_kernel=[{"name": k, "launches": c, "device_ms": ms}
                           for k, c, ms in rows])
     return out
