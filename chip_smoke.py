@@ -55,13 +55,21 @@
    (kernel 3 is compiled once per N), and with k+1 = 3 (N=2048 and
    16384, both accumulator modes), 4 and 7 (kernel 3's accumulators
    beyond two in shared memory), k+1 = 4 at N=16384 and 8 at N=8192
-   (kernel 3 in groups of output components), and times them; the NTT
-   kernels' operations bounds count the instructions nvcc emitted, per
-   pipe, from the SASS of the probes in ``csrc/op_probes.cu``;
+   (kernel 3 in groups of output components), and times them; then
+   kernel 2: its pack entry and its standalone forward and inverse at the
+   MLP key pack's shape (6576 polynomials, 3 primes, N=4096, signed 64-bit
+   inputs with the edge values), at every N from 4 to 16384, with primes
+   far below 2^31, and the pack of a truncated key at N = 1024 .. 16384;
+   the NTT kernels' operations bounds count the instructions nvcc
+   emitted, per pipe, from the SASS of the probes in
+   ``csrc/op_probes.cu``;
 5. serves the committed ``mlp_q2_b64.zip`` archive (the repo's benchmark
    QuantizedMLP over 64 samples, 128-bit parameters, N=4096, 256 lookups
    per request): ``Server.load`` on CUDA, ``Client.keygen`` from a seed,
-   the key pack on the device (one forward-NTT launch), three requests
+   the key pack on the device (one launch of kernel 2's pack entry, its
+   FusedBSK then held equal to the one the plain version builds, and the
+   pack timed again part by part: the KSK's host limb split and upload,
+   the BSK's upload, the pack kernel), three requests
    whose decryptions must equal the graph's clear evaluation, every
    blind-rotate step counted through the digit, external-product and
    Garner kernels;
@@ -1003,19 +1011,35 @@ def check_fused_steps(rng, *, batch, n, levels, base_log, primes,
     return recs
 
 
-def check_ntt(rng, *, polys, n, primes, clock, mix, timed):
-    """The standalone forward transform at the shape the key pack gives
-    it (every BSK polynomial, every prime) and the inverse on a slice."""
+NTT_EDGES = [-(1 << 63), (1 << 63) - 1, -1, 0, 1, -(1 << 32), (1 << 32) - 1,
+             1 << 32]
+
+
+def ntt_inputs(rng, polys, n):
+    """Signed 64-bit coefficients over their whole range on the card, the
+    edge values first."""
+    import torch
+    x = rand_torus(rng, (polys, n), "cuda")
+    k = min(len(NTT_EDGES), x.numel())
+    x.view(-1)[:k] = torch.tensor(NTT_EDGES[:k], dtype=torch.int64)
+    return x
+
+
+def check_ntt(rng, *, polys, n, primes, clock=None, mix=None, timed=False,
+              inverse_polys=512):
+    """Kernel 2's standalone forward transform (int64 inputs, edge values
+    included, every prime per block) and its inverse on those spectra,
+    each bit-exact against its plain version; timed, the forward at this
+    shape and the inverse on the first `inverse_polys` polynomials."""
     import torch
     from concrete_tpu_torch.ops import ntt as tn
-    x = rand_torus(rng, (polys, n), "cuda") >> 1
+    x = ntt_inputs(rng, polys, n)
     got = tn.ntt_forward(x, primes)
     want = tn.ntt_forward_plain(x, primes)
-    spec = got[:, :512].contiguous()
-    back = tn.ntt_inverse(spec, primes)
-    back_p = tn.ntt_inverse_plain(spec, primes)
+    back = tn.ntt_inverse(got, primes)
+    back_p = tn.ntt_inverse_plain(got, primes)
     torch.cuda.synchronize()
-    shape = f"M={polys} N={n} P={len(primes)}"
+    shape = f"M={polys} N={n} primes={tuple(primes)}"
     if not torch.equal(got, want):
         fail(f"ntt_forward differs from its plain version at {shape}")
     if not torch.equal(back, back_p):
@@ -1029,6 +1053,7 @@ def check_ntt(rng, *, polys, n, primes, clock, mix, timed):
         ops_ms, detail = pipe_ms(work, mix, clock)
         fwd.update(bound(ops_ms, x.numel() * 8 + got.numel() * 4,
                          work=work, **detail), library_ms=None)
+        spec = got[:, :inverse_polys].contiguous()
         inv["ms"] = cuda_ms(lambda: tn.ntt_inverse(spec, primes), 20)
         inv["plain_ms"] = cuda_ms(lambda: tn.ntt_inverse_plain(spec,
                                                                primes), 3)
@@ -1039,6 +1064,75 @@ def check_ntt(rng, *, polys, n, primes, clock, mix, timed):
     print(f"ntt_forward / ntt_inverse bit-exact at {shape}: {fwd} {inv}",
           flush=True)
     return fwd, inv
+
+
+def check_ntt_pack(rng, *, n_small, rows, n, primes, trunc_bits, clock=None,
+                   mix=None, timed=False):
+    """Kernel 2's pack entry (the key's polynomials >> t in the kernel,
+    spectra and Shoup companions stored in the FusedBSK layout) against
+    its plain version (the plain transform, the rows moved, companions by
+    integer division), both arrays bit-exact; timed at this shape."""
+    import torch
+    from concrete_tpu_torch.ops import ntt as tn
+    x = ntt_inputs(rng, n_small * rows, n)
+    val, sh = tn.ntt_forward_pack(x, primes, rows, trunc_bits)
+    val_p, sh_p = tn.ntt_forward_pack_plain(x, primes, rows, trunc_bits)
+    torch.cuda.synchronize()
+    shape = (f"n_small={n_small} rows={rows} N={n} P={len(primes)} "
+             f"t={trunc_bits}")
+    if not (torch.equal(val, val_p) and torch.equal(sh, sh_p)):
+        fail(f"ntt_forward_pack differs from its plain version at {shape}")
+    rec = {"max_abs_err": max(max_abs_err(val, val_p),
+                              max_abs_err(sh, sh_p))}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: tn.ntt_forward_pack(
+            x, primes, rows, trunc_bits), 5)
+        rec["plain_ms"] = cuda_ms(lambda: tn.ntt_forward_pack_plain(
+            x, primes, rows, trunc_bits), 1)
+        # the companions' few instructions per output are not charged
+        work = ntt_work(n_small * rows * len(primes), n)
+        ops_ms, detail = pipe_ms(work, mix, clock)
+        rec.update(bound(ops_ms, x.numel() * 8 + 2 * val.numel() * 4,
+                         work=work, **detail), library_ms=None)
+    print(f"ntt_forward_pack bit-exact at {shape}: {rec}", flush=True)
+    return rec
+
+
+def pack_parts(ev, params, bsk):
+    """The MLP key pack again, part by part on the host clock, each part
+    synchronised: pack_ksk (the KSK's host limb split and upload), the
+    BSK's upload, kernel 2's pack entry; and its FusedBSK held equal, in
+    both arrays, to the one built by the plain version (the plain
+    transform, host-side companions by integer division)."""
+    import numpy as np
+    import torch
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.ops import ntt as tn
+    dev = bsk.device
+    parts = {}
+    t0 = time.perf_counter()
+    kn.pack_ksk(ev.ksk, params, device=dev)
+    torch.cuda.synchronize()
+    parts["pack_ksk_s"] = time.perf_counter() - t0
+    n_small, levels, kp1, _, n = ev.bsk.shape
+    t0 = time.perf_counter()
+    raw = torch.from_numpy(np.ascontiguousarray(ev.bsk, dtype=np.uint64)
+                           .view(np.int64)).to(dev).view(-1, n)
+    torch.cuda.synchronize()
+    parts["bsk_upload_s"] = time.perf_counter() - t0
+    rows = levels * kp1 * kp1
+    t0 = time.perf_counter()
+    tn.ntt_forward_pack(raw, bsk.primes, rows, bsk.trunc_bits)
+    torch.cuda.synchronize()
+    parts["pack_kernel_s"] = time.perf_counter() - t0
+    parts["parts_total_s"] = sum(parts.values())
+    val_p, sh_p = tn.ntt_forward_pack_plain(raw, bsk.primes, rows,
+                                            bsk.trunc_bits)
+    if not (torch.equal(bsk.spec_val, val_p)
+            and torch.equal(bsk.spec_sh, sh_p)):
+        fail("the MLP's FusedBSK differs from the one built by the plain "
+             "transform with host companions")
+    return parts
 
 
 def serve_mlp(rng):
@@ -1076,9 +1170,10 @@ def serve_mlp(rng):
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     pack_launches = dict(_build.LAUNCHES)
-    if not isinstance(bsk, FusedBSK) or pack_launches.get("ntt_forward") != 1:
+    if not isinstance(bsk, FusedBSK) \
+            or pack_launches != {"ntt_forward_pack": 1}:
         fail(f"the key pack gave {type(bsk).__name__} with launches "
-             f"{pack_launches}, want a FusedBSK from one ntt_forward")
+             f"{pack_launches}, want a FusedBSK from one ntt_forward_pack")
     print(f"load {load_s:.3f} s, keygen {keygen_s:.2f} s, device pack "
           f"{pack_s:.3f} s (primes {bsk.primes}, trunc_bits "
           f"{bsk.trunc_bits}, acc32 {acc32_eligible(bsk)}), launches "
@@ -1106,6 +1201,10 @@ def serve_mlp(rng):
                 fail(f"MLP request {i} launched {name} {counts.get(name)} "
                      f"times, want one per blind-rotate step ({p.n_small})")
     launches = dict(_build.LAUNCHES)       # ... and ends here
+    parts = pack_parts(ev, p, bsk)
+    print(f"MLP key pack by part (again, each part synchronised): "
+          f"{parts}; FusedBSK equal to the plain-built one; the pack on "
+          f"the main path took {pack_s:.3f} s", flush=True)
     allowed = max(2, 1e-3 * values)
     print(f"MLP decryptions differing from the graph's clear evaluation: "
           f"{wrong} of {values} (allowed {allowed})", flush=True)
@@ -1113,7 +1212,8 @@ def serve_mlp(rng):
         fail(f"{wrong} MLP outputs differ from the clear evaluation")
     return {"walls_s": walls, "wrong": wrong, "values": values,
             "lookups_per_request": lookups, "load_s": load_s,
-            "keygen_s": keygen_s, "pack_s": pack_s, "n_small": p.n_small,
+            "keygen_s": keygen_s, "pack_s": pack_s, "pack_parts": parts,
+            "n_small": p.n_small,
             "launches": launches, "pack_launches": pack_launches,
             "per_request": per_request, "primes": list(bsk.primes),
             "trunc_bits": bsk.trunc_bits, "acc32": acc32_eligible(bsk),
@@ -1428,10 +1528,26 @@ def main() -> None:
         check_fused_steps(rng, batch=16, n=4096, levels=1, base_log=22,
                           primes=primes6, trunc_bits=t6, acc32=acc32,
                           steps=2, clock=clock, mix=mix, timed=False)
-    # the key pack transforms every polynomial of the MLP's BSK at once:
-    # 822 steps x l(k+1)(k+1) = 8 polynomials
+    # kernel 2: the key pack transforms every polynomial of the MLP's BSK
+    # at once (822 steps x l(k+1)(k+1) = 8 polynomials), the standalone
+    # transforms at that shape (the inverse timed on 512 of them); every
+    # N the wrapper takes at a few polynomials (N = 4 and 8 run one thread
+    # per transform, N >= 16 the register schedule), primes far below
+    # 2^31, and the pack of a truncated key at every N the path packs
+    rec_pack = check_ntt_pack(rng, n_small=822, rows=8, n=4096,
+                              primes=primes, trunc_bits=0, clock=clock,
+                              mix=mix, timed=True)
     rec_ntt, rec_inv = check_ntt(rng, polys=822 * 8, n=4096, primes=primes,
                                  clock=clock, mix=mix, timed=True)
+    for log_n in range(2, 15):
+        check_ntt(rng, polys=5, n=1 << log_n,
+                  primes=host.special_ntt_primes(1 << log_n, 128)[:3])
+    check_ntt(rng, polys=3, n=1024, primes=(12289, 40961))
+    check_ntt(rng, polys=3, n=8, primes=(17, 97))
+    for n in (1024, 2048, 8192, 16384):
+        check_ntt_pack(rng, n_small=2, rows=8, n=n,
+                       primes=host.special_ntt_primes(n, 128)[:3],
+                       trunc_bits=9)
 
     step_ms = sum(rec_f[name]["ms"] for name in FUSED_KERNELS)
     est_s = (REQUESTS + 2 * DIRECT_LOOKUPS / 256) * 822 * step_ms / 1e3
@@ -1497,12 +1613,17 @@ def main() -> None:
                      "pallas_fused_ntt.py:1223)",
          "launches": mlp["launches"].get("rotate_decompose_digits", 0),
          **{k: rec_f["rotate_decompose_digits"][k] for k in fields}},
-        {"name": "ntt_forward", "route": "cuda",
+        {"name": "ntt_forward_pack", "route": "cuda",
          "source": "concrete_tpu_torch/csrc/ntt.cu",
-         "replaces": "concrete_tpu/ops/pallas_ntt.py:374 (ntt_inv_pallas "
-                     ":417 is ntt_inverse, same source)",
-         "launches": mlp["launches"].get("ntt_forward", 0),
-         **{k: rec_ntt[k] for k in fields}},
+         "replaces": "concrete_tpu/ops/pallas_ntt.py:374 ntt_fwd_pallas "
+                     "(pallas_calls :383, :403), with the spectra's move "
+                     "into the FusedBSK rows and their Shoup companions of "
+                     "pallas_fused_ntt.py:504 pack_bsk_fused (the "
+                     "standalone ntt_forward is the same template; "
+                     "ntt_inv_pallas :417 is ntt_inverse, "
+                     "csrc/ntt_inverse.cu)",
+         "launches": mlp["launches"].get("ntt_forward_pack", 0),
+         **{k: rec_pack[k] for k in fields}},
         {"name": "crt_external_product", "route": "cuda",
          "source": "concrete_tpu_torch/csrc/crt_external_product.cu",
          "replaces": "concrete_tpu/ops/pallas_fused_ntt.py:1223 (the "
@@ -1543,6 +1664,7 @@ def main() -> None:
                               "rotate_decompose_digits_latency_b1":
                                   rec_d_lat,
                               "recombine_accumulate": rec_rc,
+                              "ntt_forward_pack": rec_pack,
                               "ntt_forward": rec_ntt, "ntt_inverse": rec_inv,
                               **rec_f},
                    "build_s": _build.BUILD_INFO["seconds"],

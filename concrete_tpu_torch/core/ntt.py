@@ -10,8 +10,9 @@ package's: in the acc32 accumulator mode the blind rotate's output depends
 on H = (prod p - 1) / 2, and so on the primes themselves.
 
 What differs is the table layout.  The JAX kernel runs a four-step
-transform as int8 matmuls; the port's kernels (``csrc/ntt.cuh``) run a
-radix-2 negacyclic NTT in shared memory: Cooley-Tukey forward with the psi
+transform as int8 matmuls; the port's kernels (``csrc/ntt.cuh``,
+``csrc/ntt_regs.cuh``) run a radix-2 negacyclic NTT, its stages in
+registers: Cooley-Tukey forward with the psi
 twists merged into the twiddles (output in bit-reversed order),
 Gentleman-Sande inverse (bit-reversed in, natural order out).  The tables
 here are those twiddles, in the order the butterflies read them, with
@@ -40,6 +41,8 @@ def _is_prime(n: int) -> bool:
         d //= 2
         s += 1
     for a in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):  # exact < 3e24
+        if a % n == 0:          # n is this witness itself
+            continue
         x = pow(a, d, n)
         if x in (1, n - 1):
             continue
@@ -193,6 +196,22 @@ def prime_constants(n: int, primes: tuple) -> np.ndarray:
     for p in primes:
         n_inv = pow(n, -1, p)
         rows.append((p, n_inv, (n_inv << 32) // p))
+    return np.array(rows, dtype=np.uint64).astype(np.uint32)
+
+
+def forward_constants(n: int, primes: tuple) -> np.ndarray:
+    """(P, 8) u32, the constants kernel 2 (``csrc/ntt.cu``) reads per prime:
+    p, N^-1 mod p and its Shoup companion (``prime_constants``); 2^32 mod p
+    and its companion, for the high word of a signed 64-bit input;
+    floor(2^64 / p) as its high word floor(2^32 / p) (also the companion of
+    1, for the low word) and its low word, for the companions of the key
+    pack; 2^64 mod p, taken off a negative input's residue."""
+    rows = []
+    for (p, n_inv, n_inv_sh) in prime_constants(n, primes).tolist():
+        c32 = (1 << 32) % p
+        recip = (1 << 64) // p
+        rows.append((p, n_inv, n_inv_sh, c32, (c32 << 32) // p, recip >> 32,
+                     recip & 0xFFFFFFFF, (1 << 64) % p))
     return np.array(rows, dtype=np.uint64).astype(np.uint32)
 
 

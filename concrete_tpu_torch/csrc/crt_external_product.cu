@@ -3,7 +3,7 @@
 
 #include "crt_external_product.cuh"
 
-// tw: the paired tables of ops/fused_ntt.pair_tables, (P, 2, N) pairs of
+// tw: the paired tables of ops/ntt.pair_tables, (P, 2, N) pairs of
 // (twiddle, Shoup companion), forward then inverse; consts (P, 3) u32.
 // k+1 >= 2, in groups of co_group output components (ops/fused_ntt.py
 // kernel_groups): (2 + max(co_group - 2, 0)) N 4 bytes of shared memory.

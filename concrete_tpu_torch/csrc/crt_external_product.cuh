@@ -30,7 +30,8 @@
 // csrc/ntt.cuh (ct_butterfly, gs_butterfly, mul_add), so the transform
 // computes the same integers as ntt_forward / ntt_inverse.  What the
 // design spends beside them is the schedule, and it keeps that small:
-//  - registers, not shared memory, carry the transform: each of N/16
+//  - registers, not shared memory, carry the transform (the schedule of
+//    csrc/ntt_regs.cuh, which kernel 2 shares): each of N/16
 //    threads holds 16 residues and runs up to 4 radix-2 stages on them
 //    between exchanges (a "pass"), so a transform of N = 4096 takes 3
 //    passes and 2 exchanges through shared memory, one barrier each (two
@@ -45,7 +46,7 @@
 //  - the exchange buffer is swizzled, index j at j ^ ((j >> 4) & 31), which
 //    makes every pass's loads and stores free of bank conflicts;
 //  - the twiddles are paired with their Shoup companions (one 8-byte load
-//    each, ops/fused_ntt.py pair_tables), loaded at each butterfly; a
+//    each, ops/ntt.py pair_tables), loaded at each butterfly; a
 //    pass's 32 butterflies read 15 distinct pairs, so all but the first
 //    load of each hit L1, and no stage holds its pairs in registers;
 //  - the first KR = 2 of the k+1 accumulators live in registers across the
@@ -79,105 +80,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "ntt.cuh"
+#include "ntt_regs.cuh"
 
 namespace {
 
-constexpr int E = 16;          // residues per thread per group
 constexpr int KR = 2;          // accumulators held in registers
 constexpr int MAX_THREADS = 512;
-
-// Exchange-buffer slot of index j (a bijection on each 512-word block).
-__device__ __forceinline__ int swz(int j) { return j ^ ((j >> 4) & 31); }
-
-// Index of residue k of group g in a pass whose groups have stride 2^ls.
-__device__ __forceinline__ int pos(int g, int ls, int k) {
-  return ((g >> ls) << (ls + 4)) + (g & ((1 << ls) - 1)) + (k << ls);
-}
-
-// R radix-2 stages s0 .. s0+R-1 on one group in registers: forward
-// Cooley-Tukey (INV false) or, in reverse stage order, inverse
-// Gentleman-Sande.  Stage s0+q pairs residues k and k + 2^(R-1-q) and
-// reads twiddle m + (j >> (log2 N - s0 - q)) = 2^(s0+q) + (blk << (4-R+q))
-// + (k >> (R-q)) for blk = g >> ls: 2^(4-R+q) distinct pairs per stage.
-template <int R, bool INV>
-__device__ __forceinline__ void pass(uint32_t (&x)[E], int g, int ls,
-                                     int s0, const uint2* __restrict__ tw,
-                                     uint32_t p) {
-  const int blk = g >> ls;
-#pragma unroll
-  for (int qq = 0; qq < R; ++qq) {
-    const int q = INV ? R - 1 - qq : qq;
-    const int base = (1 << (s0 + q)) + (blk << (4 - R + q));
-    const int dk = 1 << (R - 1 - q);
-#ifdef ABLATE_TWIDDLE_GATHER
-    uint2 w[8];
-#pragma unroll
-    for (int c = 0; c < (1 << (4 - R + q)); ++c) w[c] = __ldg(tw + base + c);
-#endif
-#pragma unroll
-    for (int k = 0; k < E; ++k) {
-      if (k & dk) continue;
-#ifdef ABLATE_TWIDDLE_GATHER
-      const uint2 s = w[k >> (R - q)];
-#else
-      // each butterfly loads its pair (an L1 hit after the first): fewer
-      // live registers than a stage's pairs gathered up front
-      const uint2 s = __ldg(tw + base + (k >> (R - q)));
-#endif
-      if (INV)
-        ntt::gs_butterfly(x[k], x[k + dk], s.x, s.y, p);
-      else
-        ntt::ct_butterfly(x[k], x[k + dk], s.x, s.y, p);
-    }
-  }
-}
-
-template <bool INV>
-__device__ __forceinline__ void run_pass(int r, uint32_t (&x)[E], int g,
-                                         int ls, int s0,
-                                         const uint2* __restrict__ tw,
-                                         uint32_t p) {
-  switch (r) {
-    case 4: pass<4, INV>(x, g, ls, s0, tw, p); break;
-    case 3: pass<3, INV>(x, g, ls, s0, tw, p); break;
-    case 2: pass<2, INV>(x, g, ls, s0, tw, p); break;
-    default: pass<1, INV>(x, g, ls, s0, tw, p); break;
-  }
-}
-
-// Stride exponent and stage count of pass q of a size-2^log_n transform.
-__device__ __forceinline__ int pass_ls(int log_n, int q) {
-  const int ls = log_n - 4 * q - 4;
-  return ls > 0 ? ls : 0;
-}
-__device__ __forceinline__ int pass_stages(int log_n, int q) {
-  const int r = log_n - 4 * q;
-  return r < 4 ? r : 4;
-}
-
-// Move G groups from pass `from`'s layout to pass `to`'s through the
-// next exchange buffer: one barrier.
-template <int G>
-__device__ __forceinline__ void exchange(uint32_t (&x)[G][E], uint32_t* buf,
-                                         int n, int& ex, int log_n, int from,
-                                         int to) {
-  uint32_t* b = buf + (ex++ & 1) * n;
-  const int ls_from = pass_ls(log_n, from), ls_to = pass_ls(log_n, to);
-#pragma unroll
-  for (int i = 0; i < G; ++i) {
-    const int g = threadIdx.x + i * blockDim.x;
-#pragma unroll
-    for (int k = 0; k < E; ++k) b[swz(pos(g, ls_from, k))] = x[i][k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < G; ++i) {
-    const int g = threadIdx.x + i * blockDim.x;
-#pragma unroll
-    for (int k = 0; k < E; ++k) x[i][k] = b[swz(pos(g, ls_to, k))];
-  }
-}
 
 // acc[k] += x[k] * key[j0 + k] (mod p) for the 16 residues j0 .. j0+15 of
 // one group: four 16-byte loads of the key and of its companions.
@@ -201,34 +109,6 @@ __device__ __forceinline__ void mac16(uint32_t (&acc)[E],
     a[1] = ntt::mul_add(a[1], xv[1], kw.y, sw.y, p);
     a[2] = ntt::mul_add(a[2], xv[2], kw.z, sw.z, p);
     a[3] = ntt::mul_add(a[3], xv[3], kw.w, sw.w, p);
-  }
-}
-
-// The inverse transform of one accumulator held as G groups of 16
-// bit-reversed spectrum residues per thread, scaled by 1/N and stored
-// at the first pass's (coalesced) positions of row dst.
-template <int G, int LOG_N>
-__device__ __forceinline__ void inverse_store(
-    uint32_t (&x)[G][E], uint32_t* buf, int& ex,
-    const uint2* __restrict__ inv, uint32_t p, uint32_t n_inv,
-    uint32_t n_inv_sh, uint32_t* __restrict__ dst) {
-  constexpr int n = 1 << LOG_N, npass = (LOG_N + 3) / 4;
-#pragma unroll
-  for (int q = npass - 1; q >= 0; --q) {
-    if (q < npass - 1) exchange<G>(x, buf, n, ex, LOG_N, q + 1, q);
-#pragma unroll
-    for (int i = 0; i < G; ++i)
-      run_pass<true>(pass_stages(LOG_N, q), x[i],
-                     threadIdx.x + i * blockDim.x, pass_ls(LOG_N, q), 4 * q,
-                     inv, p);
-  }
-  const int ls0 = pass_ls(LOG_N, 0);
-#pragma unroll
-  for (int i = 0; i < G; ++i) {
-    const int g = threadIdx.x + i * blockDim.x;
-#pragma unroll
-    for (int k = 0; k < E; ++k)
-      dst[pos(g, ls0, k)] = ntt::shoup_mul(x[i][k], n_inv, n_inv_sh, p);
   }
 }
 

@@ -47,10 +47,13 @@ _SIGNATURES = {
                                     _I, _I, _P],
     # acc, acc32, a_rows, out, rows, n, base_log, levels, stream
     "rotate_decompose_digits": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
-    # x or spec, out, twiddles, prime constants, polys, n_primes, log_n,
-    # stream
+    # x or spec, out, twiddle pairs, prime constants, polys, n_primes,
+    # log_n, stream
     "ntt_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ntt_inverse": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, spec, spec_sh, twiddle pairs, prime constants, polys, rows,
+    # n_primes, log_n, shift, stream
+    "ntt_forward_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # digits, spec, spec_sh, out, twiddles, prime constants, batch, levels,
     # kp1, n_primes, log_n, co_group, stream
     "crt_external_product": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -11,14 +11,17 @@ of three hand-written CUDA kernels per step:
    the digits' forward NTTs, the multiply-accumulate with the step's BSK
    spectra and the inverse NTTs, as residues of the exact product; each
    thread carries 16 residues through up to 4 butterfly stages in
-   registers between exchanges (``pair_tables`` gives the twiddles as the
-   kernel reads them); any k+1 >= 2, the output components split into
-   groups whose accumulators fit a block (``kernel_groups``);
+   registers between exchanges (``ops.ntt.pair_tables`` gives the
+   twiddles as the kernel reads them); any k+1 >= 2, the output
+   components split into groups whose accumulators fit a block
+   (``kernel_groups``);
 3. ``garner_accumulate`` (``csrc/garner_accumulate.cu``): explicit CRT,
    the truncation shift, and the update of the accumulator in place.
 
 ``pack_bsk_fused`` transforms every BSK polynomial on the device with one
-launch of ``ops.ntt.ntt_forward`` (``csrc/ntt.cu``).
+launch of kernel 2's pack entry, ``ops.ntt.ntt_forward_pack``
+(``csrc/ntt.cu``), which writes the spectra and their Shoup companions
+straight into the ``FusedBSK`` layout.
 
 Results are bit-identical to the JAX package: in full mode to
 ``refimpl.blind_rotate`` on ``truncate_bsk_u64(bsk, t)``, in the acc32 mode
@@ -45,7 +48,6 @@ from concrete_tpu_torch.utils.device import resolve_device
 XP, GARNER = "crt_external_product", "garner_accumulate"
 _M32 = 0xFFFFFFFF
 _GARNER_CONSTANTS: dict = {}
-_PAIR_TABLES: dict = {}
 XP_SMEM_BYTES = 227 * 1024      # shared memory per block, H100 (opt-in)
 
 
@@ -91,20 +93,9 @@ def pack_bsk_fused(bsk_u64: np.ndarray, params, message_bits: int = None,
     n_small, levels, kp1, _, n = bsk_u64.shape
     if device.type == "cuda":
         kernel_groups(n, kp1)
-    rows = levels * kp1 * kp1
-    raw = torch.from_numpy(bsk_u64.view(np.int64)).to(device)
-    # (b >> t << t) as a signed value, >> t: one arithmetic shift
-    signed = (raw >> trunc_bits).view(n_small * rows, n)
-    spec = tn.ntt_forward(signed, primes)           # (P, n*rows, N)
-    del raw, signed
-    spec = spec.view(len(primes), n_small, rows, n).transpose(0, 1) \
-        .reshape(n_small, len(primes) * rows, n)
-    p_rows = torch.tensor(primes, dtype=torch.int64, device=spec.device) \
-        .repeat_interleave(rows).view(-1, 1)
-    sh = torch.empty_like(spec)
-    for s in range(n_small):
-        sh[s] = (((spec[s].to(torch.int64) & _M32) << 32) // p_rows) \
-            .to(torch.int32)
+    raw = torch.from_numpy(bsk_u64.view(np.int64)).to(device).view(-1, n)
+    spec, sh = tn.ntt_forward_pack(raw, primes, levels * kp1 * kp1,
+                                   trunc_bits)
     return FusedBSK(spec_val=spec, spec_sh=sh, primes=primes,
                     trunc_bits=int(trunc_bits),
                     base_log=params.pbs_base_log, levels=params.pbs_level)
@@ -146,20 +137,6 @@ def acc32_eligible(bsk: FusedBSK) -> bool:
 # ---------------------------------------------------------------------------
 # Kernel 3: the external product per prime
 # ---------------------------------------------------------------------------
-
-def pair_tables(n: int, primes: tuple, device) -> torch.Tensor:
-    """Kernel 3's twiddles: (P, 2, N, 2) int32 holding u32, [pr, 0, i] =
-    (psi^bitrev(i), its Shoup companion) and [pr, 1, i] the same for
-    psi^-bitrev(i) — the rows of ``core.ntt.twiddle_tables`` paired, so
-    one 8-byte load gives a butterfly both words; cached."""
-    key = (n, tuple(primes), str(device))
-    if key not in _PAIR_TABLES:
-        tw = host.twiddle_tables(n, tuple(primes))        # (P, 4, N)
-        pairs = np.stack([tw[:, 0::2], tw[:, 1::2]], axis=-1)
-        _PAIR_TABLES[key] = torch.from_numpy(
-            np.ascontiguousarray(pairs).view(np.int32)).to(device)
-    return _PAIR_TABLES[key]
-
 
 def crt_external_product_plain(digits: torch.Tensor, spec: torch.Tensor,
                                spec_sh: torch.Tensor, primes: tuple,
@@ -206,8 +183,8 @@ def crt_external_product(digits: torch.Tensor, spec: torch.Tensor,
             or spec_sh.shape != spec.shape:
         raise ValueError(f"{XP}: spectra {tuple(spec.shape)} do not match "
                          f"{n_p} primes, {levels} levels, k+1={kp1}, N={n}")
-    tw = pair_tables(n, primes, digits.device)
-    cst = tn.tables(n, primes, digits.device)[1]
+    tw = tn.pair_tables(n, primes, digits.device)
+    cst = tn.prime_constants(n, primes, digits.device)
     out = torch.empty((n_p, rows, n), dtype=torch.int32, device=digits.device)
     _build.check(XP, _build.library().crt_external_product(
         digits.data_ptr(), spec.data_ptr(), spec_sh.data_ptr(),

@@ -422,7 +422,7 @@ def _sched_inverse(x, tw, p, n, n_inv, n_inv_sh):
 
 
 def _pairs(n, primes):
-    return tfn.pair_tables(n, primes, "cpu").numpy().view(np.uint32) \
+    return tn.pair_tables(n, primes, "cpu").numpy().view(np.uint32) \
         .astype(np.uint64)
 
 

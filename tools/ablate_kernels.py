@@ -1,14 +1,15 @@
-"""Ablations of kernels B, 3 and 9 and of the persistent latency blind
+"""Ablations of kernels B, 2, 3 and 9 and of the persistent latency blind
 rotate on one GPU, by variant builds.
 
-    python3 tools/ablate_kernels.py [B 9T 9L BR 3 3G ...]
+    python3 tools/ablate_kernels.py [B 9T 9L BR 3 3G 2 2P 2I ...]
 
 (the kernels to run, default all of them)
 
 Each variant is a committed kernel source (``csrc/external_product.cu`` and
 ``csrc/banded_mm.cu`` through their shared ``csrc/banded_wgmma.cuh``;
 ``csrc/banded_mm_latency.cu``; ``csrc/crt_external_product.cuh`` through
-its two sources) built with some of its ``ABLATE_*``
+its two sources; ``csrc/ntt.cu`` and ``csrc/ntt_inverse.cu`` with
+``csrc/ntt_regs.cuh``) built with some of its ``ABLATE_*``
 switches defined (the lists below; the port's own build defines none; or
 ``PHASE_CLOCKS``, with which the persistent latency kernel counts the
 clocks of each part of a step), by ``chip_smoke.build_variant`` with the
@@ -25,7 +26,10 @@ kernel, in one process on one card:
 - the persistent latency blind rotate (``csrc/blind_rotate_latency.cu``,
   BR) over a whole B=1 lookup (710 steps) at the same latency shape;
 - kernel 3 at the MLP shape (B=256, N=4096, l=2, k+1=2, 3 primes), and
-  in groups of output components (3G) at N=16384, k+1=4, B=2.
+  in groups of output components (3G) at N=16384, k+1=4, B=2;
+- kernel 2 at the MLP key pack's shape (6576 polynomials of N=4096, its 3
+  primes): the standalone forward (2) and the pack entry (2P) on signed
+  64-bit inputs, the inverse (2I) on 512 of their spectra.
 
 A variant that computes the same function is held bit-exact against the
 plain version; one that leaves work out ("no ...") is only timed: its
@@ -94,6 +98,44 @@ VARIANTS_BR = {
     "no release fence at the cluster barrier": ["ABLATE_RELAXED_ARRIVE"],
     "clocks per phase (instrumented, same function)": ["PHASE_CLOCKS"],
 }
+NTT_F = ("ntt.cu",)
+NTT_I = ("ntt_inverse.cu",)
+VARIANTS_2 = {
+    "committed": [],
+    "no reduction (the low word taken as the residue)":
+        ["ABLATE_NO_REDUCTION"],
+    "no exchanges": ["ABLATE_NO_EXCHANGE"],
+    "no stores": ["ABLATE_NO_STORE"],
+    "none of the three": ["ABLATE_NO_REDUCTION", "ABLATE_NO_EXCHANGE",
+                          "ABLATE_NO_STORE"],
+    "a stage's twiddle pairs gathered into registers first (same "
+    "function)": ["ABLATE_TWIDDLE_GATHER"],
+    "registers capped at 64, 4 blocks a SM (same function)":
+        ["ABLATE_REGS=64"],
+    "registers capped at 128, 2 blocks a SM (same function)":
+        ["ABLATE_REGS=128"],
+    "registers not capped (same function)": ["ABLATE_REGS=256"],
+    "each thread its own 16-byte stores (same function)":
+        ["ABLATE_DIRECT_STORES"],
+    "the last pass's twiddle pairs by 8-byte loads (same function)":
+        ["ABLATE_SCALAR_TWIDDLES"],
+}
+VARIANTS_2P = {
+    "committed": [],
+    "no stores (companions still computed)": ["ABLATE_NO_STORE"],
+    "each thread its own 16-byte stores (same function)":
+        ["ABLATE_DIRECT_STORES"],
+    "the last pass's twiddle pairs by 8-byte loads (same function)":
+        ["ABLATE_SCALAR_TWIDDLES"],
+}
+VARIANTS_2I = {
+    "committed": [],
+    "no exchanges": ["ABLATE_NO_EXCHANGE"],
+    "no stores": ["ABLATE_NO_STORE"],
+    "registers capped at 40, 6 blocks a SM (same function)":
+        ["ABLATE_REGS=40"],
+    "registers not capped (same function)": ["ABLATE_REGS=256"],
+}
 VARIANTS_3 = {
     "committed": [],
     "a stage's twiddle pairs gathered into registers first (same "
@@ -125,7 +167,7 @@ def ablate(names, loaded, tmp, kernel, variants, entry, call, exact,
     return results
 
 
-KERNELS = ("B", "9T", "9L", "BR", "3", "3G")
+KERNELS = ("B", "9T", "9L", "BR", "3", "3G", "2", "2P", "2I")
 
 
 def main(wanted: list[str]) -> None:
@@ -148,7 +190,10 @@ def main(wanted: list[str]) -> None:
                                   ("9L", BM_L, VARIANTS_9L),
                                   ("BR", BR, VARIANTS_BR),
                                   ("3", XP_3, VARIANTS_3),
-                                  ("3G", XP_3, {"committed": []})):
+                                  ("3G", XP_3, {"committed": []}),
+                                  ("2", NTT_F, VARIANTS_2),
+                                  ("2P", NTT_F, VARIANTS_2P),
+                                  ("2I", NTT_I, VARIANTS_2I)):
         if kernel not in wanted:
             continue
         for i, (label, switches) in enumerate(variants.items()):
@@ -295,8 +340,8 @@ def main(wanted: list[str]) -> None:
             -128, 128, (levels, batch * kp1, n)).astype(np.int32)).cuda()
         sv, ss = fbsk.spec_val[0], fbsk.spec_sh[0]
         want = fn.crt_external_product_plain(digits, sv, ss, primes, kp1)
-        tw = fn.pair_tables(n, primes, digits.device)
-        cst = tn.tables(n, primes, digits.device)[1]
+        tw = tn.pair_tables(n, primes, digits.device)
+        cst = tn.prime_constants(n, primes, digits.device)
         out = torch.empty_like(want)
         co_group = fn.kernel_groups(n, kp1)[1]
 
@@ -310,6 +355,47 @@ def main(wanted: list[str]) -> None:
                           "crt_external_product", call_3,
                           lambda out=out, want=want: torch.equal(out, want),
                           50)
+    # kernel 2 at the MLP key pack's shape
+    if {"2", "2P", "2I"} & set(wanted):
+        n, rows, polys = 4096, 8, 822 * 8
+        primes = host.special_ntt_primes(n, 128)[:3]
+        x = cs.ntt_inputs(rng, polys, n)
+        tw = tn.pair_tables(n, primes, x.device)
+        cst = tn.constants(n, primes, x.device)
+        spec_p = tn.ntt_forward_plain(x, primes)
+        log_n, n_p = n.bit_length() - 1, len(primes)
+    if "2" in wanted:
+        spec = torch.empty_like(spec_p)
+
+        def call_2(f):
+            return f(x.data_ptr(), spec.data_ptr(), tw.data_ptr(),
+                     cst.data_ptr(), polys, n_p, log_n, stream)
+        results += ablate(names, loaded, tmp, "2", VARIANTS_2,
+                          "ntt_forward", call_2,
+                          lambda: torch.equal(spec, spec_p), 5)
+    if "2P" in wanted:
+        val_p, sh_p = tn.ntt_forward_pack_plain(x, primes, rows, 0)
+        val, sh = torch.empty_like(val_p), torch.empty_like(sh_p)
+
+        def call_2p(f):
+            return f(x.data_ptr(), val.data_ptr(), sh.data_ptr(),
+                     tw.data_ptr(), cst.data_ptr(), polys, rows, n_p, log_n,
+                     0, stream)
+        results += ablate(names, loaded, tmp, "2P", VARIANTS_2P,
+                          "ntt_forward_pack", call_2p,
+                          lambda: torch.equal(val, val_p)
+                          and torch.equal(sh, sh_p), 5)
+    if "2I" in wanted:
+        spec_i = spec_p[:, :512].contiguous()
+        back_p = tn.ntt_inverse_plain(spec_i, primes)
+        back = torch.empty_like(back_p)
+
+        def call_2i(f):
+            return f(spec_i.data_ptr(), back.data_ptr(), tw.data_ptr(),
+                     cst.data_ptr(), 512, n_p, log_n, stream)
+        results += ablate(names, loaded, tmp, "2I", VARIANTS_2I,
+                          "ntt_inverse", call_2i,
+                          lambda: torch.equal(back, back_p), 20)
     shutil.rmtree(tmp)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "ablate_kernels.json"),
