@@ -26,9 +26,10 @@
    (``blind_rotate_latency``, every step of a B <= 4 lookup in one launch)
    over a whole lookup's 710 steps at B = 1 and 4, against its plain
    version and the three-kernel step loop on the card, timed beside both
-   and beside a variant built without its MMA (the chain floor), then at
-   B = 1 .. 4, k+1 = 3 with two digit limbs and a full key over a few
-   steps;
+   and beside a variant built without its MMA (the chain floor), the
+   same at the shape of the compiled ``examples/table_lookup.py`` (B = 1,
+   k+1 = 5, N = 256, l = 3, 610 steps), then at B = 1 .. 4, k+1 = 3 with
+   two digit limbs and a full key over a few steps;
 3. serves the committed deployment archive (``table[x] - y`` over 1024
    encrypted 4-bit pairs, 128-bit parameters, N=1024): ``Server.load`` on
    CUDA, ``Client.keygen`` from a seed, three requests, decryptions checked
@@ -81,7 +82,23 @@
    package on the CPU), and ((3v + 1) % 64) >> 3 decoded
    at 3 bits, nearly all right (the MLP's outputs are all zero, so this is
    the phase whose outputs vary);
-7. prints one JSON line per the kernels run, then the result line.
+7. compiles with the port (host code, each compile timed) the fixture
+   tool's ``table_sub`` and ``QuantizedMLP`` over 64 samples,
+   ``examples/table_lookup.py``'s ``f`` and ``examples/quickstart.py``'s
+   ``add`` (written again with the port: the examples import the JAX
+   package), at the default ``Configuration()``; saves ``table_sub`` and
+   the MLP, which must equal the committed archives; serves both compiled
+   circuits on the card with keys from the seed, two requests each, on
+   the same ciphertexts as the archive-loaded ``Server`` (output
+   ciphertexts bit-identical, decryptions right, every blind-rotate step
+   counted); runs every input of table_lookup through
+   ``encrypt_run_decrypt`` (one ``blind_rotate_latency`` launch per
+   lookup, a cluster of 4 blocks at k+1 = 5), holds its outputs against
+   the same runs on CPU copies of the keys, traces one run, and runs one
+   with the untruncated key through the three-kernel step loop (the
+   persistent kernel's rule refuses 8 key limbs); and quickstart's
+   ``add`` on the card, no port kernel launched;
+8. prints one JSON line per the kernels run, then the result line.
 
 Any failed phase exits non-zero before the result line.  Without CUDA, or
 next to no checkout of the port, it exits non-zero at once.
@@ -113,6 +130,11 @@ MLP_FIXTURE = os.path.join(HERE, "concrete_tpu_torch", "fixtures",
                            "mlp_q2_b64.zip")
 DIRECT_LOOKUPS = 1024
 DIRECT_TABLE = [(3 * v + 1) % 64 for v in range(64)]
+FIXTURE_TOOL = os.path.join(HERE, "tools", "make_torch_fixture.py")
+COMPILED_REQUESTS = 2
+#: examples/table_lookup.py's table and examples/quickstart.py's inputset
+LOOKUP_TABLE = [2, 1, 3, 0]
+QUICKSTART_INPUTSET = [(2, 3), (0, 0), (7, 7)]
 FUSED_KERNELS = ("rotate_decompose_digits", "crt_external_product",
                  "garner_accumulate")
 LATENCY_KERNELS = ("rotate_decompose_digits", "banded_matmul_latency",
@@ -784,7 +806,7 @@ def latency_lookups(rng):
             "cpu_plain_s": cpu_s, "traced_b1": traced}
 
 
-def trace_lookup(lookup, n_small):
+def trace_lookup(lookup, n_small, label="one traced B=1 latency lookup"):
     """One B=1 latency lookup under torch.profiler: its wall, the port's
     launches per blind-rotate step by kernel name, the device-busy ms, and
     the kernels the device ran and the launch calls the host made, as the
@@ -809,13 +831,293 @@ def trace_lookup(lookup, n_small):
            "device_kernels": kernels, "launch_calls": launch_calls,
            "by_kernel": [{"name": k, "count": c, "device_ms": ms}
                          for k, c, ms in rows[:12]]}
-    print(f"one traced B=1 latency lookup: wall {wall * 1e3:.1f} ms, device "
+    print(f"{label}: wall {wall * 1e3:.1f} ms, device "
           f"busy {rec['device_busy_ms']:.2f} ms, port launches per step "
           f"{rec['per_step']}, kernels run {kernels}, launch calls "
           f"{launch_calls}", flush=True)
     for k, c, ms in rows[:8]:
         print(f"  {ms:9.3f} ms {c:6d}x  {k[:90]}", flush=True)
     return rec
+
+
+def compile_circuits():
+    """The port's compile path (host code): the slice's four circuits at
+    the default Configuration(), each compile timed.  table_sub and the
+    MLP take the fixture tool's definitions, table_lookup and quickstart
+    the examples' functions written with the port."""
+    import importlib.util
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch.models import QuantizedMLP
+    spec = importlib.util.spec_from_file_location("make_torch_fixture",
+                                                  FIXTURE_TOOL)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    table = tfhe.LookupTable(tool.TABLE)
+
+    @tfhe.compiler({"x": "encrypted", "y": "encrypted"})
+    def table_sub(x, y):
+        return table[x] - y
+
+    lut = tfhe.LookupTable(LOOKUP_TABLE)
+
+    @tfhe.compiler({"x": "encrypted"})
+    def f(x):
+        return lut[x] + tfhe.univariate(lambda v: v // 2)(x)
+
+    @tfhe.compiler({"x": "encrypted", "y": "encrypted"})
+    def add(x, y):
+        return x + y
+
+    jobs = {"table_sub": lambda: table_sub.compile(tool.inputset()),
+            "mlp": lambda: QuantizedMLP().compile(
+                tfhe.Configuration(), batch_size=tool.MLP_BATCH),
+            "table_lookup": lambda: f.compile(range(len(LOOKUP_TABLE))),
+            "quickstart": lambda: add.compile(QUICKSTART_INPUTSET)}
+    circuits, seconds = {}, {}
+    for name, job in jobs.items():
+        t0 = time.perf_counter()
+        circuits[name] = job()
+        seconds[name] = time.perf_counter() - t0
+        c = circuits[name]
+        if c.device.type != "cuda":
+            fail(f"the compiled {name} circuit defaulted to {c.device}")
+        print(f"compiled {name} in {seconds[name]:.3f} s: "
+              f"{c.client_specs.params}, message_bits "
+              f"{c.client_specs.message_bits}, "
+              f"{c.programmable_bootstrap_count} PBS per run", flush=True)
+    return circuits, seconds
+
+
+def same_archive(committed: str, path: str) -> None:
+    """Specs and array payloads byte for byte, the graph up to node uids
+    (tests/test_torch_server.py's _assert_same_archive)."""
+    import io
+    import zipfile
+    with zipfile.ZipFile(committed) as a, zipfile.ZipFile(path) as b:
+        if a.read("client.specs.json") != b.read("client.specs.json"):
+            fail(f"{path}: client specs differ from {committed}")
+
+        def graph(z):
+            rec = json.loads(z.read("graph.json"))
+            for node in rec["nodes"]:
+                node["uid"] = None
+            return rec
+        if graph(a) != graph(b):
+            fail(f"{path}: graph.json differs from {committed}")
+        with zipfile.ZipFile(io.BytesIO(a.read("graph_arrays.npz"))) as na, \
+                zipfile.ZipFile(io.BytesIO(b.read("graph_arrays.npz"))) as nb:
+            if na.namelist() != nb.namelist() or any(
+                    na.read(n) != nb.read(n) for n in na.namelist()):
+                fail(f"{path}: graph arrays differ from {committed}")
+
+
+def serve_compiled(rng, circuit, archive, inputs, want_counts, decoded):
+    """A compiled circuit against the archive it saves: keys from the
+    seed, the circuit's keyset packed once on the card, then on the same
+    ciphertexts the circuit's run and the archive-loaded Server's, whose
+    output ciphertexts must be equal bit for bit; every request launches
+    `want_counts`, and decoded(x, got) counts its wrong decryptions."""
+    import numpy as np
+    import torch
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch.ops import _build
+    server = tfhe.Server.load(archive)
+    specs = circuit.client_specs
+    t0 = time.perf_counter()
+    circuit.keygen(seed=SEED)
+    keygen_s = time.perf_counter() - t0
+    encrypted = [circuit.encrypt(*x) for x in inputs]
+    encrypted = [ct if isinstance(ct, tuple) else (ct,) for ct in encrypted]
+    t0 = time.perf_counter()
+    ev = circuit.keys.evaluation_for(specs.message_bits,
+                                     norm2=circuit.graph.max_norm2(),
+                                     device=circuit.device)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    name = os.path.basename(archive)
+    walls, archive_walls, wrong, values = [], [], 0, 0
+    _build.reset_launches()               # this path's run starts here
+    for i, (x, ct) in enumerate(zip(inputs, encrypted)):
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        out = circuit.run(*ct)
+        walls.append(time.perf_counter() - t0)
+        counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                  if v - before.get(k, 0)}
+        for kernel, want in want_counts.items():
+            if counts.get(kernel, 0) != want:
+                fail(f"compiled {name} request {i} launched {kernel} "
+                     f"{counts.get(kernel, 0)} times, want {want}")
+        t0 = time.perf_counter()
+        (ref,) = server.run(*ct, evaluation_keys=ev)
+        archive_walls.append(time.perf_counter() - t0)
+        if out.dtype != np.uint64 or not np.array_equal(out, ref):
+            fail(f"compiled {name} request {i}: output ciphertexts differ "
+                 f"from the archive-loaded Server's")
+        w, n = decoded(x, circuit.decrypt(out), server)
+        wrong, values = wrong + w, values + n
+    launches = dict(_build.LAUNCHES)       # ... and ends here
+    allowed = max(2, 1e-3 * values)
+    print(f"compiled {name}: keygen {keygen_s:.2f} s, pack {pack_s:.3f} s; "
+          f"requests {[f'{w:.4f}' for w in walls]} s, the archive-loaded "
+          f"Server's on the same ciphertexts "
+          f"{[f'{w:.4f}' for w in archive_walls]} s, output ciphertexts equal bit for bit; wrong decryptions "
+          f"{wrong} of {values} (allowed {allowed}); launches {launches}",
+          flush=True)
+    if wrong > allowed:
+        fail(f"compiled {name}: {wrong} wrong decryptions of {values}")
+    return {"keygen_s": keygen_s, "pack_s": pack_s, "walls_s": walls,
+            "archive_walls_s": archive_walls, "wrong": wrong,
+            "values": values, "launches": launches}
+
+
+def compiled_lookups(circuit):
+    """examples/table_lookup.py's circuit, compiled by the port (k=4,
+    N=256, l=3): every input through encrypt_run_decrypt on the card,
+    each B=1 lookup one launch of the persistent kernel (a cluster of 4
+    blocks, k+1 = 5) and no other port kernel; the outputs of a run on
+    the card against the same run on CPU copies of the packed keys (every
+    kernel's plain version), bit for bit; one run traced; then one run
+    with the untruncated key, whose shape the persistent kernel's rule
+    refuses, through the three-kernel step loop, against the CPU too."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.ops import latency as lat
+    specs, p = circuit.client_specs, circuit.client_specs.params
+    circuit.keygen(seed=SEED)
+    ksk, bsk = circuit.keys.evaluation_for(specs.message_bits,
+                                           norm2=circuit.graph.max_norm2(),
+                                           device=circuit.device)
+    kp1, s_key = p.glwe_dimension + 1, 8 - bsk.truncate_limbs
+    plan = lat.plan(1, p.polynomial_size, kp1, p.pbs_level, 1, s_key)
+    if plan is None or plan.cluster != 4:
+        fail(f"the persistent kernel's rule gives {plan} at N="
+             f"{p.polynomial_size}, k+1={kp1}, l={p.pbs_level}, "
+             f"{s_key} key limbs; want a cluster of 4")
+    lookups = circuit.programmable_bootstrap_count
+    want = {lat.NAME: lookups}
+
+    def run(ct, keys, want_counts):
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        (out,) = circuit.server.run(ct, evaluation_keys=keys)
+        wall = time.perf_counter() - t0
+        counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                  if v - before.get(k, 0)}
+        if counts != want_counts:
+            fail(f"a compiled table_lookup run launched {counts}, want "
+                 f"{want_counts}")
+        return wall, counts, out
+
+    _build.reset_launches()               # this path's run starts here
+    walls, results = [], []
+    for v in range(len(LOOKUP_TABLE)):
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        got = circuit.encrypt_run_decrypt(v)
+        walls.append(time.perf_counter() - t0)
+        counts = {k: n - before.get(k, 0) for k, n in _build.LAUNCHES.items()
+                  if n - before.get(k, 0)}
+        if counts != want or got != LOOKUP_TABLE[v] + v // 2:
+            fail(f"table_lookup({v}) = {got} with launches {counts}; want "
+                 f"{LOOKUP_TABLE[v] + v // 2} with {want}")
+        ct = circuit.encrypt(v)
+        results.append((ct, run(ct, (ksk, bsk), want)))
+    launches = dict(_build.LAUNCHES)       # ... and ends here
+    traced = trace_lookup(lambda: run(results[0][0], (ksk, bsk), want),
+                          p.n_small * lookups,
+                          label=f"one traced compiled table_lookup run "
+                                f"({lookups} B=1 lookups)")
+    cpu = tfhe.Server(circuit.graph, specs, device="cpu")
+    ksk_cpu = dataclasses.replace(ksk, planes=ksk.planes.cpu())
+    bsk_cpu = dataclasses.replace(bsk, planes=bsk.planes.cpu())
+    t0 = time.perf_counter()
+    for v, (ct, (_, _, out)) in enumerate(results):
+        (want_out,) = cpu.run(ct, evaluation_keys=(ksk_cpu, bsk_cpu))
+        if not np.array_equal(out, want_out):
+            fail(f"compiled table_lookup({v}): the card's output differs "
+                 f"from the plain path's on the CPU")
+    cpu_s = time.perf_counter() - t0
+    # the untruncated key: no persistent kernel at 8 key limbs
+    full = kn.pack_bsk(circuit.keys.server.bsk, p, 0, device=circuit.device)
+    if lat.plan(1, p.polynomial_size, kp1, p.pbs_level, 1, 8) is not None:
+        fail("the persistent kernel's rule takes the untruncated key")
+    steps = dict.fromkeys(LATENCY_KERNELS, p.n_small * lookups)
+    _build.reset_launches()               # the step loop's path starts here
+    ct = results[-1][0]
+    step_wall, _, out = run(ct, (ksk, full), steps)
+    step_launches = dict(_build.LAUNCHES)  # ... and ends here
+    (want_out,) = cpu.run(ct, evaluation_keys=(
+        ksk_cpu, dataclasses.replace(full, planes=full.planes.cpu())))
+    if not np.array_equal(out, want_out) \
+            or circuit.decrypt(out) != LOOKUP_TABLE[-1] + 1:
+        fail("compiled table_lookup with the untruncated key: the step "
+             "loop's output differs from the CPU's or decrypts wrong")
+    print(f"compiled table_lookup: {plan}; encrypt_run_decrypt of every "
+          f"input right, {[f'{w * 1e3:.1f}' for w in walls]} ms; server "
+          f"runs ({lookups} lookups) "
+          f"{[f'{r[0] * 1e3:.1f}' for _, r in results]} ms, launches {results[0][1][1]}; equal to the CPU's plain path "
+          f"({cpu_s:.1f} s); untruncated key through the step loop "
+          f"{step_wall * 1e3:.1f} ms, launches {step_launches}, equal to "
+          f"the CPU's", flush=True)
+    return {"plan": dataclasses.asdict(plan), "lookups_per_run": lookups,
+            "encrypt_run_decrypt_s": walls,
+            "run_walls_s": [r[0] for _, r in results],
+            "launches": launches, "traced": traced, "cpu_plain_s": cpu_s,
+            "step_loop_wall_s": step_wall, "step_loop_launches":
+            step_launches}
+
+
+def compile_phase(rng):
+    """The port compiles the slice's circuits, saves the archives the JAX
+    package wrote, and serves what it compiled on the card."""
+    import tempfile
+    import numpy as np
+    from concrete_tpu_torch.ops import _build
+    circuits, compile_s = compile_circuits()
+    with tempfile.TemporaryDirectory() as d:
+        for name, archive in (("table_sub", FIXTURE), ("mlp", MLP_FIXTURE)):
+            path = os.path.join(d, os.path.basename(archive))
+            circuits[name].server.save(path)
+            same_archive(archive, path)
+    print("Server.save of the compiled table_sub and MLP equals the "
+          "committed archives", flush=True)
+    ts = circuits["table_sub"]
+    n_ts = ts.client_specs.params.n_small
+    size = ts.client_specs.inputs[0].shape[0]
+    table = serve_compiled(
+        rng, ts, FIXTURE,
+        [(rng.integers(0, 16, size), rng.integers(0, 16, size))
+         for _ in range(COMPILED_REQUESTS)],
+        {"rotate_decompose": n_ts, "external_product_accumulate": n_ts},
+        lambda x, got, _: (int(np.count_nonzero(
+            got != np.array(TABLE)[x[0]] - x[1])), size))
+    mlp_c = circuits["mlp"]
+    shape = tuple(mlp_c.client_specs.inputs[0].shape)
+    mlp = serve_compiled(
+        rng, mlp_c, MLP_FIXTURE,
+        [(rng.integers(0, 4, shape),) for _ in range(COMPILED_REQUESTS)],
+        dict.fromkeys(FUSED_KERNELS, mlp_c.client_specs.params.n_small),
+        lambda x, got, server: (int(np.count_nonzero(
+            got != np.asarray(server.graph(x[0])))), got.size))
+    lookup = compiled_lookups(circuits["table_lookup"])
+    qs = circuits["quickstart"]
+    qs.keygen(seed=SEED)
+    _build.reset_launches()               # the levelled path starts here
+    for x, y in [(2, 6)] + QUICKSTART_INPUTSET:
+        got = qs.encrypt_run_decrypt(x, y)
+        if got != x + y:
+            fail(f"compiled quickstart add({x}, {y}) = {got}")
+    if _build.LAUNCHES:
+        fail(f"the levelled quickstart circuit launched {_build.LAUNCHES}")
+    print(f"compiled quickstart: add(2, 6) = 8 and the inputset's pairs "
+          f"right on {qs.device}, no port kernel launched", flush=True)
+    return {"compile_s": compile_s, "table_sub": table, "mlp": mlp,
+            "table_lookup": lookup}
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -1420,6 +1722,11 @@ def main() -> None:
     rec_br4 = check_blind_rotate_latency(rng, batch=4, n_small=710,
                                          timed=True, plain=False,
                                          variants=variants, **lat_kw)
+    # ... and at the compiled examples/table_lookup.py's shape (610 steps
+    # of k+1 = 5, N = 256, l = 3, 4 kept key limbs: a cluster of 4)
+    rec_br_tl = check_blind_rotate_latency(
+        rng, batch=1, kp1=5, levels=3, n=256, s_key=4, base_log=5,
+        n_small=610, limb_offset=4, timed=True, variants=variants)
     for batch in (1, 2, 3, 4):
         check_blind_rotate_latency(rng, batch=batch, n_small=8, timed=False,
                                    **lat_kw)
@@ -1561,6 +1868,7 @@ def main() -> None:
     if tuple(bsk.primes) != tuple(primes):
         fail(f"the archive's primes {bsk.primes} are not the checked ones")
     direct = direct_lookups(rng, client, ksk, bsk, params)
+    compiled = compile_phase(rng)
 
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -1653,12 +1961,15 @@ def main() -> None:
                    "kernels": kernels, "serve": run, "serve_pallas": pal,
                    "banded_modes_walls_s": modes, "latency": latency,
                    "serve_mlp": mlp, "direct_lookups": direct,
+                   "compiled": compiled,
                    "detail": {"rotate_decompose": rec_a,
                               "external_product_accumulate": rec_b,
                               "banded_matmul": rec_bm,
                               "banded_matmul_latency_b1": rec_bm_lat,
                               "blind_rotate_latency_b1": rec_br,
                               "blind_rotate_latency_b4": rec_br4,
+                              "blind_rotate_latency_table_lookup":
+                                  rec_br_tl,
                               "banded_matmul_few_rows_b1": rec_bm_few,
                               "recombine_accumulate_latency_b1": rec_rc_lat,
                               "rotate_decompose_digits_latency_b1":
@@ -1678,6 +1989,12 @@ def main() -> None:
           f"{rec_br4['chain_floor_ms']:.4f} ms; the three-kernel step loop "
           f"{rec_br['step_loop_ms']:.4f} / {rec_br4['step_loop_ms']:.4f} ms",
           flush=True)
+    print(f"... at the compiled table_lookup's shape (k+1=5, N=256, l=3, "
+          f"610 steps, a cluster of {rec_br_tl['cluster']}): "
+          f"{rec_br_tl['ms']:.4f} ms, bound {rec_br_tl['bound_ms']:.4f} ms, "
+          f"chain floor {rec_br_tl['chain_floor_ms']:.4f} ms, step loop "
+          f"{rec_br_tl['step_loop_ms']:.4f} ms, plain "
+          f"{rec_br_tl['plain_ms']:.1f} ms", flush=True)
     print(f"card: {card()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,10 @@
+from concrete_tpu_torch.compilation.configuration import Configuration
+from concrete_tpu_torch.compilation.compiler import Compiler, circuit, compiler
+from concrete_tpu_torch.compilation.circuit import Circuit
 from concrete_tpu_torch.compilation.client import Client
 from concrete_tpu_torch.compilation.evaluation_keys import EvaluationKeys
 from concrete_tpu_torch.compilation.keys import Keys
 from concrete_tpu_torch.compilation.server import Server
 
-__all__ = ["Client", "EvaluationKeys", "Keys", "Server"]
+__all__ = ["Circuit", "Client", "Compiler", "Configuration",
+           "EvaluationKeys", "Keys", "Server", "circuit", "compiler"]

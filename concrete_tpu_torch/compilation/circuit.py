@@ -1,0 +1,273 @@
+"""Circuit: the user-facing compiled object.
+
+Counterpart of ``concrete_tpu/compilation/circuit.py`` (itself after the
+reference's frontends/concrete-python/concrete/fhe/compilation/
+circuit.py:25-576): keygen / encrypt / run / decrypt and the statistics
+properties.  Key generation, encryption and decryption run on the host;
+``run`` runs on the circuit's torch device, which is the card unless the
+caller asks for the CPU (``device=None`` means CUDA and raises without
+one, ``utils/device.resolve_device``).
+
+The circuit packs its keyset for the device once and reuses the packed
+keys on every run (``Keys.evaluation_for`` caches them until the next
+keygen).  Simulation, ``run_async``, ``MultiKeys`` and the insecure key
+cache are not ported yet and raise ``NotImplementedError`` naming their
+ROADMAP queue 1 item; a multi-partition result compiles, and raises item 8
+when its client or server is first used.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from concrete_tpu_torch.compilation.client import Client
+from concrete_tpu_torch.compilation.executor import not_ported
+from concrete_tpu_torch.compilation.keys import Keys
+from concrete_tpu_torch.compilation.server import Server
+from concrete_tpu_torch.compilation.specs import ClientSpecs
+from concrete_tpu_torch.representation import Graph
+from concrete_tpu_torch.utils.device import resolve_device
+
+
+_ITEM8 = "ROADMAP queue 1 item 8, multi-partition"
+
+
+class Circuit:
+    def __init__(self, graph: Graph, specs: ClientSpecs,
+                 configuration=None, device=None):
+        self.graph = graph
+        self.client_specs = specs
+        self.configuration = configuration
+        self.device = resolve_device(device)
+        self._client = self._server = None
+        if not specs.is_multi:
+            # the server refuses an unported node kind here, before any key
+            # is generated
+            self._client = Client(specs)
+            self._server = Server(graph, specs, device=self.device)
+
+    @property
+    def client(self) -> Client:
+        if self._client is None:
+            raise not_ported("serving a multi-partition circuit (MultiKeys)",
+                             _ITEM8)
+        return self._client
+
+    @property
+    def server(self) -> Server:
+        if self._server is None:
+            raise not_ported("serving a multi-partition circuit", _ITEM8)
+        return self._server
+
+    # -- key management ----------------------------------------------------
+
+    @property
+    def keys(self) -> Keys:
+        return self.client.keys
+
+    def keygen(self, force: bool = False, seed: Optional[int] = None) -> None:
+        self.client.keygen(force=force, seed=seed)
+
+    # -- the full pipeline -------------------------------------------------
+
+    def encrypt(self, *args):
+        return self.client.encrypt(*args)
+
+    def _evaluation_keys(self):
+        """The keyset packed for this circuit's device, BSK form and
+        truncation (as the JAX package's mono ``_evaluation_keys``)."""
+        if not hasattr(self, "_norm2"):
+            self._norm2 = self.graph.max_norm2()
+        return self.keys.evaluation_for(self.client_specs.message_bits,
+                                        norm2=self._norm2,
+                                        device=self.device)
+
+    def run(self, *args):
+        self.keygen()
+        return_tuple = self.server.run(
+            *args, evaluation_keys=self._evaluation_keys())
+        return return_tuple if len(return_tuple) != 1 else return_tuple[0]
+
+    def decrypt(self, *results):
+        return self.client.decrypt(*results)
+
+    def encrypt_run_decrypt(self, *args):
+        """The one-call convenience oracle (reference circuit.py)."""
+        enc = self.encrypt(*args)
+        if len(self.client_specs.inputs) == 1:
+            enc = (enc,)
+        res = self.run(*enc)
+        if len(self.client_specs.outputs) == 1:
+            return self.decrypt(res)
+        return self.decrypt(*res)
+
+    def simulate(self, *args):
+        raise not_ported("simulation", "ROADMAP queue 1 item 5, simulation/")
+
+    def run_async(self, *args):
+        raise not_ported("run_async",
+                         "ROADMAP queue 1 item 5, the dataflow scheduler")
+
+    # -- statistics (reference circuit.py:236-533) -------------------------
+
+    @property
+    def complexity(self) -> float:
+        return self.server.complexity
+
+    @property
+    def _statistic_records(self):
+        """Primitive-op records from the ExtractStatistics analog
+        (compilation/statistics.py); cached per circuit."""
+        from concrete_tpu_torch.compilation import statistics as st
+        if not hasattr(self, "_stats_cache"):
+            self._stats_cache = st.collect(
+                self.graph, self.server._executor,
+                self.client_specs.message_bits)
+        return self._stats_cache
+
+    @property
+    def statistics(self) -> dict:
+        """All primitive-op counts in one dict (reference circuit.py:525):
+        {kind: {"total", "per_parameter", "per_tag",
+        "per_tag_per_parameter"}} plus sizes and error rates."""
+        from concrete_tpu_torch.compilation import statistics as st
+        recs = self._statistic_records
+        out = {}
+        for kind in st.KINDS:
+            out[f"{kind}_count"] = st.total(recs, kind)
+            out[f"{kind}_count_per_parameter"] = st.per_parameter(recs, kind)
+            out[f"{kind}_count_per_tag"] = st.per_tag(recs, kind)
+            out[f"{kind}_count_per_tag_per_parameter"] = \
+                st.per_tag_per_parameter(recs, kind)
+        out.update(
+            size_of_secret_keys=self.size_of_secret_keys,
+            size_of_bootstrap_keys=self.size_of_bootstrap_keys,
+            size_of_keyswitch_keys=self.size_of_keyswitch_keys,
+            size_of_inputs=self.size_of_inputs,
+            size_of_outputs=self.size_of_outputs,
+            p_error=self.p_error,
+            global_p_error=self.global_p_error,
+            complexity=self.complexity,
+        )
+        return out
+
+    @property
+    def size_of_secret_keys(self) -> int:
+        p = self.client_specs.params
+        return (p.n_small + p.n_big) * 8
+
+    @property
+    def size_of_bootstrap_keys(self) -> int:
+        p = self.client_specs.params
+        return (p.n_small * p.pbs_level * (p.glwe_dimension + 1) ** 2
+                * p.polynomial_size * 8)
+
+    @property
+    def size_of_keyswitch_keys(self) -> int:
+        p = self.client_specs.params
+        return p.n_big * p.ks_level * (p.n_small + 1) * 8
+
+    @property
+    def size_of_inputs(self) -> int:
+        p = self.client_specs.params
+        return sum(v.size * (p.n_big + 1) * 8
+                   for v in self.client_specs.inputs if v.is_encrypted)
+
+    @property
+    def size_of_outputs(self) -> int:
+        p = self.client_specs.params
+        return sum(v.size * (p.n_big + 1) * 8
+                   for v in self.client_specs.outputs if v.is_encrypted)
+
+    @property
+    def programmable_bootstrap_count_per_bit_width(self) -> dict:
+        """PBS counts keyed by each bootstrap's *input* encoding width
+        (the dict sums to programmable_bootstrap_count)."""
+        from concrete_tpu_torch.compilation import statistics as st
+        out: dict = {}
+        for r in self._statistic_records:
+            if r.kind == st.PBS:
+                out[r.parameter] = out.get(r.parameter, 0) + r.count
+        return out
+
+    @property
+    def p_error(self) -> float:
+        """Failure probability at the circuit's worst decision point,
+        evaluated on the graph's actual per-node noise coefficients
+        (Graph.variance_pairs): fresh-input noise is charged at the
+        encryption variance, PBS-sourced noise at the blind-rotate
+        variance — the same constraints the optimizer solved."""
+        from concrete_tpu_torch import params as pp
+        from concrete_tpu_torch.compilation.widths import tlu_pattern_split
+        specs = self.client_specs
+        if specs.is_multi and specs.partition_norm2:
+            return max(
+                specs.partitions[w].p_error(
+                    min(w, 8), norm2=specs.partition_norm2.get(w, 1))
+                for w in specs.partitions)
+        params = specs.params
+        native, wide_in, _ = tlu_pattern_split(self.graph)
+        v_fresh = params.glwe_std ** 2
+        v_br = pp.variance_blind_rotate(
+            params.n_small, params.glwe_dimension, params.polynomial_size,
+            params.pbs_base_log, params.pbs_level, params.glwe_std ** 2)
+        v_ks = pp.variance_keyswitch(params.n_big, params.ks_base_log,
+                                     params.ks_level, params.lwe_std ** 2)
+        v_ms = pp.variance_modulus_switch(params.n_small,
+                                          params.log2_polynomial_size)
+        worst = 0.0
+        for p, i_sq, l_sq in native:
+            var = i_sq * v_fresh + l_sq * v_br + v_ks + v_ms
+            worst = max(worst, pp.p_error_from_variance(var, int(p)))
+        for p, i_sq, l_sq in wide_in:
+            # bit-extraction decision: KS+MS noise enters after the shift
+            # (optimizer noise_only weighting)
+            var = (i_sq * v_fresh + l_sq * v_br
+                   + (v_ks + v_ms) * 4.0 ** -int(p))
+            worst = max(worst, pp.p_error_from_variance(var, int(p)))
+        return worst
+
+    @property
+    def global_p_error(self) -> float:
+        n = self.programmable_bootstrap_count
+        if n == 0:
+            return 0.0   # a PBS-free (levelled) circuit cannot misdecide
+        pe = self.p_error
+        return 1.0 - (1.0 - pe) ** n
+
+    def cleanup(self) -> None:
+        """Release execution resources (reference circuit.py:226)."""
+
+    def __str__(self) -> str:
+        return self.graph.format()
+
+
+def _install_statistic_properties() -> None:
+    """Attach the reference's full `*_count*` property grid (circuit.py:
+    302-533): for each primitive-op kind, `<kind>_count`,
+    `<kind>_count_per_parameter` (parameter = partition encoding width),
+    `<kind>_count_per_tag`, and `<kind>_count_per_tag_per_parameter`."""
+    from concrete_tpu_torch.compilation import statistics as st
+
+    def make(kind, agg, doc):
+        def get(self):
+            return agg(self._statistic_records, kind)
+        get.__doc__ = doc
+        return property(get)
+
+    for kind in st.KINDS:
+        for suffix, agg in (("", st.total),
+                            ("_per_parameter", st.per_parameter),
+                            ("_per_tag", st.per_tag),
+                            ("_per_tag_per_parameter",
+                             st.per_tag_per_parameter)):
+            name = f"{kind}_count{suffix}"
+            if name in Circuit.__dict__:
+                continue
+            setattr(Circuit, name, make(
+                kind, agg,
+                f"Number of {kind.replace('_', ' ')} operations per run"
+                f"{suffix.replace('_', ' ')} (ExtractStatistics analog)."))
+
+
+_install_statistic_properties()

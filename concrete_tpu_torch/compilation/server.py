@@ -1,11 +1,12 @@
-"""Server: runs a deployment archive on encrypted data, on a torch device.
+"""Server: runs a compiled circuit on encrypted data, on a torch device.
 
-Counterpart of ``concrete_tpu/compilation/server.py``.  ``Server.load``
-reads the data-only archives the JAX package's ``Server.save`` writes
-(``client.specs.json``, ``graph.json``, ``graph_arrays.npz``; no pickle) and
-validates the graph before building the executor.  Entry points run on the
-card unless the caller asks for the CPU: ``device=None`` means CUDA, and
-raises if CUDA is unavailable.
+Counterpart of ``concrete_tpu/compilation/server.py``.  ``Server.save``
+writes the JAX package's data-only deployment archive (``client.specs.json``,
+``graph.json``, ``graph_arrays.npz``; no pickle) byte for byte, and
+``Server.load`` reads either package's archives and validates the graph
+before building the executor.  Entry points run on the card unless the
+caller asks for the CPU: ``device=None`` means CUDA, and raises if CUDA is
+unavailable.
 """
 
 from __future__ import annotations
@@ -71,9 +72,40 @@ class Server:
         outs = self._executor.run(enc_inputs, ksk, bsk, self._lut_polys)
         return tuple(o.cpu().numpy().view(np.uint64) for o in outs)
 
+    # -- deployment (reference server.py:245-378) --------------------------
+
+    def save(self, path: str) -> None:
+        """Save a deployment archive (graph + specs) in the JAX package's
+        format: univariate nodes are materialized into explicit tables
+        first, so the archive holds no Python callables."""
+        import networkx as nx
+        from concrete_tpu_torch.compilation.executor import raw_table
+        from concrete_tpu_torch.compilation.graph_io import serialize_graph
+        from concrete_tpu_torch.compilation.widths import encoding_width
+        p = self.client_specs.message_bits
+        mapping = {}
+        for node in self.graph.graph.nodes:
+            if node.name == "univariate":
+                preds = self.graph.ordered_preds_of(node)
+                p_in = encoding_width(preds[0], p) if preds else p
+                mapping[node] = node.materialized_as_tlu(
+                    raw_table(node, p_in))
+        g2 = nx.relabel_nodes(self.graph.graph, mapping, copy=True) \
+            if mapping else self.graph.graph
+        graph2 = Graph(
+            g2,
+            {q: mapping.get(n, n) for q, n in self.graph.input_nodes.items()},
+            {q: mapping.get(n, n) for q, n in self.graph.output_nodes.items()},
+            self.graph.name)
+        graph_json, graph_npz = serialize_graph(graph2)
+        with zipfile.ZipFile(path, "w") as z:
+            z.writestr("client.specs.json", self.client_specs.serialize())
+            z.writestr("graph.json", graph_json)
+            z.writestr("graph_arrays.npz", graph_npz)
+
     @classmethod
     def load(cls, path: str, device=None) -> "Server":
-        """Load an archive written by the JAX package's ``Server.save``."""
+        """Load an archive written by either package's ``Server.save``."""
         from concrete_tpu_torch.compilation.graph_io import deserialize_graph
         from concrete_tpu_torch.representation.typing import validate_graph
         device = resolve_device(device)
@@ -85,3 +117,49 @@ class Server:
         # archives are untrusted input: reject inconsistent type records
         validate_graph(graph)
         return cls(graph, specs, device=device)
+
+    # -- introspection -----------------------------------------------------
+
+    def lowering_text(self) -> str:
+        """Human-readable per-node lowering plan — the analog of the
+        reference's `show_mlir` dump (Configuration.show_mlir): what each
+        encrypted graph node runs and at which encoding width."""
+        from concrete_tpu_torch.compilation.widths import encoding_width
+        lines = []
+        for node in self.graph.topological_order():
+            if not node.output.is_encrypted:
+                continue
+            w = encoding_width(node, self.client_specs.message_bits)
+            kind = node.name
+            s = self._executor.tlu_specs.get(node.uid)
+            if s is not None:
+                kind = f"keyswitch+pbs(p={s.message_bits}" \
+                    + (", signed" if s.signed_input else "") + ")"
+            lines.append(f"%{node.uid} = {kind} : eint{w}"
+                         f"{list(node.output.shape)}")
+        return "\n".join(lines)
+
+    @property
+    def complexity(self) -> float:
+        """Estimated cost in the search's modeled int8 MACs (the JAX
+        package's cost model, ``optimizer/v0.py``): one keyswitch and one
+        blind rotate per table-lookup element."""
+        from concrete_tpu_torch.optimizer.v0 import (cost_ks_macs,
+                                                     cost_pbs_macs)
+        p = self.client_specs.params
+        atomic = (cost_pbs_macs(p.n_small, p.glwe_dimension,
+                                p.polynomial_size, p.pbs_level,
+                                p.pbs_base_log)
+                  + cost_ks_macs(p.n_big, p.n_small, p.ks_level,
+                                 p.ks_base_log))
+        return float(sum(max(int(np.prod(n.output.shape)), 1) * atomic
+                         for n in self.graph.graph.nodes
+                         if n.uid in self._executor.tlu_specs))
+
+    def programmable_bootstrap_count(self) -> int:
+        """PBS count from the statistics grid (one source of truth with
+        Circuit.programmable_bootstrap_count)."""
+        from concrete_tpu_torch.compilation import statistics as st
+        records = st.collect(self.graph, self._executor,
+                             self.client_specs.message_bits)
+        return st.total(records, st.PBS)

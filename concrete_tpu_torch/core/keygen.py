@@ -135,5 +135,6 @@ def encrypt_lwe_batch(rng: np.random.Generator, sk_flat: np.ndarray,
     m_torus = np.asarray(m_torus, dtype=np.uint64)
     a = sample_uniform_u64(rng, m_torus.shape + (n,))
     e = sample_torus_gaussian(rng, std, m_torus.shape)
-    body = (a * sk_flat).sum(axis=-1, dtype=np.uint64) + m_torus + e
+    with np.errstate(over="ignore"):     # u64 wraps; a 0-d sum warns
+        body = (a * sk_flat).sum(axis=-1, dtype=np.uint64) + m_torus + e
     return np.concatenate([a, body[..., None]], axis=-1)

@@ -412,17 +412,24 @@ def test_default_device_is_cuda():
 
 
 def test_unported_operations_raise(tmp_path):
-    @fhe.compiler({"x": "encrypted"})
+    """An unported node kind raises ROADMAP item 6 when the port's Server
+    is built: from the JAX package's archive, and when the port compiles
+    the same function (its Circuit builds the Server)."""
     def total(x):
         return np.sum(x)
 
-    circuit = total.compile([np.arange(4) % 4, np.arange(4) % 3],
-                            fhe.Configuration(
-                                forced_parameters=TEST_PARAMS_TINY))
+    inputset = [np.arange(4) % 4, np.arange(4) % 3]
+    circuit = fhe.compiler({"x": "encrypted"})(total).compile(
+        inputset, fhe.Configuration(forced_parameters=TEST_PARAMS_TINY))
     path = str(tmp_path / "sum.zip")
     circuit.server.save(path)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
         tfhe.Server.load(path, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        tfhe.compiler({"x": "encrypted"})(total).compile(
+            inputset, tfhe.Configuration(
+                forced_parameters=_tparams(TEST_PARAMS_TINY)),
+            device="cpu")
 
 
 def test_port_imports_no_jax():
@@ -431,7 +438,11 @@ def test_port_imports_no_jax():
             "concrete_tpu_torch.ops.fused_ntt, concrete_tpu_torch.ops.ntt, "
             "concrete_tpu_torch.ops.banded_mm, "
             "concrete_tpu_torch.ops.recombine, "
-            "concrete_tpu_torch.optimizer.v0; "
+            "concrete_tpu_torch.optimizer.v0, concrete_tpu_torch.tracing, "
+            "concrete_tpu_torch.extensions, "
+            "concrete_tpu_torch.compilation.compiler, "
+            "concrete_tpu_torch.compilation.circuit, "
+            "concrete_tpu_torch.compilation.multi, concrete_tpu_torch.models; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'concrete_tpu' or m.startswith('concrete_tpu.')]"
             "; print(bad); sys.exit(1 if bad else 0)")
