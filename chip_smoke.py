@@ -98,10 +98,44 @@
    with the untruncated key through the three-kernel step loop (the
    persistent kernel's rule refuses 8 key limbs); and quickstart's
    ``add`` on the card, no port kernel launched;
-8. prints one JSON line per the kernels run, then the result line.
+8. the models phase: five of the JAX package's model circuits compiled by
+   the port at the default ``Configuration()`` — GameOfLife(16, 16),
+   LevenshteinDistance(8, 8, 2), StaticKeyValueDatabase over 16 keys,
+   HammingDistance(32 words of 4 bits, "packed") and
+   PrivateInformationRetrieval over 16 x 16 4-bit values — each
+   compiled, keyed and packed (seconds printed), two requests whose
+   decryptions must equal the model's clear function, whose output
+   ciphertexts must equal those of ``Server.load`` on the model's own
+   saved archive, and whose launches must be those of the blind-rotate
+   form each lookup node takes (printed: persistent kernel, step loop,
+   banded scan or fused); one request traced (device busy, idle share,
+   launches); every kernel call of the same requests on the archive-
+   loaded ``Server``, at each shape, held bit-exact to its plain version
+   on the card on the same inputs (the key packs' too);
+   StaticKeyValueDatabase over 2 keys (0 and 30: the 16-key database's
+   N=2048 fused key, truncated) also against the same run on CPU copies
+   of the keys; and PrivateInformationRetrieval at 64 rows, whose row
+   fetch needs WoP-PBS, refused with ROADMAP item 7.  Requests are random
+   inputs within the bounds the compile's inputset measured, through
+   ``Circuit.run`` on the keys its packing rule gives.  Where the rule
+   truncates a fused key (its noise is a reference fault, ROADMAP queue
+   3), the same ciphertexts run again on the exact key, whose
+   decryptions are held to the clear function, and the path's wrong
+   count is printed;
+9. the node-kinds phase: five small circuits holding every node kind the
+   models do not (the levelled and shape kinds, runtime clear inputs and
+   clear outputs, per-element, multivariate, dynamic and control lookups,
+   rounding, conv, maxpool, fancy indices, assign, trace), run through
+   ``Circuit.run`` (and on the exact key, as above) and decrypted
+   against the graph's clear evaluation (rounding ties, which the noise
+   decides in both packages, counted apart), every kernel call held to
+   its plain version on the same inputs;
+10. prints one JSON line per the kernels run (each one's launches
+   include those of the models phase's requests), then the result line.
 
 Any failed phase exits non-zero before the result line.  Without CUDA, or
 next to no checkout of the port, it exits non-zero at once.
+``tools/smoke_phases.py`` runs the models and node-kinds phases alone.
 """
 
 from __future__ import annotations
@@ -139,6 +173,26 @@ FUSED_KERNELS = ("rotate_decompose_digits", "crt_external_product",
                  "garner_accumulate")
 LATENCY_KERNELS = ("rotate_decompose_digits", "banded_matmul_latency",
                    "recombine_accumulate")
+#: the models phase: two requests of each model, at the sizes below
+MODEL_REQUESTS = 2
+GOL_SIZE = (16, 16)
+LEVENSHTEIN = (8, 8, 2)                 # lengths and alphabet bits
+# the model's default inputset of 12 string pairs leaves most 8 x 8 pairs'
+# values out of its bounds (ROADMAP queue 3); 256 pairs give the same
+# parameters and message width, and bounds that random pairs fall within
+LEVENSHTEIN_INPUTSET = 256
+KVDB_KEYS = list(range(0, 32, 2))
+KVDB_VALUES = [(3 * i + 1) % 16 for i in range(16)]
+# two keys at the ends of the 16-key range: the 16-key database's N=2048
+# and 5-bit messages, a fused key that the packing rule truncates (2
+# primes, 27 bits), and 2 lookups, few enough for the CPU's plain path
+KVDB_CPU_KEYS = [0, 30]
+HAMMING = (32, 4)                       # words, bits a word
+# 16 rows: at 64 the product ones * index is 11 bits wide and the row
+# fetch lowers to WoP-PBS (ROADMAP queue 1 item 7), which the port refuses
+PIR_SHAPE = (16, 16)
+PIR_REFUSED_SHAPE = (64, 16)
+LOOKUP_KINDS = ("tlu", "univariate", "multivariate", "dynamic_tlu")
 # Operations bounds of the CRT-NTT kernels.  The NTT kernels (2, 3) are
 # charged the instructions of their butterflies, pointwise multiply-adds
 # and 1/N scaling as nvcc compiles them: sass_mix() reads them per pipe
@@ -706,7 +760,6 @@ def latency_lookups(rng):
     their own path) and against the same pbs_batch on CPU copies of the
     keys and ciphertexts (the plain versions of every kernel), bit for
     bit."""
-    import dataclasses
     import numpy as np
     import torch
     from concrete_tpu_torch import params as pp
@@ -786,8 +839,7 @@ def latency_lookups(rng):
     print(f"latency outputs at B=1 and B=4 equal the three-kernel step "
           f"loop's on the card, bit for bit; its B=1 lookups "
           f"{[f'{w * 1e3:.1f}' for w in step_walls]} ms", flush=True)
-    ksk_cpu = dataclasses.replace(ksk, planes=ksk.planes.cpu())
-    bsk_cpu = dataclasses.replace(bsk, planes=bsk.planes.cpu())
+    ksk_cpu, bsk_cpu = cpu_keys(ksk, bsk)
     cpu_s = {}
     for batch, (_, _, ct, out) in checked.items():
         t0 = time.perf_counter()
@@ -806,26 +858,42 @@ def latency_lookups(rng):
             "cpu_plain_s": cpu_s, "traced_b1": traced}
 
 
+def profile_run(fn, host_ops: bool = True):
+    """fn() under torch.profiler: its result, then the device's kernels as
+    (name, count, device ms) rows, busiest first, the kernels the device
+    ran and the launch calls the host made, as the trace counts them.
+    Without `host_ops` the host's operators go unrecorded (fewer events
+    for a request of half a million launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        result = fn()
+    # the trace's raw events, summed here: torch parses them into its own
+    # event objects only when asked, which takes minutes at a million
+    by_name, launch_calls = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            count, ms = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (count + 1, ms + e.duration_ns() / 1e6)
+        elif e.device_type() == DeviceType.CPU \
+                and e.name().startswith("cudaLaunchKernel"):
+            launch_calls += 1
+    rows = sorted(((k, c, ms) for k, (c, ms) in by_name.items()),
+                  key=lambda r: -r[2])
+    kernels = sum(c for k, c, _ in rows
+                  if not k.startswith(("Memcpy", "Memset")))
+    return result, rows, kernels, launch_calls
+
+
 def trace_lookup(lookup, n_small, label="one traced B=1 latency lookup"):
     """One B=1 latency lookup under torch.profiler: its wall, the port's
     launches per blind-rotate step by kernel name, the device-busy ms, and
     the kernels the device ran and the launch calls the host made, as the
     trace counts them."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall, counts, *_ = lookup()
-    events = prof.key_averages()
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in events
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[2])
-    kernels = sum(c for k, c, _ in rows
-                  if not k.startswith(("Memcpy", "Memset")))
-    launch_calls = sum(e.count for e in events
-                       if e.device_type == DeviceType.CPU
-                       and e.key.startswith("cudaLaunchKernel"))
+    (wall, counts, *_), rows, kernels, launch_calls = profile_run(lookup)
     rec = {"wall_s": wall, "device_busy_ms": sum(ms for *_, ms in rows),
            "per_step": {k: v / n_small for k, v in counts.items()},
            "device_kernels": kernels, "launch_calls": launch_calls,
@@ -1033,8 +1101,7 @@ def compiled_lookups(circuit):
                           label=f"one traced compiled table_lookup run "
                                 f"({lookups} B=1 lookups)")
     cpu = tfhe.Server(circuit.graph, specs, device="cpu")
-    ksk_cpu = dataclasses.replace(ksk, planes=ksk.planes.cpu())
-    bsk_cpu = dataclasses.replace(bsk, planes=bsk.planes.cpu())
+    ksk_cpu, bsk_cpu = cpu_keys(ksk, bsk)
     t0 = time.perf_counter()
     for v, (ct, (_, _, out)) in enumerate(results):
         (want_out,) = cpu.run(ct, evaluation_keys=(ksk_cpu, bsk_cpu))
@@ -1051,8 +1118,8 @@ def compiled_lookups(circuit):
     ct = results[-1][0]
     step_wall, _, out = run(ct, (ksk, full), steps)
     step_launches = dict(_build.LAUNCHES)  # ... and ends here
-    (want_out,) = cpu.run(ct, evaluation_keys=(
-        ksk_cpu, dataclasses.replace(full, planes=full.planes.cpu())))
+    (want_out,) = cpu.run(ct, evaluation_keys=(ksk_cpu,
+                                               cpu_keys(ksk, full)[1]))
     if not np.array_equal(out, want_out) \
             or circuit.decrypt(out) != LOOKUP_TABLE[-1] + 1:
         fail("compiled table_lookup with the untruncated key: the step "
@@ -1118,6 +1185,691 @@ def compile_phase(rng):
           f"right on {qs.device}, no port kernel launched", flush=True)
     return {"compile_s": compile_s, "table_sub": table, "mlp": mlp,
             "table_lookup": lookup}
+
+
+def lookup_forms(circuit, bsk) -> dict:
+    """{uid: (kind, batch, form, launches)} of every encrypted lookup node:
+    the blind-rotate form that core.kernels.blind_rotate takes for its
+    batch and key (the persistent kernel where ops/latency.plan takes the
+    shape, else the step loop, at B <= LATENCY_BATCH_MAX; the banded scan
+    above; the CRT-NTT scan for a fused key) and the port launches a run of
+    the node makes there."""
+    import numpy as np
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.core import limbs as lb
+    from concrete_tpu_torch.ops import latency as lat
+    from concrete_tpu_torch.ops.fused_ntt import FusedBSK
+    p = circuit.client_specs.params
+    steps = p.n_small
+    forms = {}
+    for node in circuit.graph.topological_order():
+        if node.name not in LOOKUP_KINDS or not node.output.is_encrypted:
+            continue
+        batch = max(int(np.prod(node.output.shape)), 1)
+        if isinstance(bsk, FusedBSK):
+            form, launches = "fused", dict.fromkeys(FUSED_KERNELS, steps)
+        elif batch > kn.LATENCY_BATCH_MAX:
+            form = f"banded scan ({kn.BANDED_MM_MODE})"
+            launches = {"rotate_decompose": steps,
+                        "external_product_accumulate": steps}
+        else:
+            s_key = bsk.planes.shape[3]
+            plan = lat.plan(batch, p.polynomial_size, p.glwe_dimension + 1,
+                            p.pbs_level, lb.num_digit_limbs(p.pbs_base_log),
+                            s_key)
+            if plan is None:
+                form = f"step loop ({s_key} key limbs)"
+                launches = dict.fromkeys(LATENCY_KERNELS, steps)
+            else:
+                form = f"persistent kernel (cluster of {plan.cluster}, " \
+                    f"{s_key} key limbs)"
+                launches = {lat.NAME: 1}
+        forms[node.uid] = (node.name, batch, form, launches)
+    return forms
+
+
+def key_form(bsk) -> str:
+    """A packed bootstrap key's form and truncation, in words."""
+    if hasattr(bsk, "primes"):
+        return f"fused, {len(bsk.primes)} primes, {bsk.trunc_bits} bits " \
+            f"truncated"
+    return f"banded, {bsk.truncate_limbs} limbs truncated"
+
+
+def cpu_keys(ksk, bsk):
+    """CPU copies of a packed key pair (LimbKSK, LimbBSK or FusedBSK)."""
+    import dataclasses
+    import torch
+    return tuple(dataclasses.replace(k, **{
+        f.name: getattr(k, f.name).cpu() for f in dataclasses.fields(k)
+        if isinstance(getattr(k, f.name), torch.Tensor)}) for k in (ksk, bsk))
+
+
+def covered_draws(circuit, draw, count: int, limit: int = 5000):
+    """`count` inputs from draw(), each one whose every node value, in the
+    graph's clear evaluation, lies within the bounds the compile's
+    inputset measured: the inputs the compiled circuit is exact on (a value
+    beyond them can overflow its encoding width).  Returns the inputs and
+    the number of draws they took."""
+    import numpy as np
+    graph, out = circuit.graph, []
+    for tries in range(1, limit + 1):
+        x = draw()
+        values = graph.evaluate(*x)
+        if all(n.bounds is None or (np.min(v) >= n.bounds[0]
+                                    and np.max(v) <= n.bounds[1])
+               for n, v in values.items()):
+            out.append(x)
+            if len(out) == count:
+                return out, tries
+    fail(f"{count} of {limit} draws stay within the compiled bounds")
+
+
+def exact_keys(circuit, ev):
+    """None where the packing rule's key pair `ev` (what Circuit.run serves
+    on) holds no truncated fused key; else the pair that decryptions are
+    held on: the rule's KSK and the exact fused key (no bits dropped, the
+    fewest primes whose range holds the external product).  The JAX
+    package's fused truncation rule admits keys too noisy for their output
+    width (ROADMAP queue 3); the port keeps its bits, so the rule's key
+    serves the path and this one the decryption check."""
+    import math
+    from concrete_tpu_torch.core import ntt as host
+    from concrete_tpu_torch.ops.fused_ntt import pack_bsk_fused
+    if getattr(ev[1], "trunc_bits", 0) == 0:
+        return None
+    p = circuit.client_specs.params
+    pool = host.special_ntt_primes(p.polynomial_size, 128)
+    count = next(c for c in range(2, len(pool) + 1)
+                 if math.prod(pool[:c]).bit_length() - 1
+                 >= host.required_bits(p, 0))
+    exact = pack_bsk_fused(circuit.keys.server.bsk, p, primes=pool[:count],
+                           trunc_bits=0, device=circuit.device)
+    return ev[0], exact
+
+
+class timed_calls:
+    """Within the block, each (module, function) of `targets` is timed on
+    the host clock, the card synchronised after each call, its seconds
+    summed by label in `.seconds`."""
+
+    def __init__(self, targets: dict):
+        self.targets, self.seconds, self.saved = targets, {}, []
+
+    def __enter__(self):
+        import torch
+        for label, (module, attr) in self.targets.items():
+            fn = getattr(module, attr)
+            self.saved.append((module, attr, fn))
+
+            def timed(*args, _fn=fn, _label=label, **kwargs):
+                t0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds[_label] = self.seconds.get(_label, 0.0) \
+                    + time.perf_counter() - t0
+                return out
+            setattr(module, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved:
+            setattr(module, attr, fn)
+
+
+def kernel_wrappers() -> dict:
+    """{launch name: (module, wrapper, plain version)} of every kernel
+    wrapper a served request or a key pack may launch; each plain version
+    takes its wrapper's arguments."""
+    from concrete_tpu_torch.ops import banded_mm as bm
+    from concrete_tpu_torch.ops import external_product as xp
+    from concrete_tpu_torch.ops import fused_ntt as fn
+    from concrete_tpu_torch.ops import latency as lat
+    from concrete_tpu_torch.ops import ntt as tn
+    from concrete_tpu_torch.ops import recombine as rc
+    from concrete_tpu_torch.ops import step
+    return {name: (module, name, getattr(module, f"{name}_plain"))
+            for module, name in (
+                (step, "rotate_decompose"), (step, "rotate_decompose_digits"),
+                (xp, "external_product_accumulate"), (bm, "banded_matmul"),
+                (bm, "banded_matmul_latency"), (rc, "recombine_accumulate"),
+                (lat, "blind_rotate_latency"), (fn, "crt_external_product"),
+                (fn, "garner_accumulate"), (tn, "ntt_forward_pack"))}
+
+
+class same_inputs:
+    """Within the block, the first call of each kernel wrapper at each
+    signature (its tensors' shapes and dtypes, its other arguments), and
+    the CAPTURE_NTH-th, keep copies of their arguments.  check() runs each
+    kept call through the wrapper and through its plain version, each on
+    fresh copies (some kernels write in place), and fails unless every
+    output is equal bit for bit: the kernels held to their plain versions
+    on the inputs a served request gave them."""
+
+    CAPTURE_NTH = 100
+
+    def __init__(self, label: str):
+        self.label, self.kept, self.calls = label, {}, {}
+
+    @staticmethod
+    def _copy(args):
+        """Copies of the tensors of `args`; a contiguous one with storage
+        past its end keeps KEY_TAIL bytes of it (the latency kernel's bulk
+        copies of a key row read there, ops/latency.with_tail)."""
+        import torch
+        from concrete_tpu_torch.ops import latency as lat
+        return [a if not isinstance(a, torch.Tensor)
+                else lat.with_tail(a) if a.is_contiguous()
+                and lat.tail_bytes(a) >= lat.KEY_TAIL else a.clone()
+                for a in args]
+
+    def __enter__(self):
+        import torch
+        self.saved = []
+        for name, (module, attr, _) in kernel_wrappers().items():
+            fn = getattr(module, attr)
+            self.saved.append((module, attr, fn))
+
+            def kept(*args, _fn=fn, _name=name, **kwargs):
+                sig = (_name,) + tuple(
+                    (tuple(a.shape), str(a.dtype))
+                    if isinstance(a, torch.Tensor) else repr(a)
+                    for a in args) + tuple(sorted(kwargs.items()))
+                n = self.calls[sig] = self.calls.get(sig, 0) + 1
+                if n in (1, self.CAPTURE_NTH):
+                    self.kept.setdefault(sig, []).append(
+                        (self._copy(args), kwargs))
+                return _fn(*args, **kwargs)
+            setattr(module, attr, kept)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved:
+            setattr(module, attr, fn)
+
+    def check(self) -> dict:
+        """{launch name: {"calls": calls checked, "signatures": [...],
+        "max_abs_err": 0.0}}; fails on the first disagreement."""
+        import torch
+        wrappers = kernel_wrappers()
+        out = {}
+        for sig, calls in self.kept.items():
+            name = sig[0]
+            _, _, plain = wrappers[name]
+            kernel = getattr(*wrappers[name][:2])
+            for args, kwargs in calls:
+                got = kernel(*self._copy(args), **kwargs)
+                want = plain(*self._copy(args), **kwargs)
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                if len(got) != len(want) or not all(
+                        torch.equal(g, w) for g, w in zip(got, want)):
+                    fail(f"{self.label}: {name} differs from its plain "
+                         f"version on a served call's inputs {sig[1:]}")
+            rec = out.setdefault(name, {"calls": 0, "signatures": [],
+                                        "max_abs_err": 0.0})
+            rec["calls"] += len(calls)
+            rec["signatures"].append(" ".join(str(s) for s in sig[1:]))
+        self.kept.clear()
+        return out
+
+
+def decrypt_wrong(circuit, wrong_of, inputs, outs):
+    """(wrong, values) of the decryptions of `outs`, request by request,
+    against the clear function: wrong_of(x, outputs) -> (wrong, values)."""
+    wrong = values = 0
+    for x, o in zip(inputs, outs):
+        dec = circuit.decrypt(*o)
+        w, n = wrong_of(x, dec if isinstance(dec, tuple) else (dec,))
+        wrong, values = wrong + w, values + n
+    return wrong, values
+
+
+def serve_model(name, compile_fn, draw, wrong_of, cpu_check=False):
+    """One model on the card: compile, keygen and pack timed; two requests
+    of random inputs within the compiled bounds (covered_draws) through
+    Circuit.run, on the keys its packing rule gives: the first timed, the
+    second traced, each one's launches those of the blind-rotate forms its
+    lookup nodes take (the path's launches are these two requests' alone).
+    Their output ciphertexts must equal bit for bit those of Server.load
+    of the model's own saved archive on the same ciphertexts and keys
+    (and with `cpu_check`, those of the same run on CPU copies of the
+    keys, every kernel's plain version); every kernel call of the archive
+    run, at each signature, is held to its plain version on the card on
+    the same inputs (same_inputs).  Decryptions are held to the model's
+    clear function (wrong_of(x, outputs) -> (wrong, values)), unless the
+    rule's key is a truncated fused key (exact_keys): then the same
+    ciphertexts run again on the exact key, whose decryptions are held,
+    and the path's wrong count is printed."""
+    start = time.perf_counter()
+    import tempfile
+    import numpy as np
+    import torch
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    circuit = compile_fn()
+    compile_s = time.perf_counter() - t0
+    specs = circuit.client_specs
+    if specs.is_multi or circuit.device.type != "cuda":
+        fail(f"{name} compiled multi-partition or off the card")
+    inputs, draws = covered_draws(circuit, draw, MODEL_REQUESTS)
+    from concrete_tpu_torch.core import keygen as kg
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.ops import fused_ntt as fn
+    t0 = time.perf_counter()
+    with timed_calls({"bsk_s": (kg, "make_bsk"),
+                      "ksk_s": (kg, "make_ksk")}) as keygen_parts:
+        circuit.keygen(seed=SEED)
+    keygen_s = time.perf_counter() - t0
+    checks = same_inputs(name)
+    t0 = time.perf_counter()
+    with timed_calls({"ksk_split_and_upload_s": (kn, "pack_ksk"),
+                      "banded_bsk_s": (kn, "pack_bsk"),
+                      "fused_bsk_s": (fn, "pack_bsk_fused")}) as pack_parts, \
+            checks:
+        ev = circuit._evaluation_keys()    # what Circuit.run serves on
+        torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with checks:
+        exact = exact_keys(circuit, ev)
+    exact_pack_s = time.perf_counter() - t0 if exact else None
+    forms = lookup_forms(circuit, ev[1])
+    lookups = circuit.programmable_bootstrap_count
+    if lookups != sum(b for _, b, _, _ in forms.values()):
+        fail(f"{name}: {lookups} PBS a run, the lookup nodes hold "
+             f"{sum(b for _, b, _, _ in forms.values())}")
+    want = {}
+    for *_, launches in forms.values():
+        for k, v in launches.items():
+            want[k] = want.get(k, 0) + v
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, f"{name}.zip")
+        circuit.server.save(path)
+        server = tfhe.Server.load(path)
+    encrypted = [circuit.encrypt(*x) for x in inputs]
+    encrypted = [ct if isinstance(ct, tuple) else (ct,) for ct in encrypted]
+
+    def request(ct):
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        out = circuit.run(*ct)
+        wall = time.perf_counter() - t0
+        counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                  if v - before.get(k, 0)}
+        if counts != want:
+            fail(f"{name}: a request launched {counts}, its lookup nodes' "
+                 f"forms give {want}")
+        return wall, out if isinstance(out, tuple) else (out,), counts
+
+    wall, out, counts = request(encrypted[0])        # the path's run ...
+    (traced_wall, traced_out, traced_counts), rows, kernels, launch_calls = \
+        profile_run(lambda: request(encrypted[1]), host_ops=False)
+    launches = {k: counts.get(k, 0) + traced_counts.get(k, 0)
+                for k in {**counts, **traced_counts}}   # ... and its launches
+    with checks:
+        refs = [server.run(*ct, evaluation_keys=ev) for ct in encrypted]
+        exact_outs = [circuit.server.run(*ct, evaluation_keys=exact)
+                      for ct in encrypted] if exact else None
+    for o, r in zip((out, traced_out), refs):
+        if len(r) != len(o) or any(
+                a.dtype != np.uint64 or not np.array_equal(a, b)
+                for a, b in zip(o, r)):
+            fail(f"{name}: output ciphertexts differ from the archive-loaded "
+                 f"Server's")
+    checked = checks.check()
+    if set(launches) - set(checked):
+        fail(f"{name}: {sorted(set(launches) - set(checked))} launched on "
+             f"the path and never held to the plain version")
+    path_wrong, values = decrypt_wrong(circuit, wrong_of, inputs,
+                                       (out, traced_out))
+    wrong = path_wrong if exact is None else decrypt_wrong(
+        circuit, wrong_of, inputs, exact_outs)[0]
+    allowed = max(2, 1e-3 * values)
+    if wrong > allowed:
+        fail(f"{name}: {wrong} wrong decryptions of {values}")
+    cpu_s = None
+    if cpu_check:
+        cpu = tfhe.Server(circuit.graph, specs, device="cpu")
+        t0 = time.perf_counter()
+        if any(not np.array_equal(o, r) for o, r in zip(
+                out, cpu.run(*encrypted[0], evaluation_keys=cpu_keys(*ev)))):
+            fail(f"{name}: the card's outputs differ from the plain path's "
+                 f"on the CPU")
+        cpu_s = time.perf_counter() - t0
+    busy = sum(ms for *_, ms in rows)
+    by_form = {}
+    for kind, batch, form, _ in forms.values():
+        key = f"{kind} B={batch}: {form}"
+        by_form[key] = by_form.get(key, 0) + 1
+    p = specs.params
+    held = "" if exact is None else (
+        f" on the packing rule's key, which ROADMAP queue 3 finds too noisy;"
+        f" the same ciphertexts on the exact key ({key_form(exact[1])}, "
+        f"packed in {exact_pack_s:.3f} s): {wrong} of {values}")
+    print(f"model {name}: n_small={p.n_small} k={p.glwe_dimension} "
+          f"N={p.polynomial_size} l={p.pbs_level} base 2^{p.pbs_base_log}, "
+          f"{specs.message_bits}-bit messages, {key_form(ev[1])}; "
+          f"compile {compile_s:.3f} s, keygen {keygen_s:.2f} s "
+          f"({ {k: round(v, 2) for k, v in keygen_parts.seconds.items()} }), "
+          f"pack {pack_s:.3f} s "
+          f"({ {k: round(v, 3) for k, v in pack_parts.seconds.items()} }); "
+          f"{lookups} lookups a request; lookup nodes by "
+          f"form {by_form}; {MODEL_REQUESTS} requests within the compiled "
+          f"bounds in {draws} draws; Circuit.run request {wall:.4f} s, "
+          f"output ciphertexts equal bit for bit to the archive-loaded "
+          f"Server's"
+          + (f" and to the CPU's plain path ({cpu_s:.1f} s)"
+             if cpu_check else "")
+          + f"; kernel calls held to their plain versions on the archive "
+          f"run's inputs: { {k: v['signatures'] for k, v in checked.items()} }"
+          f"; wrong decryptions {path_wrong} of {values}{held} (allowed "
+          f"{allowed}); launches {launches}; the traced request: wall "
+          f"{traced_wall * 1e3:.1f} ms, device busy {busy:.2f} ms, idle "
+          f"share {1 - busy / (traced_wall * 1e3):.3f}, kernels run "
+          f"{kernels}, launch calls {launch_calls}; the model's phase "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    for k, c, ms in rows[:5]:
+        print(f"  {ms:9.3f} ms {c:6d}x  {k[:90]}", flush=True)
+    return {"params": str(p), "message_bits": specs.message_bits,
+            "phase_s": time.perf_counter() - start,
+            "bsk": key_form(ev[1]), "compile_s": compile_s,
+            "keygen_s": keygen_s, "keygen_parts_s": keygen_parts.seconds,
+            "pack_s": pack_s, "pack_parts_s": pack_parts.seconds,
+            "lookups_per_request": lookups, "forms": by_form,
+            "draws": draws, "wall_s": wall, "path_wrong": path_wrong,
+            "wrong": wrong, "values": values, "launches": launches,
+            "exact_key": None if exact is None else {
+                "bsk": key_form(exact[1]), "pack_s": exact_pack_s},
+            "checked_on_served_inputs": checked, "cpu_plain_s": cpu_s,
+            "traced": {"wall_s": traced_wall, "device_busy_ms": busy,
+                       "idle_share": 1 - busy / (traced_wall * 1e3),
+                       "device_kernels": kernels,
+                       "launch_calls": launch_calls,
+                       "by_kernel": [{"name": k, "count": c, "device_ms": ms}
+                                     for k, c, ms in rows[:12]]}}
+
+
+def models_phase(rng):
+    """Five of the JAX package's model circuits, compiled by the port at the
+    default Configuration() and served on the card (serve_model), then
+    StaticKeyValueDatabase with 2 keys (KVDB_CPU_KEYS) also against CPU
+    copies of its keys, and the refusal of PrivateInformationRetrieval at
+    64 rows (WoP-PBS)."""
+    import numpy as np
+    from concrete_tpu_torch import models as tm
+    gol = tm.GameOfLife(*GOL_SIZE)
+    lev = tm.LevenshteinDistance(*LEVENSHTEIN)
+    kvdb = tm.StaticKeyValueDatabase(KVDB_KEYS, KVDB_VALUES)
+    ham = tm.HammingDistance(*HAMMING)
+    pir = tm.PrivateInformationRetrieval(rng.integers(0, 16, PIR_SHAPE))
+
+    def wrong_of(clear):
+        def count(x, dec):
+            want = np.asarray(clear(*x)).reshape(-1)
+            got = np.concatenate([np.asarray(d).reshape(-1) for d in dec])
+            if got.shape != want.shape:
+                fail(f"outputs of shape {got.shape}, want {want.shape}")
+            return int(np.count_nonzero(got != want)), want.size
+        return count
+
+    out = {
+        "game_of_life": serve_model(
+            "game_of_life", gol.compile,
+            lambda: (rng.integers(0, 2, GOL_SIZE),),
+            wrong_of(gol.step_clear)),
+        "levenshtein": serve_model(
+            "levenshtein",
+            lambda: lev.compile(inputset_size=LEVENSHTEIN_INPUTSET),
+            lambda: tuple(rng.integers(0, 1 << LEVENSHTEIN[2], length)
+                          for length in LEVENSHTEIN[:2]),
+            wrong_of(lambda a, b: lev.distance_clear(list(a), list(b)))),
+        "kvdb": serve_model(
+            "kvdb", kvdb.compile,
+            lambda: (int(rng.integers(0, KVDB_KEYS[-1] + 2)),),
+            wrong_of(kvdb.query_clear)),
+        "hamming": serve_model(
+            "hamming", lambda: ham.compile(via="packed"),
+            lambda: tuple(rng.integers(0, 1 << HAMMING[1], HAMMING[0])
+                          for _ in range(2)),
+            wrong_of(ham.distance_clear)),
+        "pir": serve_model(
+            "pir", pir.compile,
+            lambda: (int(rng.integers(0, PIR_SHAPE[0])),),
+            wrong_of(pir.query_clear)),
+    }
+    small = tm.StaticKeyValueDatabase(KVDB_CPU_KEYS, KVDB_VALUES[:2])
+    out["kvdb_2_keys"] = serve_model(
+        "kvdb_2_keys", small.compile,
+        lambda: (int(rng.integers(0, KVDB_CPU_KEYS[1] + 2)),),
+        wrong_of(small.query_clear), cpu_check=True)
+    wide = tm.PrivateInformationRetrieval(rng.integers(0, 16,
+                                                       PIR_REFUSED_SHAPE))
+    try:
+        wide.compile()
+    except NotImplementedError as e:
+        if "item 7" not in str(e):
+            fail(f"PIR at {PIR_REFUSED_SHAPE} refused with {e}")
+        print(f"PIR at {PIR_REFUSED_SHAPE} refuses as it should: {e}",
+              flush=True)
+    else:
+        fail(f"PIR at {PIR_REFUSED_SHAPE} compiled; its row fetch needs "
+             f"WoP-PBS")
+    return out
+
+
+def kind_circuits(tfhe, rng):
+    """The node kinds that the models phase's circuits hold none of, in five
+    small circuits (the functions of tests/test_torch_executor.py, written
+    again with the port): {name: (statuses, function, inputset, a draw of
+    one run's arguments, node kinds the graph must hold, ties)}.  ties(args)
+    maps an output's position to the elements whose rounding is a tie: the
+    JAX package's fused rounding puts a tie of round_bit_pattern (and an
+    exact multiple under truncate_bit_pattern's half-step bias) on a
+    lookup box's edge, where the noise decides (ROADMAP queue 3)."""
+    import numpy as np
+    per_element = tfhe.LookupTable([[0, 1, 2, 3], [3, 2, 1, 0],
+                                    [1, 3, 0, 2]])
+    weight = np.array([[[[1, -1], [0, 2]], [[2, 0], [1, 1]]],
+                       [[[0, 1], [1, 0]], [[-1, 1], [1, 2]]]])
+
+    def levelled(x, y):
+        z = tfhe.zeros((2, 3)) + x
+        s = np.sum(z, axis=-1) + np.sum(x, axis=(0,))[:2]
+        c = np.concatenate([x, x[::-1]], axis=0)
+        b = np.broadcast_to(x[1], (2, 3))
+        r = (b + c[1:3]).reshape(3, 2)
+        t = np.transpose(r) + y * 2
+        a = tfhe.array([s[0], x[0, 2], 3])
+        u = tfhe.hint(a, bit_width=4) - tfhe.ones(3) + tfhe.ones_like(y) \
+            + tfhe.zeros_like(y)
+        v = -x[0] + tfhe.constant(9) + tfhe.one() + tfhe.zero()
+        return t, u, v, y + 1
+
+    def lookups(x, y):
+        a = per_element[x]
+        m = tfhe.multivariate(lambda u, v: (u + 2 * v) % 4)(x, y)
+        c = tfhe.mux(x > 1, x, y)
+        r = tfhe.relu(x - y) + tfhe.refresh(y) + tfhe.identity(x)
+        q = tfhe.round_bit_pattern(x + y, lsbs_to_remove=1)
+        t = tfhe.truncate_bit_pattern(x + 2 * y, lsbs_to_remove=2)
+        return a + m, c, r, tfhe.univariate(lambda v: v // 2)(q), \
+            tfhe.univariate(lambda v: v)(t)
+
+    def windows(x):
+        return (tfhe.conv(x, weight, bias=[1, 2], strides=(2, 1),
+                          padding=(1, 1)),
+                tfhe.maxpool(x, (2, 2), strides=(1, 1)))
+
+    def fancy(x, v):
+        a = x[[2, 0], :, [1, 1]]
+        b = x[..., ::-2, None]
+        c = x[np.int64(1), [0, 1]]
+        x2 = x.reshape(3, 2, 2)
+        x2[[0, 2, 0], 1] = v
+        x2[1, :, 0] = 3
+        return a, b, c, tfhe.trace(x2, "after assign")
+
+    def dynamic(t, x):
+        return t[x] + 1
+
+    def u2(*shape):
+        return rng.integers(0, 4, shape)
+
+    def rounding_ties(x, y):
+        return {3: (x + y) % 2 == 1, 4: (x + 2 * y) % 4 == 0}
+
+    return {
+        "levelled": ({"x": "encrypted", "y": "clear"}, levelled,
+                     [(np.array([[0, 1, 2], [3, 2, 1]]), np.array([1, 0, 2])),
+                      (np.full((2, 3), 3), np.full(3, 2)),
+                      (np.zeros((2, 3), np.int64), np.zeros(3, np.int64))],
+                     lambda: (u2(2, 3), rng.integers(0, 3, 3)),
+                     {"encrypted_constant", "add", "subtract", "negative",
+                      "sum", "index", "concatenate", "broadcast_to",
+                      "reshape", "transpose", "array", "hint", "multiply"},
+                     None),
+        "lookups": ({"x": "encrypted", "y": "encrypted"}, lookups,
+                    [(np.array([0, 1, 2]), np.array([3, 0, 1])),
+                     (np.full(3, 3), np.full(3, 3)),
+                     (np.zeros(3, np.int64), np.zeros(3, np.int64))],
+                    lambda: (u2(3), u2(3)),
+                    {"tlu", "multivariate", "univariate",
+                     "round_bit_pattern", "truncate_bit_pattern"},
+                    rounding_ties),
+        "windows": ({"x": "encrypted"}, windows,
+                    [u2(1, 2, 3, 3) for _ in range(6)]
+                    + [np.full((1, 2, 3, 3), 3),
+                       np.zeros((1, 2, 3, 3), np.int64)],
+                    lambda: (u2(1, 2, 3, 3),),
+                    {"conv", "index", "univariate"}, None),
+        "fancy": ({"x": "encrypted", "v": "encrypted"}, fancy,
+                  [(u2(3, 2, 2), u2(3, 2)) for _ in range(5)]
+                  + [(np.full((3, 2, 2), 3), np.full((3, 2), 3))],
+                  lambda: (u2(3, 2, 2), u2(3, 2)),
+                  {"index", "assign", "reshape", "trace_message"}, None),
+        "dynamic": ({"t": "clear", "x": "encrypted"}, dynamic,
+                    tfhe.inputset(tfhe.tensor[tfhe.uint2, 4],
+                                  tfhe.tensor[tfhe.uint2, 3], n=8, seed=1)
+                    + [(np.full(4, 3), np.full(3, 3))],
+                    lambda: (u2(4), u2(3)), {"dynamic_tlu"}, None),
+    }
+
+
+def kinds_phase(rng):
+    """Each of kind_circuits() compiled by the port at the default
+    Configuration() (the lookups one also with approximate rounding),
+    keys from the seed, two runs through Circuit.run of arguments within
+    the compiled bounds (covered_draws), decrypted against numpy's
+    evaluation of the same function (the graph's clear evaluation); every
+    kernel call of the runs, at each signature, held to its plain version
+    on the same inputs (same_inputs).  Where the packing rule's key is a
+    truncated fused key (exact_keys), the same ciphertexts run again on
+    the exact key, whose decryptions are held, and the rule's wrong count
+    is printed."""
+    import numpy as np
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch.ops import _build
+    out = {}
+    circuits = kind_circuits(tfhe, rng)
+    cases = [(name, case, {}) for name, case in circuits.items()]
+    cases.append(("lookups_approximate", circuits["lookups"],
+                  {"rounding_exactness": tfhe.Exactness.APPROXIMATE}))
+    for name, (statuses, fn, inputset, draw, kinds, ties), cfg in cases:
+        t0 = time.perf_counter()
+        circuit = tfhe.compiler(statuses)(fn).compile(
+            inputset, tfhe.Configuration(**cfg))
+        compile_s = time.perf_counter() - t0
+        held = {n.name for n in circuit.graph.graph.nodes}
+        if not kinds <= held:
+            fail(f"kinds circuit {name} holds no {sorted(kinds - held)}")
+        runs, draws = covered_draws(circuit, draw, 2)
+        circuit.keygen(seed=SEED)
+        ev = circuit._evaluation_keys()
+        exact = exact_keys(circuit, ev)
+
+        def wrong_of(args, run):
+            enc = circuit.encrypt(*args)
+            enc = enc if isinstance(enc, tuple) else (enc,)
+            t0 = time.perf_counter()
+            res = run(enc)
+            wall = time.perf_counter() - t0
+            dec = circuit.decrypt(*res)
+            dec = dec if isinstance(dec, tuple) else (dec,)
+            want = circuit.graph(*args)
+            want = want if isinstance(want, tuple) else (want,)
+            # approximate rounding may land a truncation a step up: its
+            # rounded outputs are not held to the exact evaluation; a tie
+            # of the exact one is counted apart
+            held_out = 3 if cfg else len(want)
+            tie = ties(*args) if ties and not cfg else {}
+            wrong = values = flips = n_ties = 0
+            for k, (d, w) in enumerate(zip(dec[:held_out], want[:held_out])):
+                off = np.asarray(d).reshape(-1) != np.asarray(w).reshape(-1)
+                mask = np.asarray(tie.get(k, False)).reshape(-1) \
+                    & np.ones_like(off)
+                wrong += int(np.count_nonzero(off & ~mask))
+                values += int(np.count_nonzero(~mask))
+                flips += int(np.count_nonzero(off & mask))
+                n_ties += int(np.count_nonzero(mask))
+            return wrong, values, flips, n_ties, wall
+
+        def served(enc):
+            res = circuit.run(*enc)
+            return res if isinstance(res, tuple) else (res,)
+
+        def on_exact(enc):
+            return circuit.server.run(*enc, evaluation_keys=exact)
+
+        tally = {"path": [0] * 4, "exact": [0] * 4}
+        walls = []
+        _build.reset_launches()
+        checks = same_inputs(f"kinds {name}")
+        with checks:
+            for label, run in (("path", served), ("exact", on_exact)):
+                if label == "exact":
+                    launches = dict(_build.LAUNCHES)   # the path's alone
+                    if exact is None:
+                        break
+                for args in runs:
+                    *counts, wall = wrong_of(args, run)
+                    tally[label] = [t + c for t, c in zip(tally[label],
+                                                          counts)]
+                    walls += [wall] if label == "path" else []
+        checked = checks.check()
+        wrong, values, flips, n_ties = tally["path" if exact is None
+                                             else "exact"]
+        allowed = max(2, 1e-3 * values)
+        p = circuit.client_specs.params
+        print(f"kinds {name} ({sorted(kinds)}): n_small={p.n_small} "
+              f"k={p.glwe_dimension} N={p.polynomial_size}, compile "
+              f"{compile_s:.3f} s, {circuit.programmable_bootstrap_count} "
+              f"PBS a run, runs within the compiled bounds in {draws} "
+              f"draws, {key_form(ev[1])}, Circuit.run "
+              f"{[f'{w * 1e3:.1f}' for w in walls]} ms"
+              + (f", wrong {wrong} of {values} (allowed {allowed})"
+                 if exact is None else
+                 f", wrong {tally['path'][0]} of {tally['path'][1]} on the "
+                 f"packing rule's key, {wrong} of {values} on the exact key "
+                 f"({key_form(exact[1])}; allowed {allowed})")
+              + (f", rounding ties decided the other way {flips} of "
+                 f"{n_ties}" if n_ties else "")
+              + f", launches {launches}, kernel calls held to their plain "
+              f"versions: { {k: v['signatures'] for k, v in checked.items()} }",
+              flush=True)
+        if wrong > allowed:
+            fail(f"kinds circuit {name}: {wrong} wrong of {values}")
+        out[name] = {"compile_s": compile_s, "walls_s": walls,
+                     "draws": draws, "key": key_form(ev[1]), "wrong": wrong,
+                     "values": values, "tie_flips": flips, "ties": n_ties,
+                     "launches": launches, "checked": checked,
+                     "path_wrong": tally["path"][0],
+                     "exact_key": None if exact is None
+                     else key_form(exact[1])}
+    return out
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -1869,6 +2621,13 @@ def main() -> None:
         fail(f"the archive's primes {bsk.primes} are not the checked ones")
     direct = direct_lookups(rng, client, ksk, bsk, params)
     compiled = compile_phase(rng)
+    models = models_phase(rng)
+    kinds = kinds_phase(rng)
+    # the models phase's own launches of the kernels that its lookups ran
+    model_launches = {}
+    for rec in models.values():
+        for k, v in rec["launches"].items():
+            model_launches[k] = model_launches.get(k, 0) + v
 
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -1947,6 +2706,8 @@ def main() -> None:
          **{k: rec_f["garner_accumulate"][k] for k in fields}},
     ]
     for k in kernels:
+        # the models phase drives the port's entry points too
+        k["launches"] += model_launches.get(k["name"], 0)
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")
     leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -1961,7 +2722,8 @@ def main() -> None:
                    "kernels": kernels, "serve": run, "serve_pallas": pal,
                    "banded_modes_walls_s": modes, "latency": latency,
                    "serve_mlp": mlp, "direct_lookups": direct,
-                   "compiled": compiled,
+                   "compiled": compiled, "models": models,
+                   "kinds": kinds,
                    "detail": {"rotate_decompose": rec_a,
                               "external_product_accumulate": rec_b,
                               "banded_matmul": rec_bm,

@@ -37,6 +37,7 @@ Their plain PyTorch versions serve CPU tensors.  The package imports
 neither JAX nor ``concrete_tpu``.
 """
 
+import enum as _enum
 import sys as _sys
 
 from concrete_tpu_torch.version import __version__
@@ -48,11 +49,18 @@ from concrete_tpu_torch.compilation.configuration import (
     Exactness, KeysetRestriction, MinMaxStrategy, MultiParameterStrategy,
     MultivariateStrategy, ParameterSelectionStrategy, RangeRestriction,
     SecurityLevel)
+from concrete_tpu_torch.compilation.specs import ClientSpecs
+from concrete_tpu_torch.compilation.value import TransportValue, Value
 from concrete_tpu_torch.dtypes import Float, Integer
 from concrete_tpu_torch.extensions import (AutoRounder, AutoTruncator,
-                                           LookupTable, hint, multivariate,
-                                           round_bit_pattern, tag,
-                                           truncate_bit_pattern, univariate)
+                                           LookupTable, array, constant, conv,
+                                           hint, identity, if_then_else,
+                                           inputset, maxpool, multivariate,
+                                           mux, one, ones, ones_like, refresh,
+                                           relu, round_bit_pattern, tag,
+                                           trace, truncate_bit_pattern,
+                                           univariate, zero, zeros,
+                                           zeros_like)
 from concrete_tpu_torch.params import CryptoParams
 from concrete_tpu_torch.representation import Graph, Node, Operation
 from concrete_tpu_torch.tracing import Tracer
@@ -64,6 +72,30 @@ for _w in range(1, 65):
 tensor = _typing.tensor
 f32 = _typing.f32
 f64 = _typing.f64
+
+#: reference configuration.py:24-27 defaults
+MAXIMUM_TLU_BIT_WIDTH = 16
+DEFAULT_P_ERROR = None
+DEFAULT_GLOBAL_P_ERROR = 1 / 100_000
+
+
+class EncryptionStatus(str, _enum.Enum):
+    """Parameter encryption status (reference compilation/status.py)."""
+    CLEAR = "clear"
+    ENCRYPTED = "encrypted"
+
+
+class GraphProcessor:
+    """Base class for Configuration.additional_pre/post_processors
+    (reference representation/GraphProcessor): subclass and implement
+    apply(graph)."""
+
+    def apply(self, graph):
+        raise NotImplementedError
+
+    def __call__(self, graph):
+        return self.apply(graph)
+
 
 __all__ = [
     "__version__",
@@ -77,4 +109,9 @@ __all__ = [
     "Tracer", "tensor", "f32", "f64",
     "AutoRounder", "AutoTruncator", "LookupTable", "hint", "multivariate",
     "round_bit_pattern", "tag", "truncate_bit_pattern", "univariate",
+    "constant", "identity", "trace", "array", "inputset", "refresh", "zero",
+    "zeros", "one", "ones", "zeros_like", "ones_like", "if_then_else",
+    "mux", "relu", "conv", "maxpool", "ClientSpecs", "Value",
+    "TransportValue", "EncryptionStatus", "GraphProcessor",
+    "MAXIMUM_TLU_BIT_WIDTH", "DEFAULT_P_ERROR", "DEFAULT_GLOBAL_P_ERROR",
 ]

@@ -1,23 +1,33 @@
 """Graph executor: runs a computation graph on torch ciphertext tensors.
 
-Counterpart of ``concrete_tpu/compilation/executor.py`` for the first slice
-of the port.  The graph is interpreted node by node (PyTorch runs eagerly;
+Counterpart of ``concrete_tpu/compilation/executor.py`` for mono-keyset
+circuits.  The graph is interpreted node by node (PyTorch runs eagerly;
 there is no jit to build): levelled ops are int64 tensor ops (mod 2^64),
 and a table lookup flattens its whole tensor into one ``pbs_batch``.
 
 Ciphertext layout: an encrypted integer tensor of shape S is an int64
 tensor of shape (*S, n_big + 1), LWE dimension last.
 
-Ported node kinds: inputs, constants, add, subtract, negative, multiply by
-a clear value, ``matmul``/``dot`` with a clear operand, and
-``tlu``/``univariate`` through the native PBS.  Every
-other kind raises ``NotImplementedError`` naming its ROADMAP item, when the
-executor is built — before any key is packed or ciphertext is read.
+Every node kind of the JAX package's executor runs here but the WoP-PBS
+ones: a lookup wider than the native LUT, ``crt_tlu`` and
+``extract_bits`` raise ``NotImplementedError`` naming ROADMAP queue 1 item
+7 when the executor is built, before any key is packed or ciphertext is
+read; multi-partition circuits are refused by ``Server`` and ``Client``
+(item 8).  The JAX package's own refusals stay: encrypted x encrypted
+multiply and matmul (the transforms lower them before they get here) and
+a clear ``matmul`` operand above 2-D.
+
+Runtime clear inputs are numpy arrays, and every clear value stays one:
+a fully clear node runs its own numpy evaluator on the host.  Values that
+derive from a runtime clear input are tracked, so that a clear lookup
+over one raises as it does in the JAX package (there the value is a jit
+tracer).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -28,14 +38,14 @@ from concrete_tpu_torch.dtypes import Integer
 from concrete_tpu_torch.params import CryptoParams
 from concrete_tpu_torch.representation import Graph, Node, Operation
 
-_LEVELLED = ("add", "subtract", "negative", "multiply", "matmul", "dot")
-_ITEM6 = "ROADMAP queue 1 item 6, executor ops not ported yet"
-_NOT_PORTED = {
-    "crt_tlu": "ROADMAP queue 1 item 7, WoP-PBS and CRT",
-    "extract_bits": "ROADMAP queue 1 item 7, WoP-PBS and CRT",
-    "conv": "ROADMAP queue 1 item 6; an encrypted x clear convolution in "
-            "int64 (cuBLAS and cuDNN have no int64 path)",
-}
+_ITEM6 = "ROADMAP queue 1 item 6, the execution layer"
+_ITEM7 = "ROADMAP queue 1 item 7, WoP-PBS and CRT"
+_KINDS = (
+    "tlu", "univariate", "multivariate", "dynamic_tlu",
+    "add", "subtract", "negative", "multiply", "matmul", "dot", "sum",
+    "conv", "round_bit_pattern", "truncate_bit_pattern", "hint", "array",
+    "trace_message", "concatenate", "transpose", "broadcast_to", "index",
+    "assign", "reshape", "encrypted_constant")
 
 
 def not_ported(what: str, item: str = _ITEM6) -> NotImplementedError:
@@ -46,14 +56,15 @@ def not_ported(what: str, item: str = _ITEM6) -> NotImplementedError:
 class TluSpec:
     """A materialized table lookup: expanded LUT polynomial + signedness."""
     node_uid: int
-    lut_poly: np.ndarray      # (N,) u64 accumulator polynomial
+    lut_poly: np.ndarray      # (N,) or (rows, N) u64 accumulator polynomial
     signed_input: bool
     message_bits: int         # input encoding width (LUT index domain)
 
 
 def raw_table(node: Node, p: int, shift: int = 0) -> np.ndarray:
     """The 2^p-entry integer table of a tlu/univariate node (index = value
-    mod 2^p, as the JAX package's executor.raw_table)."""
+    mod 2^p, as the JAX package's executor.raw_table); a per-element
+    table gives one row of entries per flattened element."""
     in_node_signed = node.inputs[0].dtype.is_signed if isinstance(
         node.inputs[0].dtype, Integer) else False
     idx = np.arange(1 << p)
@@ -63,7 +74,10 @@ def raw_table(node: Node, p: int, shift: int = 0) -> np.ndarray:
     if node.name == "tlu":
         table = np.asarray(node.properties["kwargs"]["table"], dtype=np.int64)
         if table.ndim > 1:
-            raise not_ported("a per-element (multi) lookup table")
+            # per-element tables (apply_multi_lookup_table): one row of
+            # raw entries per flattened element
+            flat = table.reshape(-1, table.shape[-1])
+            return flat[:, vals % table.shape[-1]]
         return table[vals % len(table)]
     fn = node.properties["kwargs"]["function"]
     return np.vectorize(fn, otypes=[np.int64])(vals)
@@ -82,12 +96,93 @@ def _materialize_table(node: Node, p_in: int, p_out: int,
                    signed_input=in_node_signed, message_bits=p_eff)
 
 
+@dataclasses.dataclass
+class MultivariateSpec:
+    """A packed n-operand TLU: bias/shift per operand + expanded LUT.
+
+    packed = sum_i (x_i - min_i) << offset_i; the table is indexed by the
+    packed value."""
+    node_uid: int
+    mins: list[int]
+    offsets: list[int]
+    widths: list[int]
+    lut_poly: np.ndarray
+    message_bits: int         # packed-operand encoding width
+
+
+def packed_layout(graph: Graph, node: Node):
+    """(mins, widths, offsets) for a multivariate node's operands, from
+    measured bounds; offsets are bit positions, operand 0 most significant."""
+    mins, widths = [], []
+    for pr in graph.ordered_preds_of(node):
+        lo, hi = pr.bounds
+        mins.append(lo)
+        widths.append(max(int(hi - lo).bit_length(), 1))
+    offsets, acc = [], 0
+    for w in reversed(widths):
+        offsets.append(acc)
+        acc += w
+    return mins, widths, list(reversed(offsets))
+
+
+def multivariate_raw_table(graph: Graph, node: Node,
+                           p_in: int) -> np.ndarray:
+    """2^p_in-entry packed-index table of a multivariate node (from its
+    callable, or the explicit table of a deserialized archive node)."""
+    kwargs = node.properties["kwargs"]
+    if "table" in kwargs:
+        t = np.asarray(kwargs["table"], dtype=np.int64)
+        if len(t) < (1 << p_in):
+            # width class wider than the packed range: upper entries are
+            # unreachable don't-cares
+            t = np.resize(t, 1 << p_in)
+        return t
+    fn = kwargs["function"]
+    mins, widths, offsets = packed_layout(graph, node)
+    idx = np.arange(1 << p_in)
+    operands = [((idx >> off) & ((1 << w) - 1)) + mn
+                for mn, w, off in zip(mins, widths, offsets)]
+    return np.vectorize(fn, otypes=[np.int64])(*operands)
+
+
+def _materialize_multivariate(graph: Graph, node: Node, p_in: int,
+                              p_out: int,
+                              params: CryptoParams) -> MultivariateSpec:
+    mins, widths, offsets = packed_layout(graph, node)
+    lut_enc = multivariate_raw_table(graph, node, p_in) \
+        & ((1 << (p_out + 1)) - 1)
+    lut_poly = ref.encode_expand_lut(
+        lut_enc.astype(np.uint64), params.polynomial_size, p_in,
+        signed=False, out_bits=p_out)
+    return MultivariateSpec(node_uid=node.uid, mins=mins, offsets=offsets,
+                            widths=widths, lut_poly=lut_poly,
+                            message_bits=p_in)
+
+
 def to_torus(value, device) -> torch.Tensor:
     """u64 numpy ciphertexts as int64 on `device`."""
     arr = np.ascontiguousarray(value)
     if arr.dtype != np.uint64:
         raise TypeError(f"ciphertext arrays are uint64, got {arr.dtype}")
     return torch.from_numpy(arr.view(np.int64)).to(device)
+
+
+def _is_basic(index) -> bool:
+    """True for an index of ints, slices with a positive step, Ellipsis and
+    None, on which torch's view indexing is numpy's."""
+    for i in index:
+        if isinstance(i, slice):
+            if i.step is not None and int(i.step) <= 0:
+                return False
+        elif not (i is Ellipsis or i is None
+                  or isinstance(i, (int, np.integer))
+                  and not isinstance(i, (bool, np.bool_))):
+            return False
+    return True
+
+
+def _torch_index(index: tuple) -> tuple:
+    return tuple(int(i) if isinstance(i, np.integer) else i for i in index)
 
 
 class GraphExecutor:
@@ -101,32 +196,77 @@ class GraphExecutor:
         self.p = p
         self.width_of = lambda node: encoding_width(node, p)
         self.tlu_specs: dict[int, TluSpec] = {}
+        self.multivariate_specs: dict[int, MultivariateSpec] = {}
         max_native = min(8, params.polynomial_size.bit_length() - 2)
         for node in graph.topological_order():
-            if node.operation in (Operation.Input, Operation.Constant):
+            if not node.output.is_encrypted \
+                    or node.operation != Operation.Generic:
+                # clear-output ops never bootstrap: a lookup on a clear
+                # value runs its evaluator on the host
                 continue
-            if not node.output.is_encrypted:
-                raise not_ported(f"clear operation '{node.name}'")
-            if node.name in ("tlu", "univariate"):
-                preds = graph.ordered_preds_of(node)
+            name = node.name
+            preds = graph.ordered_preds_of(node)
+            if name in ("tlu", "univariate"):
                 p_in = self.width_of(preds[0]) if preds else p
                 lsbs = tlu_fused_lsbs(graph, node)
                 if max(p_in - lsbs, 1) > max_native:
                     raise not_ported(f"a {p_in}-bit table lookup (WoP-PBS)",
-                                     _NOT_PORTED["crt_tlu"])
+                                     _ITEM7)
                 self.tlu_specs[node.uid] = _materialize_table(
                     node, p_in, self.width_of(node), params, lsbs=lsbs)
-            elif node.name not in _LEVELLED:
-                raise not_ported(f"operation '{node.name}'",
-                                 _NOT_PORTED.get(node.name, _ITEM6))
-        for node in graph.ordered_outputs:
-            if not node.output.is_encrypted:
-                raise not_ported("a clear circuit output")
+            elif name == "multivariate":
+                enc = [q for q in preds if q.output.is_encrypted]
+                p_in = max((self.width_of(q) for q in enc), default=p)
+                if p_in > max_native:
+                    raise not_ported(f"a {p_in}-bit multivariate lookup "
+                                     "(WoP-PBS)", _ITEM7)
+                self.multivariate_specs[node.uid] = \
+                    _materialize_multivariate(graph, node, p_in,
+                                              self.width_of(node), params)
+            elif name == "dynamic_tlu":
+                self._check_dynamic_tlu(preds, max_native)
+            elif name in ("crt_tlu", "extract_bits"):
+                raise not_ported(f"operation '{name}'", _ITEM7)
+            elif name not in _KINDS:
+                raise NotImplementedError(
+                    f"operation '{name}' is not lowered yet")
 
-    def _encode_clear(self, value, width: int, device) -> torch.Tensor:
-        enc = ref.encode(np.asarray(value), width)
-        return torch.from_numpy(np.ascontiguousarray(enc).view(np.int64)) \
-            .to(device)
+    def _check_dynamic_tlu(self, preds, max_native: int) -> None:
+        """The JAX package's construction-time checks of a dynamic table."""
+        p_in = self.width_of(preds[1])
+        if p_in > max_native:
+            raise ValueError(
+                f"dynamic table lookup at {p_in} bits exceeds the native "
+                "LUT width; dynamic tables cannot lower to WoP-PBS (their "
+                "contents are only known at run time) — round/truncate the "
+                "index first")
+        tshape = tuple(preds[0].output.shape)
+        if len(tshape) != 1:
+            raise ValueError(
+                "dynamic table lookups need a 1-D clear table (got shape "
+                f"{tshape}); per-element dynamic tables are not supported — "
+                "use a static multi-dimensional LookupTable")
+        table_len = tshape[-1] if tshape else 0
+        if table_len != (1 << p_in):
+            raise ValueError(
+                f"dynamic table needs exactly 2^{p_in} = {1 << p_in} entries "
+                f"for its {p_in}-bit index (got {table_len}); pad the table "
+                "or fhe.hint the index wider")
+
+    # -- helpers -----------------------------------------------------------
+
+    @staticmethod
+    def _encode_clear(value, width: int, device) -> torch.Tensor:
+        enc = np.array(ref.encode(np.asarray(value), width), order="C")
+        return torch.from_numpy(enc.view(np.int64)).to(device)
+
+    def _trivial(self, value, width: int, device) -> torch.Tensor:
+        """Trivial LWE encryption of clear values (mask zeros)."""
+        enc = self._encode_clear(value, width, device)
+        out = torch.zeros(enc.shape + (self.params.n_big + 1,),
+                          dtype=torch.int64, device=device)
+        out[..., -1] = enc
+        return out
 
     @staticmethod
     def _contract(args, enc_flags, device) -> torch.Tensor:
@@ -137,7 +277,7 @@ class GraphExecutor:
         a, b = args
         ea, eb = enc_flags
         if ea and eb:
-            raise not_ported("encrypted x encrypted matmul")
+            raise NotImplementedError("enc x enc matmul planned")
 
         def clear(v):
             return torch.from_numpy(np.asarray(v, dtype=np.int64)).to(device)
@@ -148,74 +288,277 @@ class GraphExecutor:
             if w.ndim == 2:
                 # (..., K, d) x (K, M) -> (..., M, d)
                 return (ct[..., :, None, :] * w[:, :, None]).sum(dim=-3)
-            raise not_ported("matmul with a clear operand above 2-D")
-        w, ct = clear(a), b
-        if w.ndim == 1:
-            # (K,) x (K, ..., d): contract the leading K axis
-            return (w.reshape((-1,) + (1,) * (ct.ndim - 1)) * ct).sum(dim=0)
-        if w.ndim == 2 and ct.ndim == 2:
-            # (M, K) x (K, d) -> (M, d)
-            return (w[..., None] * ct[None, ...]).sum(dim=1)
-        if w.ndim == 2:
-            # (M, K) x (..., K, P, d) -> (..., M, P, d)
-            return (w[:, :, None, None] * ct[..., None, :, :, :]).sum(dim=-3)
-        raise not_ported("matmul with a clear operand above 2-D")
+        else:
+            w, ct = clear(a), b
+            if w.ndim == 1:
+                # (K,) x (K, ..., d): contract the leading K axis
+                return (w.reshape((-1,) + (1,) * (ct.ndim - 1)) * ct).sum(
+                    dim=0)
+            if w.ndim == 2 and ct.ndim == 2:
+                # (M, K) x (K, d) -> (M, d)
+                return (w[..., None] * ct[None, ...]).sum(dim=1)
+            if w.ndim == 2:
+                # (M, K) x (..., K, P, d) -> (..., M, P, d)
+                return (w[:, :, None, None] * ct[..., None, :, :, :]).sum(
+                    dim=-3)
+        raise NotImplementedError(
+            "matmul with a clear operand above 2-D is not lowered; reshape "
+            "to a stack of 2-D matmuls")
+
+    @staticmethod
+    def _conv(ct: torch.Tensor, kw: dict) -> torch.Tensor:
+        """Encrypted NCHW x clear OIHW convolution, as the JAX package
+        lowers it: a loop over the kh x kw kernel positions, each one
+        strided window times the weights and a sum over the input
+        channels, in int64 (cuDNN has no int64 path)."""
+        w = torch.from_numpy(np.asarray(kw["weight"], dtype=np.int64)).to(
+            ct.device)                              # (o, c, kh, kw)
+        sh, sw = kw["strides"]
+        ph, pw = kw["padding"]
+        _, _, h, wdt, _ = ct.shape                  # (n, c, h, w, d)
+        _, _, kh, kwid = w.shape
+        if ph or pw:
+            ct = torch.nn.functional.pad(ct, (0, 0, pw, pw, ph, ph))
+        oh = (h + 2 * ph - kh) // sh + 1
+        ow = (wdt + 2 * pw - kwid) // sw + 1
+        out = None
+        for ki in range(kh):
+            for kj in range(kwid):
+                win = ct[:, :, ki:ki + sh * (oh - 1) + 1:sh,
+                         kj:kj + sw * (ow - 1) + 1:sw, :]
+                term = (win[:, None] * w[None, :, :, ki, kj, None, None, None]
+                        ).sum(dim=2)
+                out = term if out is None else out + term
+        return out
+
+    @staticmethod
+    def _index(ct: torch.Tensor, index) -> torch.Tensor:
+        """x[index] over the data axes, the trailing LWE axis out of the
+        index's reach, with numpy's semantics: a view for basic indices,
+        else one gather of the rows numpy's own indexing selects."""
+        idx_t = index if isinstance(index, tuple) else (index,)
+        if _is_basic(idx_t):
+            return ct[_torch_index(idx_t) + (slice(None),)]
+        data = tuple(ct.shape[:-1])
+        rows = np.arange(int(np.prod(data)), dtype=np.int64).reshape(data)
+        sel = np.asarray(rows[index])
+        flat = ct.reshape(-1, ct.shape[-1])
+        picked = flat[torch.from_numpy(np.ascontiguousarray(sel).reshape(
+            -1)).to(ct.device)]
+        return picked.reshape(sel.shape + (ct.shape[-1],))
+
+    @staticmethod
+    def _assign(x: torch.Tensor, index, v: torch.Tensor) -> torch.Tensor:
+        """A new tensor equal to x with x[index] = v (JAX's .at[].set).
+        numpy resolves which row ends where, on the host: the last writer
+        of a repeated index wins, as in numpy."""
+        data, d = tuple(x.shape[:-1]), x.shape[-1]
+        size = int(np.prod(data))
+        sel = np.arange(size, dtype=np.int64).reshape(data)
+        v_data = tuple(v.shape[:-1])
+        sel[index] = size + np.arange(int(np.prod(v_data)),
+                                      dtype=np.int64).reshape(v_data)
+        rows = torch.cat([x.reshape(-1, d), v.reshape(-1, d)])
+        return rows[torch.from_numpy(sel.reshape(-1)).to(x.device)].reshape(
+            x.shape)
+
+    def _lookup(self, ct, ksk, bsk, lut_poly, message_bits: int,
+                signed: bool) -> torch.Tensor:
+        """One pbs_batch over every element of `ct`."""
+        flat = ct.reshape(-1, ct.shape[-1]).contiguous()
+        res = kn.pbs_batch(flat, ksk, bsk, lut_poly, self.params,
+                           message_bits, signed=signed)
+        return res.reshape(ct.shape[:-1] + (res.shape[-1],))
+
+    # -- the evaluation ----------------------------------------------------
 
     def run(self, enc_inputs: dict, ksk: kn.LimbKSK, bsk,
             lut_polys: dict) -> tuple:
         """Evaluate the graph.  enc_inputs maps input position -> int64
         ciphertext tensor (or a clear numpy array for clear inputs);
-        lut_polys maps TLU node uid -> (N,) int64 LUT polynomial."""
+        lut_polys maps lookup node uid -> (N,) or (rows, N) int64 LUT
+        polynomial.  Clear outputs come back as trivial ciphertexts."""
+        from concrete_tpu_torch.compilation.widths import \
+            output_encoding_width
         graph = self.graph
         values: dict[Node, object] = {}
+        runtime: set[Node] = set()     # clear values from clear inputs
         device = ksk.device
+        input_pos = {n: q for q, n in graph.input_nodes.items()}
         for node in graph.topological_order():
             name = node.name
             if node.operation == Operation.Input:
-                pos = next(q for q, n in graph.input_nodes.items()
-                           if n is node)
-                values[node] = enc_inputs[pos]
+                values[node] = enc_inputs[input_pos[node]]
+                if not node.output.is_encrypted:
+                    runtime.add(node)
                 continue
             if node.operation == Operation.Constant:
                 values[node] = node()
                 continue
+            if name == "encrypted_constant":
+                values[node] = self._trivial(
+                    node.properties["kwargs"]["value"], self.width_of(node),
+                    device)
+                continue
             preds = graph.ordered_preds_of(node)
             args = [values[pr] for pr in preds]
             enc_flags = [pr.output.is_encrypted for pr in preds]
-            if name in ("add", "subtract"):
-                a, b = args
-                ea, eb = enc_flags
-                sign = 1 if name == "add" else -1
-                if ea and eb:
-                    out = a + sign * b
-                elif ea:
-                    out = a.clone()
-                    out[..., -1] += sign * self._encode_clear(
-                        b, self.width_of(node), device)
-                else:                    # clear +/- encrypted
-                    out = b.clone() if sign > 0 else -b
-                    out[..., -1] += self._encode_clear(
-                        a, self.width_of(node), device)
-            elif name == "multiply":
-                a, b = args
-                ea, eb = enc_flags
-                if ea and eb:
-                    raise not_ported("encrypted x encrypted multiplication")
-                ct, clear = (a, b) if ea else (b, a)
-                c = torch.from_numpy(np.asarray(clear, dtype=np.int64)) \
-                    .to(device)
-                out = ct * c[..., None]
-            elif name == "negative":
-                out = -args[0]
-            elif name in ("matmul", "dot"):
-                out = self._contract(args, enc_flags, device)
-            else:                        # tlu / univariate
-                ct = args[0]
-                spec = self.tlu_specs[node.uid]
-                flat = ct.reshape(-1, ct.shape[-1])
-                res = kn.pbs_batch(flat, ksk, bsk, lut_polys[node.uid],
-                                   self.params, spec.message_bits,
-                                   signed=spec.signed_input)
-                out = res.reshape(ct.shape[:-1] + (res.shape[-1],))
-            values[node] = out
-        return tuple(values[n] for n in graph.ordered_outputs)
+            if not node.output.is_encrypted and not any(enc_flags):
+                # a fully clear subcomputation, on the host
+                if any(pr in runtime for pr in preds):
+                    if name in ("tlu", "univariate", "dynamic_tlu"):
+                        raise NotImplementedError(
+                            f"clear {name} over a runtime clear input is "
+                            "not supported; precompute it outside the "
+                            "circuit")
+                    runtime.add(node)
+                values[node] = node(*args)
+                continue
+            values[node] = self._run_node(node, preds, args, enc_flags,
+                                          ksk, bsk, lut_polys, device)
+        outs = []
+        for out_node in graph.ordered_outputs:
+            v = values[out_node]
+            if not out_node.output.is_encrypted:
+                # a width covering the clear value's full range (equal to
+                # ClientSpecs.output_widths)
+                v = self._trivial(
+                    v, output_encoding_width(out_node, self.p), device)
+            outs.append(v)
+        return tuple(outs)
+
+    def _run_node(self, node, preds, args, enc_flags, ksk, bsk, lut_polys,
+                  device) -> torch.Tensor:
+        name = node.name
+        kw = node.properties.get("kwargs", {})
+        if name in ("add", "subtract"):
+            a, b = args
+            ea, eb = enc_flags
+            sign = 1 if name == "add" else -1
+            if ea and eb:
+                return a + b if sign > 0 else a - b
+            if ea:
+                out = a.clone()
+                out[..., -1] += sign * self._encode_clear(
+                    b, self.width_of(node), device)
+                return out
+            out = b.clone() if sign > 0 else -b    # clear +/- encrypted
+            out[..., -1] += self._encode_clear(a, self.width_of(node), device)
+            return out
+        if name == "multiply":
+            a, b = args
+            ea, eb = enc_flags
+            if ea and eb:
+                raise NotImplementedError(
+                    "encrypted x encrypted multiplication lowers to two "
+                    "TLUs ((x+y)^2/4 - (x-y)^2/4); planned")
+            ct, clear = (a, b) if ea else (b, a)
+            c = torch.from_numpy(np.asarray(clear, dtype=np.int64)).to(device)
+            return ct * c[..., None]
+        if name == "negative":
+            return -args[0]
+        if name in ("matmul", "dot"):
+            return self._contract(args, enc_flags, device)
+        if name == "sum":
+            ct, axis = args[0], kw.get("axis")
+            nd = ct.ndim - 1           # data dims (the LWE axis is last)
+            if axis is None:
+                axes = tuple(range(nd))
+            else:
+                # negative axes count from the last *data* dim, one before
+                # the trailing LWE axis
+                axes = tuple(a if a >= 0 else a - 1 for a in (
+                    axis if isinstance(axis, tuple) else (axis,)))
+            # torch reads an empty dim tuple as "every dim"
+            return ct.sum(dim=axes) if axes else ct
+        if name in ("tlu", "univariate"):
+            spec = self.tlu_specs[node.uid]
+            return self._lookup(args[0], ksk, bsk, lut_polys[node.uid],
+                                spec.message_bits, spec.signed_input)
+        if name == "dynamic_tlu":
+            # the table is a runtime clear tensor: build the accumulator
+            # polynomial here, then the same batched PBS as a static TLU
+            table_vals, ct = args
+            w_in = self.width_of(preds[1])
+            signed = isinstance(preds[1].output.dtype, Integer) \
+                and preds[1].output.dtype.is_signed
+            lut_poly = kn.encode_expand_lut(
+                torch.from_numpy(np.asarray(table_vals, dtype=np.int64))
+                .to(device), self.params.polynomial_size, w_in,
+                self.width_of(node), signed=signed)
+            return self._lookup(ct, ksk, bsk, lut_poly, w_in, signed)
+        if name == "multivariate":
+            spec = self.multivariate_specs[node.uid]
+            packed, bias = None, 0
+            for ct, mn, off in zip(args, spec.mins, spec.offsets):
+                term = ct * (1 << off)
+                packed = term if packed is None else packed + term
+                bias += mn << off
+            packed[..., -1] -= self._encode_clear(bias, spec.message_bits,
+                                                  device)
+            return self._lookup(packed, ksk, bsk, lut_polys[node.uid],
+                                spec.message_bits, False)
+        if name == "conv":
+            out = self._conv(args[0], kw)
+            if kw.get("bias") is not None:
+                enc_b = self._encode_clear(
+                    np.asarray(kw["bias"], dtype=np.int64),
+                    self.width_of(node), device)
+                out[..., -1] += enc_b[None, :, None, None]
+            return out
+        if name in ("round_bit_pattern", "truncate_bit_pattern"):
+            # fused rounding: the consumer lookup's table is built at the
+            # reduced width and its modulus switch rounds; truncation
+            # (floor) also biases by -half a step, unless approximate
+            ct = args[0]
+            if name == "truncate_bit_pattern" \
+                    and not node.properties.get("approximate"):
+                half = 1 << (int(kw["lsbs_to_remove"]) - 1)
+                ct = ct.clone()
+                ct[..., -1] -= self._encode_clear(half, self.width_of(node),
+                                                  device)
+            return ct
+        if name == "hint":
+            return args[0]
+        if name == "array":
+            # stack scalar ciphertexts into one tensor; clear entries are
+            # trivially encrypted first
+            w = self.width_of(node)
+            cts = [a if flag else self._trivial(a, w, device)
+                   for a, flag in zip(args, enc_flags)]
+            return torch.stack(cts).reshape(
+                tuple(node.output.shape) + (cts[0].shape[-1],))
+        if name == "trace_message":
+            # an identity; with CONCRETE_TPU_TRACE=1 it prints the
+            # ciphertext body word (the server cannot decrypt)
+            ct = args[0]
+            if os.environ.get("CONCRETE_TPU_TRACE") == "1":
+                msg = kw.get("message", "trace")
+                print(f"{msg}: body={ct[..., -1].cpu().numpy()}")
+            return ct
+        if name == "concatenate":
+            ax = kw["axis"] % len(node.output.shape)  # the LWE axis stays
+            return torch.cat(args, dim=ax)
+        if name == "transpose":
+            ct, axes = args[0], kw["axes"]
+            nd = ct.ndim - 1
+            perm = tuple(axes) if axes is not None \
+                else tuple(reversed(range(nd)))
+            return ct.permute(perm + (nd,))
+        if name == "broadcast_to":
+            ct = args[0]
+            return ct.expand(tuple(kw["shape"]) + (ct.shape[-1],))
+        if name == "index":
+            return self._index(args[0], kw["index"])
+        if name == "assign":
+            x, v = args
+            w = self.width_of(node)
+            if not enc_flags[0]:
+                x = self._trivial(x, w, device)
+            if not enc_flags[1]:
+                v = self._trivial(v, w, device)
+            return self._assign(x, kw["index"], v)
+        if name == "reshape":
+            ct = args[0]
+            return ct.reshape(tuple(node.output.shape) + (ct.shape[-1],))
+        raise NotImplementedError(f"operation '{name}' is not lowered yet")

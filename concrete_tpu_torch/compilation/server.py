@@ -34,13 +34,17 @@ class Server:
         self.client_specs = specs
         self._executor = GraphExecutor(graph, specs.params,
                                        specs.message_bits)
+        specs_by_uid = {**self._executor.tlu_specs,
+                        **self._executor.multivariate_specs}
         self._lut_polys = {
             uid: torch.from_numpy(np.ascontiguousarray(s.lut_poly)
                                   .view(np.int64)).to(self.device)
-            for uid, s in self._executor.tlu_specs.items()}
+            for uid, s in specs_by_uid.items()}
 
     def run(self, *args, evaluation_keys) -> tuple:
-        """Run the circuit; returns the output ciphertexts as u64 arrays.
+        """Run the circuit; returns the output ciphertexts as u64 arrays
+        (a clear output as a trivial ciphertext).  Clear arguments are
+        numpy arrays, Python integers or CPU tensors.
 
         evaluation_keys: the client's ``EvaluationKeys`` (packed here with
         this circuit's BSK form and truncation) or an already packed
@@ -66,7 +70,8 @@ class Server:
                              f"argument(s), got {len(args)}")
         enc_inputs = {
             pos: to_torus(arg, self.device) if spec.is_encrypted
-            else np.asarray(arg)
+            else (arg.numpy() if isinstance(arg, torch.Tensor)
+                  else np.asarray(arg))
             for pos, (arg, spec) in enumerate(zip(args,
                                                   self.client_specs.inputs))}
         outs = self._executor.run(enc_inputs, ksk, bsk, self._lut_polys)
@@ -76,12 +81,15 @@ class Server:
 
     def save(self, path: str) -> None:
         """Save a deployment archive (graph + specs) in the JAX package's
-        format: univariate nodes are materialized into explicit tables
-        first, so the archive holds no Python callables."""
+        format: univariate and multivariate nodes are materialized into
+        explicit tables (a multivariate node with its packed layout) first,
+        so the archive holds no Python callables."""
         import networkx as nx
-        from concrete_tpu_torch.compilation.executor import raw_table
+        from concrete_tpu_torch.compilation.executor import (
+            multivariate_raw_table, packed_layout, raw_table)
         from concrete_tpu_torch.compilation.graph_io import serialize_graph
-        from concrete_tpu_torch.compilation.widths import encoding_width
+        from concrete_tpu_torch.compilation.widths import (encoding_width,
+                                                           packed_width)
         p = self.client_specs.message_bits
         mapping = {}
         for node in self.graph.graph.nodes:
@@ -90,6 +98,13 @@ class Server:
                 p_in = encoding_width(preds[0], p) if preds else p
                 mapping[node] = node.materialized_as_tlu(
                     raw_table(node, p_in))
+            elif node.name == "multivariate" \
+                    and "table" not in node.properties["kwargs"]:
+                p_in = packed_width(self.graph, node)
+                mins, widths, offsets = packed_layout(self.graph, node)
+                mapping[node] = node.materialized_as_multivariate(
+                    multivariate_raw_table(self.graph, node, p_in),
+                    mins, widths, offsets)
         g2 = nx.relabel_nodes(self.graph.graph, mapping, copy=True) \
             if mapping else self.graph.graph
         graph2 = Graph(
@@ -135,6 +150,8 @@ class Server:
             if s is not None:
                 kind = f"keyswitch+pbs(p={s.message_bits}" \
                     + (", signed" if s.signed_input else "") + ")"
+            elif node.uid in self._executor.multivariate_specs:
+                kind = "packed multivariate keyswitch+pbs"
             lines.append(f"%{node.uid} = {kind} : eint{w}"
                          f"{list(node.output.shape)}")
         return "\n".join(lines)
@@ -143,7 +160,8 @@ class Server:
     def complexity(self) -> float:
         """Estimated cost in the search's modeled int8 MACs (the JAX
         package's cost model, ``optimizer/v0.py``): one keyswitch and one
-        blind rotate per table-lookup element."""
+        blind rotate per element of every encrypted lookup, dynamic and
+        multivariate ones included."""
         from concrete_tpu_torch.optimizer.v0 import (cost_ks_macs,
                                                      cost_pbs_macs)
         p = self.client_specs.params
@@ -154,7 +172,9 @@ class Server:
                                  p.ks_base_log))
         return float(sum(max(int(np.prod(n.output.shape)), 1) * atomic
                          for n in self.graph.graph.nodes
-                         if n.uid in self._executor.tlu_specs))
+                         if n.name in ("tlu", "univariate", "multivariate",
+                                       "dynamic_tlu")
+                         and n.output.is_encrypted))
 
     def programmable_bootstrap_count(self) -> int:
         """PBS count from the statistics grid (one source of truth with

@@ -121,18 +121,21 @@ def monomial_mul_batch(polys: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 def encode_expand_lut(table_vals: torch.Tensor, poly_size: int,
                       message_bits: int, out_bits: int,
                       signed: bool = False) -> torch.Tensor:
-    """refimpl.encode_expand_lut on a tensor of raw table entries (wrapped
-    mod 2^(out_bits+1)): the (N,) accumulator polynomial of a lookup."""
+    """refimpl.encode_expand_lut on a tensor of raw table entries (..., 2^p),
+    wrapped mod 2^(out_bits+1), on the tensor's device: the (..., N)
+    accumulator polynomials of a lookup (the counterpart of the JAX
+    package's ``encode_expand_lut_jnp``, which dynamic table lookups run)."""
     lut = table_vals.to(torch.int64) & ((1 << (out_bits + 1)) - 1)
     assert lut.shape[-1] == 1 << message_bits
     if signed:
         half = lut.shape[-1] // 2
-        lut = torch.cat([lut[half:], lut[:half]])
+        lut = torch.cat([lut[..., half:], lut[..., :half]], dim=-1)
     scaled = lut << (_Q_LOG - out_bits - 1)
     mega = poly_size // lut.shape[-1]
-    naive = torch.repeat_interleave(scaled, mega)
-    ext = torch.cat([naive, -naive])                    # negacyclic ext
-    return torch.roll(ext, 2 * poly_size - mega // 2)[:poly_size]
+    naive = torch.repeat_interleave(scaled, mega, dim=-1)
+    ext = torch.cat([naive, -naive], dim=-1)            # negacyclic ext
+    return torch.roll(ext, 2 * poly_size - mega // 2,
+                      dims=-1)[..., :poly_size]
 
 
 # ---------------------------------------------------------------------------

@@ -412,24 +412,21 @@ def test_default_device_is_cuda():
 
 
 def test_unported_operations_raise(tmp_path):
-    """An unported node kind raises ROADMAP item 6 when the port's Server
-    is built: from the JAX package's archive, and when the port compiles
-    the same function (its Circuit builds the Server)."""
-    def total(x):
-        return np.sum(x)
+    """An unported node kind raises its ROADMAP item when the port's Server
+    is built: a JAX-package archive whose graph holds ``extract_bits``
+    (``fhe.bits``, which lowers to bit extraction: item 7), before any key
+    is read."""
+    def bit1(x):
+        return fhe.bits(x)[1]
 
-    inputset = [np.arange(4) % 4, np.arange(4) % 3]
-    circuit = fhe.compiler({"x": "encrypted"})(total).compile(
-        inputset, fhe.Configuration(forced_parameters=TEST_PARAMS_TINY))
-    path = str(tmp_path / "sum.zip")
+    circuit = fhe.compiler({"x": "encrypted"})(bit1).compile(
+        range(8), fhe.Configuration(forced_parameters=TEST_PARAMS_TINY))
+    assert "extract_bits" in {n.name for n in circuit.graph.graph.nodes}
+    path = str(tmp_path / "bits.zip")
     circuit.server.save(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
         tfhe.Server.load(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        tfhe.compiler({"x": "encrypted"})(total).compile(
-            inputset, tfhe.Configuration(
-                forced_parameters=_tparams(TEST_PARAMS_TINY)),
-            device="cpu")
+    assert not hasattr(tfhe, "bits")
 
 
 def test_port_imports_no_jax():
@@ -442,7 +439,17 @@ def test_port_imports_no_jax():
             "concrete_tpu_torch.extensions, "
             "concrete_tpu_torch.compilation.compiler, "
             "concrete_tpu_torch.compilation.circuit, "
-            "concrete_tpu_torch.compilation.multi, concrete_tpu_torch.models; "
+            "concrete_tpu_torch.compilation.multi, concrete_tpu_torch.models, "
+            "concrete_tpu_torch.extensions.basics, "
+            "concrete_tpu_torch.extensions.array_ops, "
+            "concrete_tpu_torch.extensions.control, "
+            "concrete_tpu_torch.extensions.convolution, "
+            "concrete_tpu_torch.extensions.tracing_ops, "
+            "concrete_tpu_torch.models.game_of_life, "
+            "concrete_tpu_torch.models.levenshtein, "
+            "concrete_tpu_torch.models.kvdb, "
+            "concrete_tpu_torch.models.xor_distance, "
+            "concrete_tpu_torch.models.pir; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'concrete_tpu' or m.startswith('concrete_tpu.')]"
             "; print(bad); sys.exit(1 if bad else 0)")

@@ -1,0 +1,53 @@
+#!/usr/bin/env python3
+"""Run some phases of ``chip_smoke.py`` alone on one NVIDIA GPU.
+
+    python3 tools/smoke_phases.py [models] [kinds]
+
+Builds the port's kernels from ``concrete_tpu_torch/csrc``, then runs the
+named phases of the smoke (``models``: the five model circuits and the
+2-key database against the CPU; ``kinds``: the node-kinds circuits; both
+when none is named), each as the whole smoke runs it, with its checks.
+It prints no kernel line and no result line, so it proves nothing about
+the rest of the smoke.  Writes chiprun_out/smoke_phases.json.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+import chip_smoke as cs  # noqa: E402  (the phases and their checks)
+
+PHASES = {"models": cs.models_phase, "kinds": cs.kinds_phase}
+
+
+def main() -> None:
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is false: these phases need a GPU")
+    names = sys.argv[1:] or list(PHASES)
+    if not set(names) <= set(PHASES):
+        cs.fail(f"unknown phases {sorted(set(names) - set(PHASES))}: give "
+                f"any of {sorted(PHASES)}")
+    from concrete_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(cs.SEED)
+    rec = {"card": cs.card()}
+    print(f"card: {rec['card']}", flush=True)
+    for name in names:
+        rec[name] = PHASES[name](rng)
+    os.makedirs(cs.OUT_DIR, exist_ok=True)
+    with open(os.path.join(cs.OUT_DIR, "smoke_phases.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    print(f"phases {names}: passed", flush=True)
+
+
+if __name__ == "__main__":
+    main()
