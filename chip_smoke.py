@@ -63,7 +63,18 @@
    far below 2^31, and the pack of a truncated key at N = 1024 .. 16384;
    the NTT kernels' operations bounds count the instructions nvcc
    emitted, per pipe, from the SASS of the probes in
-   ``csrc/op_probes.cu``;
+   ``csrc/op_probes.cu``; then the CRT-NTT blind rotate at B <= 4 in one
+   launch (``blind_rotate_fused_latency``, one cluster per ciphertext) at
+   the three model lookups' shapes (Levenshtein's N=1024, k+1 = 3, l = 2, 3
+   primes; the 16-key database's N=2048, l = 1, 3 primes, 7 bits truncated;
+   the 2-key database's l = 2, 2 primes, 27 bits), at B = 1 and 4 in both
+   accumulator modes over a few steps against its plain version and the
+   three-kernel loop on the card, then over a whole lookup's steps against
+   the loop (Levenshtein's B = 1 also against the plain version), timed
+   beside the loop and beside variant builds without the key rows, without
+   the spectra's exchange, without the transforms and without the Garner;
+   the MLP's shape, which its rule refuses; and kernels 1, 3 and 4 timed at
+   Levenshtein's B = 1 shape;
 5. serves the committed ``mlp_q2_b64.zip`` archive (the repo's benchmark
    QuantizedMLP over 64 samples, 128-bit parameters, N=4096, 256 lookups
    per request): ``Server.load`` on CUDA, ``Client.keygen`` from a seed,
@@ -108,10 +119,12 @@
    ciphertexts must equal those of ``Server.load`` on the model's own
    saved archive, and whose launches must be those of the blind-rotate
    form each lookup node takes (printed: persistent kernel, step loop,
-   banded scan or fused); one request traced (device busy, idle share,
-   launches); every kernel call of the same requests on the archive-
-   loaded ``Server``, at each shape, held bit-exact to its plain version
-   on the card on the same inputs (the key packs' too);
+   banded scan, fused persistent kernel (one launch of
+   ``blind_rotate_fused_latency`` a lookup node run: Levenshtein's and
+   both databases') or fused loop); one request traced (device busy,
+   idle share, launches); every kernel call of the same requests on the
+   archive-loaded ``Server``, at each shape, held bit-exact to its plain
+   version on the card on the same inputs (the key packs' too);
    StaticKeyValueDatabase over 2 keys (0 and 30: the 16-key database's
    N=2048 fused key, truncated) also against the same run on CPU copies
    of the keys; and PrivateInformationRetrieval at 64 rows, whose row
@@ -173,6 +186,21 @@ FUSED_KERNELS = ("rotate_decompose_digits", "crt_external_product",
                  "garner_accumulate")
 LATENCY_KERNELS = ("rotate_decompose_digits", "banded_matmul_latency",
                    "recombine_accumulate")
+FUSED_LATENCY = "blind_rotate_fused_latency"
+#: the models' CRT-NTT lookups, as the port compiles them at the default
+#: Configuration(): (N, k+1, l, base_log, primes, truncated bits, n_small)
+#: of LevenshteinDistance(8, 8, 2), StaticKeyValueDatabase over 16 keys
+#: and over keys 0 and 30; and the MLP archive's, which the rule of
+#: ops/fused_latency.py refuses (its key ring of two steps is 256 KB)
+FUSED_LATENCY_SHAPES = {"levenshtein": (1024, 3, 2, 11, 3, 0, 718),
+                        "kvdb_16": (2048, 2, 1, 21, 3, 7, 758),
+                        "kvdb_2": (2048, 2, 2, 9, 2, 27, 758)}
+MLP_FUSED_SHAPE = (4096, 2, 2, 8, 3, 0, 822)
+#: variant builds of the B <= 4 CRT-NTT kernel, each without one part
+FUSED_LATENCY_VARIANTS = {"no key rows": "ABLATE_NO_KEY",
+                          "own spectra only": "ABLATE_LOCAL_SPECTRA",
+                          "no transforms": "ABLATE_NO_TRANSFORMS",
+                          "no Garner": "ABLATE_NO_GARNER"}
 #: the models phase: two requests of each model, at the sizes below
 MODEL_REQUESTS = 2
 GOL_SIZE = (16, 16)
@@ -1192,13 +1220,15 @@ def lookup_forms(circuit, bsk) -> dict:
     the blind-rotate form that core.kernels.blind_rotate takes for its
     batch and key (the persistent kernel where ops/latency.plan takes the
     shape, else the step loop, at B <= LATENCY_BATCH_MAX; the banded scan
-    above; the CRT-NTT scan for a fused key) and the port launches a run of
-    the node makes there."""
+    above; for a fused key, the CRT-NTT kernel of ops/fused_latency.py
+    where its plan takes the shape at B <= LATENCY_BATCH_MAX, else the
+    CRT-NTT loop) and the port launches a run of the node makes there."""
     import numpy as np
     from concrete_tpu_torch.core import kernels as kn
     from concrete_tpu_torch.core import limbs as lb
+    from concrete_tpu_torch.ops import fused_latency as fl
     from concrete_tpu_torch.ops import latency as lat
-    from concrete_tpu_torch.ops.fused_ntt import FusedBSK
+    from concrete_tpu_torch.ops.fused_ntt import FusedBSK, acc32_eligible
     p = circuit.client_specs.params
     steps = p.n_small
     forms = {}
@@ -1207,7 +1237,17 @@ def lookup_forms(circuit, bsk) -> dict:
             continue
         batch = max(int(np.prod(node.output.shape)), 1)
         if isinstance(bsk, FusedBSK):
-            form, launches = "fused", dict.fromkeys(FUSED_KERNELS, steps)
+            plan = fl.plan(batch, p.polynomial_size, p.glwe_dimension + 1,
+                           bsk.levels, len(bsk.primes),
+                           acc32_eligible(bsk)) \
+                if batch <= kn.LATENCY_BATCH_MAX else None
+            if plan is None:
+                form = "fused loop"
+                launches = dict.fromkeys(FUSED_KERNELS, steps)
+            else:
+                form = f"fused persistent kernel (cluster of " \
+                    f"{plan.cluster})"
+                launches = {fl.NAME: 1}
         elif batch > kn.LATENCY_BATCH_MAX:
             form = f"banded scan ({kn.BANDED_MM_MODE})"
             launches = {"rotate_decompose": steps,
@@ -1323,6 +1363,7 @@ def kernel_wrappers() -> dict:
     takes its wrapper's arguments."""
     from concrete_tpu_torch.ops import banded_mm as bm
     from concrete_tpu_torch.ops import external_product as xp
+    from concrete_tpu_torch.ops import fused_latency as fl
     from concrete_tpu_torch.ops import fused_ntt as fn
     from concrete_tpu_torch.ops import latency as lat
     from concrete_tpu_torch.ops import ntt as tn
@@ -1334,7 +1375,8 @@ def kernel_wrappers() -> dict:
                 (xp, "external_product_accumulate"), (bm, "banded_matmul"),
                 (bm, "banded_matmul_latency"), (rc, "recombine_accumulate"),
                 (lat, "blind_rotate_latency"), (fn, "crt_external_product"),
-                (fn, "garner_accumulate"), (tn, "ntt_forward_pack"))}
+                (fn, "garner_accumulate"), (tn, "ntt_forward_pack"),
+                (fl, FUSED_LATENCY))}
 
 
 class same_inputs:
@@ -2065,6 +2107,244 @@ def check_fused_steps(rng, *, batch, n, levels, base_log, primes,
     return recs
 
 
+def fused_latency_args(a_t, acc, fbsk, *, primes, trunc_bits, base_log,
+                       levels):
+    """The C arguments of blind_rotate_fused_latency (and of its variant
+    builds) for these operands, as ops/fused_latency.py passes them."""
+    import torch
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.ops import fused_ntt as fn
+    from concrete_tpu_torch.ops import ntt as tn
+    batch, kp1, n = acc.shape
+    keep = (tn.pair_tables(n, primes, acc.device),
+            tn.prime_constants(n, primes, acc.device),
+            fn.garner_constants(primes, trunc_bits, acc.device))
+    return keep, (a_t.data_ptr(), acc.data_ptr(), fbsk.spec_val.data_ptr(),
+                  fbsk.spec_sh.data_ptr(), *(t.data_ptr() for t in keep),
+                  batch, a_t.shape[1], kp1, levels, base_log, len(primes),
+                  n.bit_length() - 1, trunc_bits,
+                  int(acc.dtype == torch.int32), _build.stream_of(acc))
+
+
+FUSED_LATENCY_PHASES = ("digits, forward transforms, spectra stored",
+                        "spectra barrier", "key wait", "multiply-add",
+                        "inverse, residues stored", "residues barrier",
+                        "Garner")
+
+
+def fused_latency_clocks(out_dir: str, proc):
+    """The instrumented build (PHASE_CLOCKS) of the B <= 4 CRT-NTT kernel:
+    (its entry point bound as the port binds it, a function that returns
+    and zeroes its clocks per phase)."""
+    import ctypes
+    from concrete_tpu_torch.ops import _build
+    fn_v, _ = load_variant(out_dir, "fl_clocks", proc, FUSED_LATENCY)
+    lib = ctypes.CDLL(os.path.join(out_dir, "fl_clocks.so"))
+
+    def clocks():
+        out = (ctypes.c_ulonglong * 8)()
+        _build.check("phase clocks",
+                     lib.blind_rotate_fused_latency_phases(out))
+        return list(out)
+    return fn_v, clocks
+
+
+def fused_latency_builds(out_dir: str):
+    """Start nvcc on the B <= 4 CRT-NTT kernel without each of its parts
+    (FUSED_LATENCY_VARIANTS) and on its PHASE_CLOCKS build, into out_dir;
+    the returned function waits for them and gives fused_latency_phase's
+    (variants, clocks)."""
+    src = ("blind_rotate_fused_latency.cu",)
+    procs = {label: build_variant(out_dir, src, f"fl_{i}", [switch])
+             for i, (label, switch) in enumerate(
+                 FUSED_LATENCY_VARIANTS.items())}
+    clocks_proc = build_variant(out_dir, src, "fl_clocks", ["PHASE_CLOCKS"])
+
+    def load():
+        variants = {label: load_variant(out_dir, f"fl_{i}", proc,
+                                        FUSED_LATENCY)[0]
+                    for i, (label, proc) in enumerate(procs.items())}
+        return variants, fused_latency_clocks(out_dir, clocks_proc)
+    return load
+
+
+def check_fused_latency(rng, *, batch, n, kp1, levels, base_log, n_primes,
+                        trunc_bits, acc32, n_small, plain=True, loop=True,
+                        timed=False, clock=None, mix=None, variants=None,
+                        clocks=None):
+    """The CRT-NTT blind rotate at B <= 4 in one launch
+    (ops/fused_latency.py) against its plain version (`plain`: the
+    three-kernel scan on the plain versions of kernels 1, 3 and 4) and
+    against the three-kernel loop on the card (`loop`), on random switched
+    masks and accumulators and a random key packed on the card, truncated
+    by `trunc_bits` (at least what the primes' range needs).  Timed: ms per
+    lookup (n_small steps) beside the loop's and the plain version's (the
+    check's own call), and each variant build's in `variants` (label ->
+    its C entry point, the same arguments); with `clocks`
+    (fused_latency_clocks), the clocks of each part of a step in block 0
+    of the first cluster; the bound: the key's spectra
+    and companions read once (the B clusters read one key) and the
+    accumulator in and out, against the transforms', multiply-adds' (per
+    pipe, from the probes' SASS), digits' and Garner's instructions."""
+    import math
+    import numpy as np
+    import torch
+    from concrete_tpu_torch.core import ntt as host
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.ops import fused_latency as fl
+    from concrete_tpu_torch.ops import fused_ntt as fn
+    primes = host.special_ntt_primes(n, 128)[:n_primes]
+    params = fused_params(n, levels, base_log, n_small, kp1)
+    t_min = max(0, host.required_bits(params, 0)
+                - (math.prod(primes).bit_length() - 1))
+    shape = (f"B={batch} N={n} k+1={kp1} l={levels} base_log={base_log} "
+             f"P={n_primes} t={trunc_bits} steps={n_small} "
+             f"{'acc32' if acc32 else 'full'}")
+    if trunc_bits < t_min:
+        fail(f"{shape}: {n_primes} primes need t >= {t_min}")
+    bsk = rng.integers(0, 1 << 64, (n_small, levels, kp1, kp1, n),
+                       dtype=np.uint64)
+    fbsk = fn.pack_bsk_fused(bsk, params, primes=primes,
+                             trunc_bits=trunc_bits, device="cuda")
+    del bsk
+    a_t = torch.from_numpy(rng.integers(0, 2 * n, (batch, n_small))
+                           .astype(np.int32)).cuda()
+    if acc32:
+        acc = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31,
+                                            (batch, kp1, n))
+                               .astype(np.int32)).cuda()
+    else:
+        acc = rand_torus(rng, (batch, kp1, n), "cuda")
+    kw = dict(primes=primes, trunc_bits=trunc_bits, base_log=base_log,
+              levels=levels)
+    got = fl.blind_rotate_fused_latency(a_t, acc.clone(), fbsk.spec_val,
+                                        fbsk.spec_sh, **kw)
+    rec = {}
+    if plain:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = fl.blind_rotate_fused_latency_plain(
+            a_t, acc, fbsk.spec_val, fbsk.spec_sh, **kw)
+        end.record()
+        end.synchronize()
+        if not torch.equal(got, want):
+            fail(f"{FUSED_LATENCY} differs from its plain version at "
+                 f"{shape}")
+        rec.update(max_abs_err=max_abs_err(got, want),
+                   plain_ms=start.elapsed_time(end))
+    if loop:
+        steps = fn.scan_steps(a_t, acc.clone(), fbsk)
+        torch.cuda.synchronize()
+        if not torch.equal(got, steps):
+            fail(f"{FUSED_LATENCY} differs from the three-kernel loop on "
+                 f"the card at {shape}")
+        rec.setdefault("max_abs_err", max_abs_err(got, steps))
+    if timed:
+        pl = fl.plan(batch, n, kp1, levels, n_primes, acc32)
+        scratch = acc.clone()     # updated in place by every timed call
+        rec["ms"] = cuda_ms(lambda: fl.blind_rotate_fused_latency(
+            a_t, scratch, fbsk.spec_val, fbsk.spec_sh, **kw), 5)
+        if loop:
+            rec["loop_ms"] = cuda_ms(lambda: fn.scan_steps(a_t, scratch,
+                                                           fbsk), 2)
+        keep, args = fused_latency_args(a_t, scratch, fbsk, **kw)
+        rec["variants_ms"] = {}
+        for label, fn_v in (variants or {}).items():
+            def call(fn_v=fn_v, label=label):
+                _build.check(label, fn_v(*args))
+            rec["variants_ms"][label] = cuda_ms(call, 5)
+        if clocks:
+            fn_c, read = clocks
+            read()
+            _build.check("phase clocks", fn_c(*args))
+            torch.cuda.synchronize()
+            rec["clocks_per_step"] = dict(zip(
+                FUSED_LATENCY_PHASES,
+                (c / n_small for c in read()[1:8])))
+        cin = levels * kp1
+        per = batch * n_small * n_primes
+        work = {**ntt_work(per * cin, n), **ntt_work(per * kp1, n, True),
+                "mul_add": per * cin * kp1 * n,
+                # kernel 1's digits and kernel 4's Garner, as their tallies
+                "tally": batch * n_small * kp1 * n * (
+                    10 + 6 * levels + n_primes * OPS_GARNER_PRIME
+                    + OPS_GARNER)}
+        ops_ms, detail = pipe_ms(work, {**mix, "tally": {"alu": 1.0}}, clock)
+        nbytes = 8 * fbsk.spec_val.numel() + a_t.numel() * 4 \
+            + 2 * acc.numel() * acc.element_size()
+        rec.update(bound(ops_ms, nbytes, work=work, **detail),
+                   library_ms=None, cluster=pl.cluster, threads=pl.threads,
+                   smem=pl.smem)
+    against = [what for what, on in (
+        ("its plain version", plain),
+        ("the three-kernel loop on the card", loop)) if on]
+    print(f"{FUSED_LATENCY} bit-exact (against {' and '.join(against)}) at "
+          f"{shape}: {rec}", flush=True)
+    return rec
+
+
+def fused_latency_phase(rng, clock, mix, variants, clocks):
+    """The CRT-NTT blind rotate at B <= 4 in one launch: at each model
+    shape of FUSED_LATENCY_SHAPES, B = 1 and 4 in both accumulator modes
+    over a few steps (an odd and an even count) against its plain version
+    and the three-kernel loop; then over the whole lookup's n_small steps
+    at B = 1 (Levenshtein's also against its plain version, and at B = 4)
+    against the loop, timed with the variant builds and counted by the
+    instrumented one (`clocks`, fused_latency_clocks); the MLP's shape
+    refused by the rule.  Kernels 1, 3 and 4 are timed at Levenshtein's
+    B = 1 shape for the loop's share."""
+    from concrete_tpu_torch.core import ntt as host
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.ops import fused_latency as fl
+    recs = {}
+    for name, (n, kp1, levels, base_log, n_p, t, n_small) in \
+            FUSED_LATENCY_SHAPES.items():
+        kw = dict(n=n, kp1=kp1, levels=levels, base_log=base_log,
+                  n_primes=n_p, trunc_bits=t)
+        for batch, steps in ((1, 5), (4, 4)):
+            for acc32 in (True, False):
+                check_fused_latency(rng, batch=batch, acc32=acc32,
+                                    n_small=steps, **kw)
+        recs[name] = check_fused_latency(
+            rng, batch=1, acc32=True, n_small=n_small,
+            plain=name == "levenshtein", timed=True, clock=clock, mix=mix,
+            variants=variants, clocks=clocks, **kw)
+    n, kp1, levels, base_log, n_p, t, n_small = \
+        FUSED_LATENCY_SHAPES["levenshtein"]
+    recs["levenshtein_b4"] = check_fused_latency(
+        rng, batch=4, n=n, kp1=kp1, levels=levels, base_log=base_log,
+        n_primes=n_p, trunc_bits=t, acc32=True, n_small=n_small,
+        plain=False, timed=True, clock=clock, mix=mix, variants=variants,
+        clocks=clocks)
+    recs["loop_kernels_b1"] = check_fused_steps(
+        rng, batch=1, n=n, levels=levels, base_log=base_log,
+        primes=host.special_ntt_primes(n, 128)[:n_p], trunc_bits=t,
+        acc32=True, steps=3, kp1=kp1, clock=clock, mix=mix, timed=True)
+    n, kp1, levels, base_log, n_p, t, n_small = MLP_FUSED_SHAPE
+    if fl.plan(1, n, kp1, levels, n_p, True) is not None:
+        fail("the rule of ops/fused_latency.py takes the MLP's shape; "
+             "check it on the card")
+    print(f"{FUSED_LATENCY}: the rule refuses the MLP's shape (N={n}, "
+          f"k+1={kp1}, l={levels}, {n_p} primes): its key ring of two steps "
+          f"is {2 * 2 * levels * kp1 * n * 4} bytes", flush=True)
+    recs["ptxas"] = [line for line in ptxas_summary(_build.BUILD_INFO["log"])
+                     if FUSED_LATENCY in line]
+    for name in ("levenshtein", "levenshtein_b4", "kvdb_16", "kvdb_2"):
+        r = recs[name]
+        print(f"{FUSED_LATENCY} per lookup at {name}: {r['ms']:.4f} ms "
+              f"(cluster of {r['cluster']}, {r['threads']} + 32 threads, "
+              f"{r['smem']} bytes of shared memory), the three-kernel loop "
+              f"{r['loop_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), without each part "
+              f"{ {k: round(v, 4) for k, v in r['variants_ms'].items()} }; "
+              f"clocks a step by part "
+              f"{ {k: round(v) for k, v in r['clocks_per_step'].items()} }",
+              flush=True)
+    print(f"{FUSED_LATENCY} ptxas: {recs['ptxas']}", flush=True)
+    return recs
+
+
 NTT_EDGES = [-(1 << 63), (1 << 63) - 1, -1, 0, 1, -(1 << 32), (1 << 32) - 1,
              1 << 32]
 
@@ -2373,6 +2653,8 @@ def main() -> None:
     var_procs = {"no MMA": build_variant(
         var_dir, ("blind_rotate_latency.cu",), "br_no_mma",
         ["ABLATE_NO_MMA"])}
+    # ... and the B <= 4 CRT-NTT kernel's variants
+    fl_builds = fused_latency_builds(var_dir)
     t0 = time.perf_counter()
     _build.library()
     per_source = {k: round(v, 1)
@@ -2608,6 +2890,10 @@ def main() -> None:
                        primes=host.special_ntt_primes(n, 128)[:3],
                        trunc_bits=9)
 
+    # the CRT-NTT blind rotate at B <= 4 in one launch, at the models'
+    # shapes
+    rec_fl = fused_latency_phase(rng, clock, mix, *fl_builds())
+
     step_ms = sum(rec_f[name]["ms"] for name in FUSED_KERNELS)
     est_s = (REQUESTS + 2 * DIRECT_LOOKUPS / 256) * 822 * step_ms / 1e3
     print(f"MLP serve and direct lookups estimate from the kernel times: "
@@ -2704,6 +2990,14 @@ def main() -> None:
                      "explicit-CRT Garner and accumulate, :622)",
          "launches": mlp["launches"].get("garner_accumulate", 0),
          **{k: rec_f["garner_accumulate"][k] for k in fields}},
+        {"name": FUSED_LATENCY, "route": "cuda",
+         "source": "concrete_tpu_torch/csrc/blind_rotate_fused_latency.cu",
+         "replaces": "concrete_tpu/ops/pallas_fused_ntt.py:1223 "
+                     "blind_rotate_fused at B <= 4 (pallas_call :1299), "
+                     "with pallas_step.py:322 rotate_decompose_digits in "
+                     "its body",
+         "launches": 0,       # its path is the models phase's requests
+         **{k: rec_fl["levenshtein"][k] for k in fields}},
     ]
     for k in kernels:
         # the models phase drives the port's entry points too
@@ -2739,7 +3033,7 @@ def main() -> None:
                               "recombine_accumulate": rec_rc,
                               "ntt_forward_pack": rec_pack,
                               "ntt_forward": rec_ntt, "ntt_inverse": rec_inv,
-                              **rec_f},
+                              **rec_f, FUSED_LATENCY: rec_fl},
                    "build_s": _build.BUILD_INFO["seconds"],
                    "build_source_s": _build.BUILD_INFO["source_seconds"]},
                   f, indent=1)

@@ -6,14 +6,17 @@ holds them to it.  Torus values are int64 tensors (mod 2^64 wrap, logical
 right shifts through ``limbs.srl``); shapes use B = batch, n = small LWE dim,
 k = GLWE dim, N = poly size, l = decomposition levels.
 
-The blind rotate dispatches as the JAX package does.  A ``FusedBSK`` runs
-``ops.fused_ntt.blind_rotate_fused`` (a host loop of three kernels per
-step: digits, CRT-NTT external product, Garner).  A banded ``LimbBSK`` at
-a batch of at most ``LATENCY_BATCH_MAX`` runs ``_blind_rotate_latency``:
-on the card one launch of ``ops.latency``'s persistent kernel for every
-step, at the shapes its rule takes.  Above that batch, a host loop whose
-step runs ``ops.step.rotate_decompose`` (X^a * acc - acc, gadget digits,
-int8 limbs) and then the product selected by ``BANDED_MM_MODE``:
+The blind rotate dispatches as the JAX package does.  A ``FusedBSK`` at a
+batch of at most ``LATENCY_BATCH_MAX`` runs ``ops.fused_latency``'s
+kernel, on the card one launch for all n_small steps, at the shapes its
+rule takes; at any other, the CRT-NTT loop ``ops.fused_ntt.scan_steps`` (a
+host loop of three kernels per step: digits, CRT-NTT external product,
+Garner); ``ops.fused_ntt.blind_rotate_fused`` chooses.  A banded
+``LimbBSK`` at a batch of at most ``LATENCY_BATCH_MAX`` runs
+``_blind_rotate_latency``: on the card one launch of ``ops.latency``'s
+persistent kernel for all n_small steps, at the shapes its rule takes.
+Above that batch, a host loop whose step runs ``ops.step.rotate_decompose``
+(X^a * acc - acc, gadget digits, int8 limbs) and then the product selected by ``BANDED_MM_MODE``:
 
 - ``"auto"``, ``"fusedrecombine"``: ``ops.external_product``'s kernel B,
   the product shift-added into acc in place;
@@ -269,9 +272,12 @@ def blind_rotate(ct_small: torch.Tensor, bsk, lut_poly: torch.Tensor,
                  params: CryptoParams) -> torch.Tensor:
     """Batched blind rotation: (B, n+1) ct, (N,) or (B, N) LUT ->
     accumulator (B, k+1, N), dispatched as in the JAX package: a
-    ``FusedBSK`` runs the CRT-NTT scan (``ops.fused_ntt.blind_rotate_fused``)
-    at any batch; a ``LimbBSK`` runs ``_blind_rotate_latency`` at
-    B <= ``LATENCY_BATCH_MAX``, else the banded scan in ``BANDED_MM_MODE``.
+    ``FusedBSK`` runs the CRT-NTT scan at any batch, at B <=
+    ``LATENCY_BATCH_MAX`` in one launch of ``ops.fused_latency``'s kernel
+    where its rule (``ops.fused_latency.plan``) takes the shape, else in
+    ``ops.fused_ntt.scan_steps``'s loop (``blind_rotate_fused``
+    chooses); a ``LimbBSK`` runs ``_blind_rotate_latency`` at B <=
+    ``LATENCY_BATCH_MAX``, else the banded scan in ``BANDED_MM_MODE``.
 
     Banded, per step i: acc += recombine(Decomp(X^{a_i} acc - acc) (.)
     BSK_i), the kept limb planes shifted by 8*(s + truncate_limbs).  The

@@ -73,6 +73,7 @@
 #include <cuda_runtime.h>
 
 #include "banded_latency.cuh"
+#include "tma_ring.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -104,38 +105,13 @@ struct BrShape {
 using banded::mbar_arrive;
 using banded::mbar_init;
 using banded::mbar_wait;
-
-// Arrives on `bar`, which then also waits for `bytes` of async copies.
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// One bulk copy (TMA) of `bytes` (a multiple of 16, from a 16-byte
-// aligned source) into this block's shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
+using tma::bulk_copy;
+using tma::cluster_barrier;
+using tma::mbar_arrive_tx;
 
 // A barrier of the 16 computing warps (the producer warp not in it).
 __device__ __forceinline__ void compute_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(BR_THREADS) : "memory");
-}
-
-// Every block's shared-memory writes before it, visible to every block's
-// reads after it.
-__device__ __forceinline__ void cluster_barrier() {
-#ifdef ABLATE_RELAXED_ARRIVE
-  // (no release: times the fence the release adds)
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-#else
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-#endif
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 #ifdef PHASE_CLOCKS

@@ -7,20 +7,9 @@
 // accumulator update :1121-1142).  The TPU emulates every 64-bit step with
 // u32 pairs; here it is native u64 arithmetic.
 //
-// From the residues r_i = z mod p_i of the signed exact product z
-// (|z| <= P/4, P = prod p_i, H = (P - 1) / 2, M_i = P / p_i):
-//   c_i = (r_i + H) M_i^-1 mod p_i            (a Shoup multiply and an add)
-//   k   = floor(sum_i c_i / p_i)              (double precision, see below)
-//   w   = sum_i c_i M_i - k P  (mod 2^64)     = z + H exactly, in [0, P)
-// and then, with t the BSK truncation shift:
-//   full mode:  acc (u64)  += (w - H) << t = z << t            (mod 2^64)
-//   acc32 mode: acc (u32)  += top32((w << t) mod 2^64) - top32(H << t)
-// the second being the JAX package's hi-only accumulator semantics
-// (pallas_fused_ntt.py:666-674, blind_rotate_acc32_oracle :1171-1220).
-//
-// k is exact: sum_i c_i / p_i = w / P + k lies at least 1/4 from every
-// integer because w = z + H is within P/4 of P/2; each term's double
-// rounding errs by under 2^-52 of it, far inside that margin.
+// The arithmetic per coefficient (the explicit CRT, exact, and the two
+// modes' updates) is in csrc/garner.cuh, which the B <= 4 CRT-NTT blind
+// rotate (csrc/blind_rotate_fused_latency.cu) shares.
 //
 // Bound: bytes.  Per coefficient it reads P u32 residues and reads and
 // writes the accumulator (8 or 4 bytes), with a few dozen integer
@@ -32,13 +21,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "ntt.cuh"
+#include "garner.cuh"
 
 namespace {
 
-// per prime: p, inv, inv_sh, hinv, m64, bits of (double) 1/p; then
-// P mod 2^64, H mod 2^64, top32((H << t) mod 2^64)
-constexpr int PER_PRIME = 6;
+using garner::PER_PRIME;
 
 template <bool ACC32>
 __global__ void garner_accumulate_kernel(
@@ -52,24 +39,16 @@ __global__ void garner_accumulate_kernel(
        e < elems; e += (long long)gridDim.x * blockDim.x) {
     unsigned long long w = 0;
     double frac = 0.0;
-    for (int i = 0; i < n_primes; ++i) {
-      const unsigned long long* c = cst + PER_PRIME * i;
-      const uint32_t p = (uint32_t)__ldg(c);
-      const uint32_t r = res[(size_t)i * elems + e];
-      const uint32_t ci = ntt::add_mod(
-          ntt::shoup_mul(r, (uint32_t)__ldg(c + 1), (uint32_t)__ldg(c + 2),
-                         p),
-          (uint32_t)__ldg(c + 3), p);
-      w += (unsigned long long)ci * __ldg(c + 4);
-      frac += (double)ci * __longlong_as_double((long long)__ldg(c + 5));
-    }
-    w -= (unsigned long long)frac * p64;
+    for (int i = 0; i < n_primes; ++i)
+      garner::add_residue(w, frac, res[(size_t)i * elems + e],
+                          cst + PER_PRIME * i);
+    w = garner::recombined(w, frac, p64);
     if (ACC32) {
       uint32_t* a = (uint32_t*)acc;
-      a[e] += (uint32_t)((w << shift) >> 32) - htop;
+      a[e] = garner::add_top(a[e], w, shift, htop);
     } else {
       unsigned long long* a = (unsigned long long*)acc;
-      a[e] += (w - h64) << shift;
+      a[e] = garner::add_full(a[e], w, shift, h64);
     }
   }
 }

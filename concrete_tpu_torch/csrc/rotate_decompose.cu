@@ -32,6 +32,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "digits.cuh"
+
 namespace {
 
 __global__ void rotate_decompose_kernel(
@@ -95,11 +97,11 @@ __global__ void rotate_decompose_kernel(
 // concrete_tpu/ops/pallas_step.py rotate_decompose_digits (:322) and the
 // rotate_diff_digits(_hi) front of blind_rotate_fused (:210, :234).
 // T = uint64_t reads the u64 accumulator; T = uint32_t reads the acc32
-// mode's top words, whose u64 value is hi * 2^32 (its negation stays exact
-// in the top word, and the digits read only the top word whenever
-// levels * base_log <= 31).  Bound: bytes (8 or 4 read, 4 * levels written
-// per coefficient); same thread layout as kernel A, each thread storing
-// 16 aligned bytes per level.
+// mode's top words.  The arithmetic is csrc/digits.cuh's, which the B <= 4
+// CRT-NTT blind rotate (csrc/blind_rotate_fused_latency.cu) shares.
+// Bound: bytes (8 or 4 read, 4 * levels written per coefficient); same
+// thread layout as kernel A, each thread storing 16 aligned bytes per
+// level.
 template <typename T>
 __global__ void rotate_decompose_digits_kernel(
     const T* __restrict__ acc, const int32_t* __restrict__ a_rows,
@@ -107,33 +109,24 @@ __global__ void rotate_decompose_digits_kernel(
   const int quads_per_row = n / 4;
   const long long quads = (long long)rows * quads_per_row;
   const long long two_n = 2LL * n;
-  const int top = sizeof(T) == 4 ? 32 : 0;
   for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        q < quads; q += (long long)gridDim.x * blockDim.x) {
     const int row = (int)(q / quads_per_row);
     const int t0 = (int)(q % quads_per_row) * 4;
     const T* src = acc + (size_t)row * n;
-    const long long a = ((long long)a_rows[row] % two_n + two_n) % two_n;
+    const int a = (int)(((long long)a_rows[row] % two_n + two_n) % two_n);
     uint64_t v[4], w_prev[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int t = t0 + k;
-      const long long s = (t - a + two_n) % two_n;
-      const uint64_t x = (uint64_t)(s >= n ? src[s - n] : src[s]) << top;
-      const uint64_t y = (uint64_t)src[t] << top;
-      v[k] = (s >= n ? (uint64_t)0 - x : x) - y;
-      w_prev[k] = ((v[k] >> 63) + 1) >> 1;
+      v[k] = digits::rotate_diff(src, t0 + k, a, n);
+      w_prev[k] = digits::first_prefix(v[k]);
     }
     for (int lev = 0; lev < levels; ++lev) {
-      const int shift = 63 - (lev + 1) * base_log;
       int4 d;
       int* dk = &d.x;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint64_t w = ((v[k] >> shift) + 1) >> 1;
-        dk[k] = (int32_t)(uint32_t)(w - (w_prev[k] << base_log));
-        w_prev[k] = w;
-      }
+      for (int k = 0; k < 4; ++k)
+        dk[k] = digits::next_digit(v[k], w_prev[k], lev, base_log);
       *reinterpret_cast<int4*>(out + ((size_t)lev * rows + row) * n + t0) =
           d;
     }

@@ -72,6 +72,11 @@ _SIGNATURES = {
     # d_limbs, s_key, n, limb_offset, cluster, stream
     "blind_rotate_latency": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _P],
+    # a_t, acc, spec, spec_sh, twiddle pairs, prime constants, Garner
+    # constants, batch, n_small, kp1, levels, base_log, n_primes, log_n,
+    # trunc_bits, acc32, stream
+    "blind_rotate_fused_latency": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _P],
 }
 
 

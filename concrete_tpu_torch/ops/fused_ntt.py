@@ -2,8 +2,13 @@
 
 Counterpart of ``concrete_tpu/ops/pallas_fused_ntt.py`` (``FusedBSK``,
 ``pack_bsk_fused``, ``blind_rotate_fused``, ``acc32_eligible``).  The TPU
-runs the whole scan in one ``pallas_call``; here the scan is a host loop
-of three hand-written CUDA kernels per step:
+runs the whole scan in one ``pallas_call``.  Here a blind rotate of at
+most ``core.kernels.LATENCY_BATCH_MAX`` ciphertexts runs it in one launch
+too, at the shapes ``ops.fused_latency.plan`` takes (the models' B = 1
+lookups; ``ops.fused_latency``); any other, the MLP's B = 256 batches
+among them, runs it as a host loop of three hand-written CUDA kernels per
+step (``scan_steps``).  ``blind_rotate_fused`` is the one entry and
+chooses between the two by that rule:
 
 1. ``ops.step.rotate_decompose_digits`` (``csrc/rotate_decompose.cu``):
    X^a acc - acc and its int32 gadget digits;
@@ -274,11 +279,13 @@ def garner_accumulate(res: torch.Tensor, acc: torch.Tensor, primes: tuple,
 # The scan
 # ---------------------------------------------------------------------------
 
-def blind_rotate_fused(ct_small: torch.Tensor, bsk: FusedBSK,
-                       lut_poly: torch.Tensor, params,
-                       acc32: bool = None) -> torch.Tensor:
-    """Batched blind rotation: (B, n+1) ct, (N,) or (B, N) LUT ->
-    accumulator (B, k+1, N) int64, three kernel launches per step."""
+def first_accumulator(ct_small: torch.Tensor, bsk: FusedBSK,
+                      lut_poly: torch.Tensor, params,
+                      acc32: bool = None) -> tuple:
+    """The scan's start: (a_t, acc), the switched mask (B, n) int32 and
+    the first accumulator (B, k+1, N), the trivial GLWE of X^{-b~} LUT, as
+    int32 top words in the acc32 mode (the default wherever the digits
+    read only the top word) or int64."""
     from concrete_tpu_torch.core import kernels as kn
     from concrete_tpu_torch.core import limbs as lb
     n = params.polynomial_size
@@ -289,7 +296,6 @@ def blind_rotate_fused(ct_small: torch.Tensor, bsk: FusedBSK,
         raise ValueError("the acc32 mode needs levels * base_log <= 31")
     b_ct = ct_small.shape[0]
     k = params.glwe_dimension
-    kp1 = k + 1
     switched = kn.modulus_switch(ct_small, params.log2_polynomial_size)
     a_t, b_t = switched[:, :-1], switched[:, -1]
     rot = (2 * n - b_t) % (2 * n)
@@ -299,21 +305,63 @@ def blind_rotate_fused(ct_small: torch.Tensor, bsk: FusedBSK,
         # JAX kernel does (exact for encode_expand_lut outputs)
         body0 = (kn.monomial_mul_batch(lb.srl(lut, 32), rot) & _M32) \
             .to(torch.int32)
-        acc = torch.zeros((b_ct, kp1, n), dtype=torch.int32,
-                          device=ct_small.device)
     else:
         body0 = kn.monomial_mul_batch(lut, rot)
-        acc = torch.zeros((b_ct, kp1, n), dtype=torch.int64,
-                          device=ct_small.device)
+    acc = torch.zeros((b_ct, k + 1, n), dtype=body0.dtype,
+                      device=ct_small.device)
     acc[:, k, :] = body0
-    acc = acc.view(b_ct * kp1, n)
+    return a_t.to(torch.int32).contiguous(), acc
+
+
+def last_accumulator(acc: torch.Tensor) -> torch.Tensor:
+    """The scan's result (B, k+1, N) int64 from its accumulator: top
+    words (int32, the acc32 mode) back in place, or acc itself."""
+    if acc.dtype == torch.int32:
+        return (acc.to(torch.int64) & _M32) << 32
+    return acc
+
+
+def scan_steps(a_t: torch.Tensor, acc: torch.Tensor, bsk: FusedBSK,
+               kernels: tuple = None) -> torch.Tensor:
+    """The scan's steps on a_t (B, n_small) int32 and acc (B, k+1, N)
+    (int32 top words or int64), in place: a step calls the three functions
+    of `kernels` (digits, product, Garner), by default kernels 1, 3 and 4's
+    wrappers, three launches a step."""
+    digits_of, product, garner = kernels or (
+        step.rotate_decompose_digits, crt_external_product,
+        garner_accumulate)
+    b_ct, kp1, n = acc.shape
+    rows = acc.view(b_ct * kp1, n)
     a_rows = a_t.t().repeat_interleave(kp1, dim=1).contiguous()
     for i in range(bsk.n_small):
-        digits = step.rotate_decompose_digits(
-            acc, a_rows[i], base_log=bsk.base_log, levels=bsk.levels)
-        res = crt_external_product(digits, bsk.spec_val[i], bsk.spec_sh[i],
-                                   bsk.primes, kp1)
-        garner_accumulate(res, acc, bsk.primes, bsk.trunc_bits)
-    if acc32:
-        acc = (acc.to(torch.int64) & _M32) << 32
-    return acc.view(b_ct, kp1, n)
+        digits = digits_of(rows, a_rows[i], base_log=bsk.base_log,
+                           levels=bsk.levels)
+        res = product(digits, bsk.spec_val[i], bsk.spec_sh[i], bsk.primes,
+                      kp1)
+        garner(res, rows, bsk.primes, bsk.trunc_bits)
+    return acc
+
+
+def blind_rotate_fused(ct_small: torch.Tensor, bsk: FusedBSK,
+                       lut_poly: torch.Tensor, params,
+                       acc32: bool = None) -> torch.Tensor:
+    """Batched blind rotation: (B, n+1) ct, (N,) or (B, N) LUT ->
+    accumulator (B, k+1, N) int64.  At B <= ``LATENCY_BATCH_MAX`` where
+    ``ops.fused_latency.plan`` takes the shape and the accumulator's mode,
+    one launch of its kernel (``blind_rotate_fused_latency``); else
+    ``scan_steps``, three kernel launches a step.  A shape rule, not a
+    fallback."""
+    from concrete_tpu_torch.core.kernels import LATENCY_BATCH_MAX
+    from concrete_tpu_torch.ops import fused_latency as fl
+    a_t, acc = first_accumulator(ct_small, bsk, lut_poly, params, acc32)
+    b_ct, kp1, n = acc.shape
+    if b_ct <= LATENCY_BATCH_MAX and fl.plan(
+            b_ct, n, kp1, bsk.levels, len(bsk.primes),
+            acc.dtype == torch.int32) is not None:
+        fl.blind_rotate_fused_latency(
+            a_t, acc, bsk.spec_val, bsk.spec_sh, primes=bsk.primes,
+            trunc_bits=bsk.trunc_bits, base_log=bsk.base_log,
+            levels=bsk.levels)
+    else:
+        scan_steps(a_t, acc, bsk)
+    return last_accumulator(acc)

@@ -15,7 +15,10 @@ versions of kernel 1, kernel 9's latency form and the recombine.
 ``plan`` is the shape rule: the shapes whose block fits the card's shared
 memory (the B <= 4 latency shape, N=1024, k+1 = 2, l = 4, 4 kept key
 limbs; k+1 = 3 with two digit limbs).  ``core.kernels`` sends a CUDA
-accumulator at any other shape to the three-kernel step loop.
+accumulator at any other shape to the three-kernel step loop.  This is the
+banded key's form; a fused (CRT-NTT) key at B <= 4 takes
+``ops.fused_latency``'s kernel, and its three-kernel loop
+(``ops.fused_ntt``) elsewhere.
 ``blind_rotate_latency`` launches the kernel on CUDA tensors, raises at a
 shape the rule refuses, and runs the plain version on CPU ones; there is
 no other fallback.

@@ -433,6 +433,7 @@ def test_port_imports_no_jax():
     code = ("import sys, concrete_tpu_torch, concrete_tpu_torch.compilation."
             "executor, concrete_tpu_torch.ops.step, "
             "concrete_tpu_torch.ops.fused_ntt, concrete_tpu_torch.ops.ntt, "
+            "concrete_tpu_torch.ops.fused_latency, "
             "concrete_tpu_torch.ops.banded_mm, "
             "concrete_tpu_torch.ops.recombine, "
             "concrete_tpu_torch.optimizer.v0, concrete_tpu_torch.tracing, "

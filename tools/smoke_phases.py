@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Run some phases of ``chip_smoke.py`` alone on one NVIDIA GPU.
 
-    python3 tools/smoke_phases.py [models] [kinds]
+    python3 tools/smoke_phases.py [models] [kinds] [fused]
 
 Builds the port's kernels from ``concrete_tpu_torch/csrc``, then runs the
 named phases of the smoke (``models``: the five model circuits and the
-2-key database against the CPU; ``kinds``: the node-kinds circuits; both
-when none is named), each as the whole smoke runs it, with its checks.
+2-key database against the CPU; ``kinds``: the node-kinds circuits;
+``fused``: the CRT-NTT blind rotate at B <= 4 in one launch at the models'
+shapes, with its variant builds; ``models`` and ``kinds`` when none is
+named), each as the whole smoke runs it, with its checks.
 It prints no kernel line and no result line, so it proves nothing about
 the rest of the smoke.  Writes chiprun_out/smoke_phases.json.
 """
@@ -22,7 +24,24 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 import chip_smoke as cs  # noqa: E402  (the phases and their checks)
 
-PHASES = {"models": cs.models_phase, "kinds": cs.kinds_phase}
+
+def fused_phase(rng):
+    """chip_smoke.py's fused_latency_phase, with its variant and
+    instrumented builds."""
+    import shutil
+    import tempfile
+    from concrete_tpu_torch.utils.csprng import BUILD_DIR
+    var_dir = tempfile.mkdtemp(dir=BUILD_DIR)
+    builds = cs.fused_latency_builds(var_dir)
+    rec = cs.fused_latency_phase(rng, cs.sm_clock(), cs.sass_mix(),
+                                 *builds())
+    shutil.rmtree(var_dir)
+    return rec
+
+
+PHASES = {"models": cs.models_phase, "kinds": cs.kinds_phase,
+          "fused": fused_phase}
+DEFAULT = ("models", "kinds")
 
 
 def main() -> None:
@@ -30,7 +49,7 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: these phases need a GPU")
-    names = sys.argv[1:] or list(PHASES)
+    names = sys.argv[1:] or list(DEFAULT)
     if not set(names) <= set(PHASES):
         cs.fail(f"unknown phases {sorted(set(names) - set(PHASES))}: give "
                 f"any of {sorted(PHASES)}")
