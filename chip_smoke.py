@@ -26,10 +26,17 @@
    (``blind_rotate_latency``, every step of a B <= 4 lookup in one launch)
    over a whole lookup's 710 steps at B = 1 and 4, against its plain
    version and the three-kernel step loop on the card, timed beside both
-   and beside a variant built without its MMA (the chain floor), the
-   same at the shape of the compiled ``examples/table_lookup.py`` (B = 1,
-   k+1 = 5, N = 256, l = 3, 610 steps), then at B = 1 .. 4, k+1 = 3 with
-   two digit limbs and a full key over a few steps;
+   and beside variants built without its MMA (the chain floor) and
+   without its key rows, with the clocks of each part of a step from an
+   instrumented build, the same at the shape of the compiled
+   ``examples/table_lookup.py`` (B = 1, k+1 = 5, N = 256, l = 3, 610
+   steps), at GameOfLife's (N = 2048, l = 2, base 2^7, 5 key limbs: two
+   64-t groups a block and a key ring of one slot, 758 steps) and at the
+   latency shape's untruncated key (8 limbs, one slot), at B = 1 and 4
+   against the plain version over a few steps and the step loop over a
+   whole lookup, then at B = 1 .. 4, k+1 = 3 with two digit limbs and a
+   full key over a few steps; kernel 1, kernel 9's latency form and the
+   recombine are also timed at GameOfLife's step;
 3. serves the committed deployment archive (``table[x] - y`` over 1024
    encrypted 4-bit pairs, 128-bit parameters, N=1024): ``Server.load`` on
    CUDA, ``Client.keygen`` from a seed, three requests, decryptions checked
@@ -106,8 +113,9 @@
    ``encrypt_run_decrypt`` (one ``blind_rotate_latency`` launch per
    lookup, a cluster of 4 blocks at k+1 = 5), holds its outputs against
    the same runs on CPU copies of the keys, traces one run, and runs one
-   with the untruncated key through the three-kernel step loop (the
-   persistent kernel's rule refuses 8 key limbs); and quickstart's
+   with the untruncated key (8 key limbs: one launch a lookup on a key
+   ring of one slot), equal to the same run through the three-kernel step
+   loop and on the CPU; and quickstart's
    ``add`` on the card, no port kernel launched;
 8. the models phase: five of the JAX package's model circuits compiled by
    the port at the default ``Configuration()`` — GameOfLife(16, 16),
@@ -118,11 +126,12 @@
    decryptions must equal the model's clear function, whose output
    ciphertexts must equal those of ``Server.load`` on the model's own
    saved archive, and whose launches must be those of the blind-rotate
-   form each lookup node takes (printed: persistent kernel, step loop,
-   banded scan, fused persistent kernel (one launch of
-   ``blind_rotate_fused_latency`` a lookup node run: Levenshtein's and
-   both databases') or fused loop); one request traced (device busy,
-   idle share, launches); every kernel call of the same requests on the
+   form each lookup node takes (printed: persistent kernel (GameOfLife's
+   256 lookups, one launch each), step loop, banded scan, fused
+   persistent kernel (one launch of ``blind_rotate_fused_latency`` a
+   lookup node run: Levenshtein's and both databases') or fused loop);
+   one request traced (device busy, idle share, launches); every kernel
+   call of the same requests on the
    archive-loaded ``Server``, at each shape, held bit-exact to its plain
    version on the card on the same inputs (the key packs' too);
    StaticKeyValueDatabase over 2 keys (0 and 30: the 16-key database's
@@ -187,6 +196,20 @@ FUSED_KERNELS = ("rotate_decompose_digits", "crt_external_product",
 LATENCY_KERNELS = ("rotate_decompose_digits", "banded_matmul_latency",
                    "recombine_accumulate")
 FUSED_LATENCY = "blind_rotate_fused_latency"
+#: GameOfLife(16, 16)'s B=1 lookups as the port compiles them at the
+#: default Configuration(): N=2048, k+1 = 2, l = 2, base 2^7, 5 kept key
+#: limbs (3 truncated), 758 steps; the persistent kernel's plan takes it
+#: with a key ring of one slot
+GOL_LATENCY = dict(kp1=2, levels=2, n=2048, s_key=5, base_log=7,
+                   limb_offset=3)
+GOL_STEPS = 758
+#: variant builds of the persistent latency kernel, each without one part
+LATENCY_VARIANTS = {"no MMA": "ABLATE_NO_MMA",
+                    "no key rows": "ABLATE_NO_KEY"}
+#: the parts of a step its PHASE_CLOCKS build counts (thread 0 of block 0)
+LATENCY_PHASES = ("bands", "acc copy in", "digits", "key wait", "MMA",
+                  "warp reduction", "slot release",
+                  "recombine and cluster barrier")
 #: the models' CRT-NTT lookups, as the port compiles them at the default
 #: Configuration(): (N, k+1, l, base_log, primes, truncated bits, n_small)
 #: of LevenshteinDistance(8, 8, 2), StaticKeyValueDatabase over 16 keys
@@ -568,15 +591,18 @@ def load_variant(out_dir: str, name: str, proc, entry: str):
 
 def check_blind_rotate_latency(rng, *, batch, kp1, levels, n, s_key,
                                base_log, n_small, limb_offset, timed,
-                               plain=True, variants=None):
+                               plain=True, variants=None, clocks=None):
     """The persistent latency blind rotate against its plain version (the
     step loop on the plain versions of kernel 1, kernel 9's latency form
     and the recombine) and against the three-kernel step loop on the card,
     on random switched masks, accumulators and keys.  Timed: ms per
     lookup (n_small steps), beside the plain version, the step loop, and
     each variant build in `variants` (label -> its C entry point, the
-    same arguments: "no MMA" is the chain floor).  With `plain` False the
-    plain version (about 7.5 ms a step at B=1 on the card) is left out."""
+    same arguments: "no MMA" is the chain floor, "no key rows" leaves the
+    key ring's copies out); with `clocks` (the PHASE_CLOCKS build's entry
+    point and its reader), the clocks of each part of a step.  With
+    `plain` False the plain version (about 7.5 ms a step at B=1, N=1024 on
+    the card) is left out."""
     import numpy as np
     import torch
     from concrete_tpu_torch.core import kernels as kn
@@ -621,21 +647,31 @@ def check_blind_rotate_latency(rng, *, batch, kp1, levels, n, s_key,
             a_t, scratch, bsk, params), 1)
         pl = lat.plan(batch, n, kp1, levels, d_limbs, s_key)
         stream = _build.stream_of(acc)
-        rec["variants_ms"] = {}
-        for label, fn in (variants or {}).items():
-            def call(fn=fn):
-                _build.check(label, fn(
-                    a_t.data_ptr(), scratch.data_ptr(),
-                    planes.data_ptr(), planes.data_ptr() + planes.numel(),
-                    batch, n_small, kp1, levels, base_log, d_limbs, s_key, n,
-                    limb_offset, pl.cluster, stream))
-            rec["variants_ms"][label] = cuda_ms(call, 5)
+
+        def call(fn, label):
+            _build.check(label, fn(
+                a_t.data_ptr(), scratch.data_ptr(),
+                planes.data_ptr(), planes.data_ptr() + planes.numel(),
+                batch, n_small, kp1, levels, base_log, d_limbs, s_key, n,
+                limb_offset, pl.cluster, stream))
+        rec["variants_ms"] = {
+            label: cuda_ms(lambda fn=fn, label=label: call(fn, label), 5)
+            for label, fn in (variants or {}).items()}
         rec["chain_floor_ms"] = rec["variants_ms"].get("no MMA")
+        if clocks:
+            fn_c, read = clocks
+            read()                           # zeroes the clocks
+            call(fn_c, "phase clocks")
+            torch.cuda.synchronize()
+            rec["clocks_per_step"] = {
+                name: c / n_small for name, c in zip(LATENCY_PHASES,
+                                                     read())}
         macs = n_small * kp1 * batch * s_key * d_limbs * cin * n * n
         nbytes = a_t.numel() * 4 + 2 * acc.numel() * 8 \
             + n_small * cin * kp1 * s_key * n
         rec.update(bound(2 * macs / PEAK_INT8_OPS * 1e3, nbytes, macs=macs),
-                   library_ms=None, cluster=pl.cluster, smem=pl.smem)
+                   library_ms=None, cluster=pl.cluster, ltb=pl.ltb,
+                   slots=pl.slots, smem=pl.smem)
     print(f"blind_rotate_latency bit-exact (against its plain version and "
           f"the step loop on the card) at {shape}: {rec}", flush=True)
     return rec
@@ -1074,8 +1110,9 @@ def compiled_lookups(circuit):
     blocks, k+1 = 5) and no other port kernel; the outputs of a run on
     the card against the same run on CPU copies of the packed keys (every
     kernel's plain version), bit for bit; one run traced; then one run
-    with the untruncated key, whose shape the persistent kernel's rule
-    refuses, through the three-kernel step loop, against the CPU too."""
+    with the untruncated key (8 key limbs: a key ring of one slot), one
+    launch of the persistent kernel a lookup, against the same run
+    through the three-kernel step loop and on the CPU."""
     import dataclasses
     import numpy as np
     import torch
@@ -1137,32 +1174,50 @@ def compiled_lookups(circuit):
             fail(f"compiled table_lookup({v}): the card's output differs "
                  f"from the plain path's on the CPU")
     cpu_s = time.perf_counter() - t0
-    # the untruncated key: no persistent kernel at 8 key limbs
+    # the untruncated key: the persistent kernel with a key ring of one
+    # slot at 8 key limbs, then the step loop on the same ciphertexts
     full = kn.pack_bsk(circuit.keys.server.bsk, p, 0, device=circuit.device)
-    if lat.plan(1, p.polynomial_size, kp1, p.pbs_level, 1, 8) is not None:
-        fail("the persistent kernel's rule takes the untruncated key")
-    steps = dict.fromkeys(LATENCY_KERNELS, p.n_small * lookups)
-    _build.reset_launches()               # the step loop's path starts here
+    full_plan = lat.plan(1, p.polynomial_size, kp1, p.pbs_level, 1, 8)
+    if full_plan is None or full_plan.slots != 1:
+        fail(f"the persistent kernel's rule gives {full_plan} for the "
+             f"untruncated key; want a key ring of one slot")
     ct = results[-1][0]
-    step_wall, _, out = run(ct, (ksk, full), steps)
+    _build.reset_launches()               # the untruncated key's path ...
+    full_wall, _, out = run(ct, (ksk, full), want)
+    full_launches = dict(_build.LAUNCHES)  # ... ends here
+    steps = dict.fromkeys(LATENCY_KERNELS, p.n_small * lookups)
+    rule = lat.plan
+    lat.plan = lambda *args: None
+    _build.reset_launches()               # the step loop's path starts here
+    try:
+        step_wall, _, step_out = run(ct, (ksk, full), steps)
+    finally:
+        lat.plan = rule
     step_launches = dict(_build.LAUNCHES)  # ... and ends here
     (want_out,) = cpu.run(ct, evaluation_keys=(ksk_cpu,
                                                cpu_keys(ksk, full)[1]))
+    if not np.array_equal(out, step_out):
+        fail("compiled table_lookup with the untruncated key: the "
+             "persistent kernel's output differs from the step loop's")
     if not np.array_equal(out, want_out) \
             or circuit.decrypt(out) != LOOKUP_TABLE[-1] + 1:
-        fail("compiled table_lookup with the untruncated key: the step "
-             "loop's output differs from the CPU's or decrypts wrong")
+        fail("compiled table_lookup with the untruncated key: the "
+             "output differs from the CPU's or decrypts wrong")
     print(f"compiled table_lookup: {plan}; encrypt_run_decrypt of every "
           f"input right, {[f'{w * 1e3:.1f}' for w in walls]} ms; server "
           f"runs ({lookups} lookups) "
           f"{[f'{r[0] * 1e3:.1f}' for _, r in results]} ms, launches {results[0][1][1]}; equal to the CPU's plain path "
-          f"({cpu_s:.1f} s); untruncated key through the step loop "
-          f"{step_wall * 1e3:.1f} ms, launches {step_launches}, equal to "
+          f"({cpu_s:.1f} s); untruncated key {full_wall * 1e3:.1f} ms, "
+          f"launches {full_launches}, equal to the step loop's "
+          f"({step_wall * 1e3:.1f} ms, launches {step_launches}) and to "
           f"the CPU's", flush=True)
     return {"plan": dataclasses.asdict(plan), "lookups_per_run": lookups,
             "encrypt_run_decrypt_s": walls,
             "run_walls_s": [r[0] for _, r in results],
             "launches": launches, "traced": traced, "cpu_plain_s": cpu_s,
+            "untruncated_plan": dataclasses.asdict(full_plan),
+            "untruncated_wall_s": full_wall,
+            "untruncated_launches": full_launches,
             "step_loop_wall_s": step_wall, "step_loop_launches":
             step_launches}
 
@@ -1643,6 +1698,7 @@ def models_phase(rng):
     64 rows (WoP-PBS)."""
     import numpy as np
     from concrete_tpu_torch import models as tm
+    from concrete_tpu_torch.ops import latency as lat
     gol = tm.GameOfLife(*GOL_SIZE)
     lev = tm.LevenshteinDistance(*LEVENSHTEIN)
     kvdb = tm.StaticKeyValueDatabase(KVDB_KEYS, KVDB_VALUES)
@@ -1683,6 +1739,13 @@ def models_phase(rng):
             lambda: (int(rng.integers(0, PIR_SHAPE[0])),),
             wrong_of(pir.query_clear)),
     }
+    # GameOfLife's B=1 lookups: one launch of the persistent kernel each
+    # (a key ring of one slot), none of the step loop's kernels
+    rec = out["game_of_life"]
+    want = {lat.NAME: MODEL_REQUESTS * rec["lookups_per_request"]}
+    if rec["launches"] != want:
+        fail(f"GameOfLife's requests launched {rec['launches']}, want "
+             f"{want}")
     small = tm.StaticKeyValueDatabase(KVDB_CPU_KEYS, KVDB_VALUES[:2])
     out["kvdb_2_keys"] = serve_model(
         "kvdb_2_keys", small.compile,
@@ -2132,40 +2195,40 @@ FUSED_LATENCY_PHASES = ("digits, forward transforms, spectra stored",
                         "Garner")
 
 
-def fused_latency_clocks(out_dir: str, proc):
-    """The instrumented build (PHASE_CLOCKS) of the B <= 4 CRT-NTT kernel:
-    (its entry point bound as the port binds it, a function that returns
-    and zeroes its clocks per phase)."""
+def variant_builds(out_dir: str, source: str, entry: str, switches: dict):
+    """Start nvcc on a persistent kernel's `source` without each of its
+    parts (`switches`: label -> ABLATE_* switch) and on its PHASE_CLOCKS
+    build, into out_dir; the returned function waits for them and gives
+    (variants, clocks): label -> C entry point `entry`, and (the clocks
+    build's entry point, a function that returns and zeroes its clocks per
+    phase, `entry`_phases)."""
     import ctypes
     from concrete_tpu_torch.ops import _build
-    fn_v, _ = load_variant(out_dir, "fl_clocks", proc, FUSED_LATENCY)
-    lib = ctypes.CDLL(os.path.join(out_dir, "fl_clocks.so"))
+    tag = entry.replace("blind_rotate", "br")
+    procs = {label: build_variant(out_dir, (source,), f"{tag}_{i}", [switch])
+             for i, (label, switch) in enumerate(switches.items())}
+    clocks_proc = build_variant(out_dir, (source,), f"{tag}_clocks",
+                                ["PHASE_CLOCKS"])
 
-    def clocks():
-        out = (ctypes.c_ulonglong * 8)()
-        _build.check("phase clocks",
-                     lib.blind_rotate_fused_latency_phases(out))
-        return list(out)
-    return fn_v, clocks
+    def load():
+        variants = {label: load_variant(out_dir, f"{tag}_{i}", proc, entry)[0]
+                    for i, (label, proc) in enumerate(procs.items())}
+        fn_c, _ = load_variant(out_dir, f"{tag}_clocks", clocks_proc, entry)
+        lib = ctypes.CDLL(os.path.join(out_dir, f"{tag}_clocks.so"))
+
+        def read():
+            out = (ctypes.c_ulonglong * 8)()
+            _build.check("phase clocks", getattr(lib, f"{entry}_phases")(out))
+            return list(out)
+        return variants, (fn_c, read)
+    return load
 
 
 def fused_latency_builds(out_dir: str):
-    """Start nvcc on the B <= 4 CRT-NTT kernel without each of its parts
-    (FUSED_LATENCY_VARIANTS) and on its PHASE_CLOCKS build, into out_dir;
-    the returned function waits for them and gives fused_latency_phase's
-    (variants, clocks)."""
-    src = ("blind_rotate_fused_latency.cu",)
-    procs = {label: build_variant(out_dir, src, f"fl_{i}", [switch])
-             for i, (label, switch) in enumerate(
-                 FUSED_LATENCY_VARIANTS.items())}
-    clocks_proc = build_variant(out_dir, src, "fl_clocks", ["PHASE_CLOCKS"])
-
-    def load():
-        variants = {label: load_variant(out_dir, f"fl_{i}", proc,
-                                        FUSED_LATENCY)[0]
-                    for i, (label, proc) in enumerate(procs.items())}
-        return variants, fused_latency_clocks(out_dir, clocks_proc)
-    return load
+    """variant_builds of the B <= 4 CRT-NTT kernel
+    (FUSED_LATENCY_VARIANTS)."""
+    return variant_builds(out_dir, "blind_rotate_fused_latency.cu",
+                          FUSED_LATENCY, FUSED_LATENCY_VARIANTS)
 
 
 def check_fused_latency(rng, *, batch, n, kp1, levels, base_log, n_primes,
@@ -2181,7 +2244,7 @@ def check_fused_latency(rng, *, batch, n, kp1, levels, base_log, n_primes,
     lookup (n_small steps) beside the loop's and the plain version's (the
     check's own call), and each variant build's in `variants` (label ->
     its C entry point, the same arguments); with `clocks`
-    (fused_latency_clocks), the clocks of each part of a step in block 0
+    (variant_builds), the clocks of each part of a step in block 0
     of the first cluster; the bound: the key's spectra
     and companions read once (the B clusters read one key) and the
     accumulator in and out, against the transforms', multiply-adds' (per
@@ -2291,7 +2354,7 @@ def fused_latency_phase(rng, clock, mix, variants, clocks):
     and the three-kernel loop; then over the whole lookup's n_small steps
     at B = 1 (Levenshtein's also against its plain version, and at B = 4)
     against the loop, timed with the variant builds and counted by the
-    instrumented one (`clocks`, fused_latency_clocks); the MLP's shape
+    instrumented one (`clocks`, variant_builds); the MLP's shape
     refused by the rule.  Kernels 1, 3 and 4 are timed at Levenshtein's
     B = 1 shape for the loop's share."""
     from concrete_tpu_torch.core import ntt as host
@@ -2648,11 +2711,11 @@ def main() -> None:
     from concrete_tpu_torch.utils.csprng import BUILD_DIR
     os.makedirs(BUILD_DIR, exist_ok=True)
     var_dir = tempfile.mkdtemp(dir=BUILD_DIR)
-    # the persistent latency kernel without its MMA (its chain floor),
-    # built beside the port's library
-    var_procs = {"no MMA": build_variant(
-        var_dir, ("blind_rotate_latency.cu",), "br_no_mma",
-        ["ABLATE_NO_MMA"])}
+    # the persistent latency kernel without its MMA (its chain floor) and
+    # without its key rows, and its PHASE_CLOCKS build, beside the port's
+    # library
+    br_builds = variant_builds(var_dir, "blind_rotate_latency.cu",
+                               "blind_rotate_latency", LATENCY_VARIANTS)
     # ... and the B <= 4 CRT-NTT kernel's variants
     fl_builds = fused_latency_builds(var_dir)
     t0 = time.perf_counter()
@@ -2745,14 +2808,12 @@ def main() -> None:
     # B = 4 (against the step loop on the card), timed with the chain
     # floor; then B = 1 .. 4 over a few steps against the plain version,
     # k+1 = 3 with two digit limbs, an odd step count, a full key
-    variants = {label: load_variant(var_dir, "br_no_mma", proc,
-                                    "blind_rotate_latency")[0]
-                for label, proc in var_procs.items()}
+    variants, br_clocks = br_builds()
     lat_kw = dict(kp1=2, levels=4, n=1024, s_key=4, base_log=5,
                   limb_offset=4)
     rec_br = check_blind_rotate_latency(rng, batch=1, n_small=710,
                                         timed=True, variants=variants,
-                                        **lat_kw)
+                                        clocks=br_clocks, **lat_kw)
     rec_br4 = check_blind_rotate_latency(rng, batch=4, n_small=710,
                                          timed=True, plain=False,
                                          variants=variants, **lat_kw)
@@ -2761,6 +2822,23 @@ def main() -> None:
     rec_br_tl = check_blind_rotate_latency(
         rng, batch=1, kp1=5, levels=3, n=256, s_key=4, base_log=5,
         n_small=610, limb_offset=4, timed=True, variants=variants)
+    # ... at GameOfLife's shape (N=2048: two 64-t groups a block; 5 key
+    # limbs: a key ring of one slot) and at the latency shape's untruncated
+    # key (8 limbs, one slot): B = 1 and 4 against the plain version over a
+    # few steps (at N=2048 it takes seconds a step), then over a whole
+    # lookup against the step loop on the card, timed
+    s8_kw = {**lat_kw, "s_key": 8, "limb_offset": 0}
+    for kw in (GOL_LATENCY, s8_kw):
+        for batch in (1, 4):
+            check_blind_rotate_latency(rng, batch=batch, n_small=3,
+                                       timed=False, **kw)
+    rec_gol = {batch: check_blind_rotate_latency(
+        rng, batch=batch, n_small=GOL_STEPS, timed=True, plain=False,
+        variants=variants, clocks=br_clocks, **GOL_LATENCY)
+        for batch in (1, 4)}
+    rec_s8 = {batch: check_blind_rotate_latency(
+        rng, batch=batch, n_small=710, timed=True, plain=False,
+        variants=variants, **s8_kw) for batch in (1, 4)}
     for batch in (1, 2, 3, 4):
         check_blind_rotate_latency(rng, batch=batch, n_small=8, timed=False,
                                    **lat_kw)
@@ -2787,6 +2865,17 @@ def main() -> None:
                              timed=True, clock=clock)
     check_digits(rng, rows=8, n=1024, base_log=5, levels=4, timed=False,
                  clock=clock)
+    # the three kernels of the step loop at GameOfLife's B=1 step (k+1 = 2
+    # rows, N=2048, l = 2, base 2^7, 5 key limbs: 5 planes)
+    rec_gol_steps = {
+        "rotate_decompose_digits": check_digits(
+            rng, rows=2, n=2048, base_log=7, levels=2, timed=True,
+            clock=clock),
+        "banded_matmul_latency": check_banded_matmul_latency(
+            rng, batch=1, kp1=2, levels=2, n=2048, s_key=5, base_log=7,
+            timed=True),
+        "recombine_accumulate": check_recombine(
+            rng, rows=2, n_planes=5, n=2048, limb_offset=3, timed=True)}
 
     # the serve phase runs n_small steps of both kernels per request
     est_s = REQUESTS * 698 * (rec_a["ms"] + rec_b["ms"]) / 1e3
@@ -3026,6 +3115,9 @@ def main() -> None:
                               "blind_rotate_latency_b4": rec_br4,
                               "blind_rotate_latency_table_lookup":
                                   rec_br_tl,
+                              "blind_rotate_latency_gol": rec_gol,
+                              "blind_rotate_latency_s8": rec_s8,
+                              "gol_step_loop_kernels": rec_gol_steps,
                               "banded_matmul_few_rows_b1": rec_bm_few,
                               "recombine_accumulate_latency_b1": rec_rc_lat,
                               "rotate_decompose_digits_latency_b1":
@@ -3034,6 +3126,7 @@ def main() -> None:
                               "ntt_forward_pack": rec_pack,
                               "ntt_forward": rec_ntt, "ntt_inverse": rec_inv,
                               **rec_f, FUSED_LATENCY: rec_fl},
+                   "ptxas": ptxas_summary(_build.BUILD_INFO["log"]),
                    "build_s": _build.BUILD_INFO["seconds"],
                    "build_source_s": _build.BUILD_INFO["source_seconds"]},
                   f, indent=1)
@@ -3051,6 +3144,25 @@ def main() -> None:
           f"chain floor {rec_br_tl['chain_floor_ms']:.4f} ms, step loop "
           f"{rec_br_tl['step_loop_ms']:.4f} ms, plain "
           f"{rec_br_tl['plain_ms']:.1f} ms", flush=True)
+    gol, g1, g4 = models["game_of_life"], rec_gol[1], rec_gol[4]
+    print(f"GameOfLife{GOL_SIZE}: request {gol['wall_s']:.4f} s, traced "
+          f"idle share {gol['traced']['idle_share']:.3f}, wrong "
+          f"{gol['wrong']} of {gol['values']}, launches {gol['launches']}; "
+          f"the persistent kernel at its shape ({GOL_STEPS} steps, "
+          f"{g1['slots']} ring slot, {g1['smem']} bytes a block): B=1 "
+          f"{g1['ms']:.4f} ms a lookup, B=4 {g4['ms']:.4f} ms; bound "
+          f"{g1['bound_ms']:.4f} / {g4['bound_ms']:.4f} ms "
+          f"({g1['bound_by']}); the step loop on the same inputs "
+          f"{g1['step_loop_ms']:.4f} / {g4['step_loop_ms']:.4f} ms; without "
+          f"the MMA {g1['chain_floor_ms']:.4f}, without the key rows "
+          f"{g1['variants_ms']['no key rows']:.4f} ms; clocks a step "
+          f"{ {k: round(v) for k, v in g1['clocks_per_step'].items()} }; "
+          f"at the untruncated latency-shape key (8 limbs, "
+          f"{rec_s8[1]['slots']} slot): {rec_s8[1]['ms']:.4f} / "
+          f"{rec_s8[4]['ms']:.4f} ms, step loop "
+          f"{rec_s8[1]['step_loop_ms']:.4f} / "
+          f"{rec_s8[4]['step_loop_ms']:.4f} ms; card {card_line}",
+          flush=True)
     print(f"card: {card()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

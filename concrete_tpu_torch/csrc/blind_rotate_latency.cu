@@ -1,11 +1,12 @@
 // blind_rotate_latency: every step of the latency blind rotate (B <= 4
 // ciphertexts, a banded key) in one launch.
 //
-// Replaces, at the latency shape, the TPU kernels concrete_tpu/ops/
-// pallas_step.py rotate_decompose_digits (:322) and recombine_accumulate
-// (:385) and runs concrete_tpu/ops/pallas_banded_mm.py banded_matmul_fused
-// (:88) in its body: the JAX package's _blind_rotate_xla_latency
-// (concrete_tpu/core/kernels.py:710-770) scans n_small steps of
+// Replaces, at the B <= 4 shapes ops/latency.py's plan() takes, the TPU
+// kernels concrete_tpu/ops/pallas_step.py rotate_decompose_digits (:322)
+// and recombine_accumulate (:385) and runs concrete_tpu/ops/
+// pallas_banded_mm.py banded_matmul_fused (:88) in its body: the JAX
+// package's _blind_rotate_xla_latency (concrete_tpu/core/kernels.py:
+// 710-770) scans n_small steps of
 //
 //   digits = Decomp(X^{a_i} acc - acc)                 (kernel 1)
 //   planes = the negacyclic product of the step's kept key limb rows with
@@ -27,7 +28,8 @@
 //  - one thread-block cluster per ciphertext (B clusters), whose blocks
 //    are co-scheduled, so a barrier inside it cannot deadlock where a
 //    grid-wide one could; up to 16 blocks (the non-portable most) split
-//    the N output coefficients t, 64 each at N=1024.  A split over t needs
+//    the N output coefficients t, 64 each at N=1024 (one 64-t group of 4
+//    m16 tiles), 128 at N=2048 (two groups in turn).  A split over t needs
 //    no reduction between blocks; the K split of kernel 9's standalone
 //    form would need a DSMEM reduction and a second cluster barrier per
 //    step;
@@ -52,20 +54,27 @@
 //    8 shared-memory slots (two rounds) and are summed into the int32
 //    planes in C-fragment order, and the recombine's shift-add is the
 //    epilogue;
-//  - the key does not depend on the accumulator: a 17th warp stages step
-//    i+1's key rows (64 KB at the latency shape) into a 2-slot ring by
-//    bulk copies (TMA, one a row, counted on the slot's full mbarrier)
-//    while step i computes, once the 16 computing warps have arrived on
-//    the slot's empty mbarrier (the copies of a step keep the issuing
-//    warp about 4,000 clocks, which a computing warp could not hide).
+//  - the key does not depend on the accumulator: a 17th warp stages the
+//    key rows of a step (64 KB at the latency shape, 80 KB at GameOfLife's
+//    N=2048 with 5 key limbs) into a ring by bulk copies (TMA, one a row,
+//    counted on the slot's full mbarrier), into a slot once the 16
+//    computing warps have arrived on its empty mbarrier (the copies of a
+//    step keep the issuing warp 4,000-5,000 clocks, which a computing warp
+//    could not hide).  The ring holds two whole steps where they fit: step
+//    i+1's rows land while step i computes.  Else it holds one, refilled
+//    with step i+1's rows once step i's product has read it: the copy then
+//    overlaps step i's recombine, the cluster barrier and step i+1's
+//    accumulator copy, digits and band build.  The warp arrives on each
+//    step's cluster barrier before it waits for a slot, so its copies
+//    never hold the cluster's next step back.
 // Shared memory per block: the digits (Cin N 4 bytes; the int32 planes and
 // the warps' slots reuse them once the bands are built), the accumulator
 // slice's two buffers, the bands of every K slice (the accumulator's copy
-// before them), the key ring and its 4 mbarriers; ops/latency.py's plan()
-// computes the same sum and takes a shape only where it fits.  The
-// ABLATE_* switches are set only by tools/ablate_kernels.py's variant
-// builds (and chip_smoke.py's chain-floor build), PHASE_CLOCKS only by the
-// first: each leaves one part of the work out, to time it, or counts the
+// before them), the key ring (two slots or one) and its 4 mbarriers;
+// ops/latency.py's plan() computes the same sum and takes a shape only
+// where it fits.  The ABLATE_* switches and PHASE_CLOCKS are set only by
+// the variant builds of tools/ablate_kernels.py and chip_smoke.py: each
+// leaves one part of the work out, to time it, or counts the
 // clocks of each part.
 
 #include <cooperative_groups.h>
@@ -100,13 +109,16 @@ struct BrShape {
   int region;             // bytes of the digits / planes region
   int bands;              // bytes of the bands (or accumulator copy)
   int ring_slot;          // bytes of one step's staged key rows
+  int slots;              // ring slots: 2, or 1 where two do not fit
 };
 
 using banded::mbar_arrive;
 using banded::mbar_init;
 using banded::mbar_wait;
 using tma::bulk_copy;
+using tma::cluster_arrive;
 using tma::cluster_barrier;
+using tma::cluster_wait;
 using tma::mbar_arrive_tx;
 
 // A barrier of the 16 computing warps (the producer warp not in it).
@@ -162,17 +174,22 @@ __global__ void __launch_bounds__(BLOCK) blind_rotate_latency_kernel(
   const int k_lo = min(kc * per_chunk, ksteps);
   const int k_hi = min(k_lo + per_chunk, ksteps);
 
-  // step i's key rows into ring slot i & 1: one bulk copy (TMA) a row,
-  // from the 16-byte boundary at or below its start, counted in bytes on
-  // the slot's full barrier (the wrapper makes sure a row may be read 16
-  // bytes past the key's end); issued by a warp of its own, since a
-  // step's 64 copies keep the issuing warp about 4,000 clocks: it refills
-  // a slot once the 16 computing warps have arrived on its empty barrier
+  // step i's key rows into ring slot i mod slots: one bulk copy (TMA) a
+  // row, from the 16-byte boundary at or below its start, counted in bytes
+  // on the slot's full barrier (the wrapper makes sure a row may be read
+  // 16 bytes past the key's end); issued by a warp of its own, since a
+  // step's 64-80 copies keep the issuing warp 4,000-5,000 clocks: it
+  // refills a slot once the 16 computing warps have arrived on its empty
+  // barrier.  Step i's slot, and the parity of its barriers' phase (the
+  // slot's (i / slots)-th use), with slots 1 or 2:
+  const int lg_slots = p.slots - 1;
+  auto slot_of = [&](int i) { return i & lg_slots; };
+  auto parity_of = [&](int i) { return (i >> lg_slots) & 1; };
   const int nrows = sh.slices * sh.ncols;
-  const uint32_t full = smem_addr(ring + 2 * (size_t)p.ring_slot);
+  const uint32_t full = smem_addr(ring + (size_t)p.slots * p.ring_slot);
   const uint32_t empty = full + 16;
   if (tid == 0) {
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < p.slots; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, KCHUNKS);
     }
@@ -181,7 +198,7 @@ __global__ void __launch_bounds__(BLOCK) blind_rotate_latency_kernel(
   __syncthreads();
   if (warp == KCHUNKS) {
     auto stage_key = [&](int i) {
-      const uint32_t bar = full + 8 * (i & 1);
+      const uint32_t bar = full + 8 * slot_of(i);
 #ifdef ABLATE_NO_KEY
       if (lane == 0) mbar_arrive(bar);  // (no key rows: times the rest)
       return;
@@ -190,7 +207,8 @@ __global__ void __launch_bounds__(BLOCK) blind_rotate_latency_kernel(
       __syncwarp();
       LatShape ks = sh;
       ks.lhs = sh.lhs + (long long)i * p.step_bytes;
-      const uint32_t slot = smem_addr(ring + (size_t)(i & 1) * p.ring_slot);
+      const uint32_t slot =
+          smem_addr(ring + (size_t)slot_of(i) * p.ring_slot);
       for (int row = lane; row < nrows; row += 32) {
         const int sl = row / sh.ncols, c = row - sl * sh.ncols;
         const int ci = sl / sh.jblocks, jb = sl - ci * sh.jblocks;
@@ -199,26 +217,30 @@ __global__ void __launch_bounds__(BLOCK) blind_rotate_latency_kernel(
         bulk_copy(slot + row * sh.lhs_row, base, sh.lhs_row, bar);
       }
     };
-    // steps 0 and 1 at once; then, during step i, step i + 1's into the
-    // slot step i - 1 has left (no prefetch: step i's, during step i)
+    // step 0 (and, with two slots, step 1) at once; then, during step i,
+    // step j = i + 1's into the slot that step j - slots has left: with
+    // one slot, once step i's product has read it (no prefetch: step i's,
+    // during step i)
     stage_key(0);
 #ifndef ABLATE_NO_PREFETCH
-    if (p.n_small > 1) stage_key(1);
+    if (p.slots == 2 && p.n_small > 1) stage_key(1);
+    const int ahead = 1, first = p.slots;
+#else
+    const int ahead = 0, first = 1;
 #endif
     cluster_barrier();                  // the computing warps' first one
     for (int i = 0; i < p.n_small; ++i) {
-#ifdef ABLATE_NO_PREFETCH
-      if (i >= 1) {
-        mbar_wait(empty + 8 * (i & 1), ((i - 2) >> 1) & 1);
-        stage_key(i);
+      // step i's cluster barrier: this warp writes nothing another block
+      // reads, so it arrives at once and waits for the others last
+      cluster_arrive();
+      const int j = i + ahead;
+      if (j >= first && j < p.n_small) {
+        if (j >= p.slots)
+          mbar_wait(empty + 8 * slot_of(j), parity_of(j - p.slots));
+        stage_key(j);
       }
-#else
-      if (i >= 1 && i + 1 < p.n_small) {
-        mbar_wait(empty + 8 * ((i + 1) & 1), ((i - 1) >> 1) & 1);
-        stage_key(i + 1);
-      }
-#endif
-      cluster_barrier();                // step i's
+      __syncwarp();
+      cluster_wait();
     }
     return;
   }
@@ -306,7 +328,8 @@ __global__ void __launch_bounds__(BLOCK) blind_rotate_latency_kernel(
                               bands + (size_t)sl * sh.band_bytes),
                       ci, 0, tb - jb * sh.js - sh.js, w);
     }
-    mbar_wait(full + 8 * (i & 1), (i >> 1) & 1);   // step i's key rows
+    PHASE(0);
+    mbar_wait(full + 8 * slot_of(i), parity_of(i));  // step i's key rows
     compute_sync();
     PHASE(3);
     // 3. the product: warp kc takes k-steps [k_lo, k_hi) of the slices
@@ -318,7 +341,7 @@ __global__ void __launch_bounds__(BLOCK) blind_rotate_latency_kernel(
     //    tile) the K chunks' partials meet in their slots (over the
     //    digits, now dead) and are summed into the int32 planes in
     //    C-fragment order: red[pass][(q 4 + e) 32 + lane] for tile q
-    const unsigned char* slot = ring + (size_t)(i & 1) * p.ring_slot;
+    const unsigned char* slot = ring + (size_t)slot_of(i) * p.ring_slot;
     LatShape si = sh;
     si.lhs = sh.lhs + (long long)i * p.step_bytes;
     int pass = 0;
@@ -403,7 +426,7 @@ __global__ void __launch_bounds__(BLOCK) blind_rotate_latency_kernel(
       }
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * (i & 1));   // slot i & 1 read
+    if (lane == 0) mbar_arrive(empty + 8 * slot_of(i));   // step i's read
     PHASE(6);
 
     // 4. the recombine: acc[r, b, t] += sum_p plane_p << 8 (p + offset),
@@ -443,7 +466,7 @@ __global__ void __launch_bounds__(BLOCK) blind_rotate_latency_kernel(
 // The plan: ops/latency.py plan() computes the same numbers.
 struct Plan {
   LatShape sh;
-  int ltb, lg_ltb, passes, band_need, region, bands, ring_slot;
+  int ltb, lg_ltb, passes, band_need, region, bands, ring_slot, slots;
   size_t smem;
 };
 
@@ -487,8 +510,10 @@ bool make_plan(Plan& pl, int kp1, int levels, int d_limbs, int s_key, int n,
   const size_t bands = (size_t)sh.slices * sh.band_bytes;
   const size_t whole = (size_t)kp1 * n * 8;
   pl.bands = (int)(bands > whole ? bands : whole);
-  pl.smem = (size_t)pl.region + 2 * (size_t)kp1 * pl.ltb * 8 + pl.bands +
-            2 * (size_t)pl.ring_slot + 32;      // + the ring's mbarriers
+  const size_t fixed = (size_t)pl.region + 2 * (size_t)kp1 * pl.ltb * 8 +
+                       pl.bands + 32;           // + the ring's mbarriers
+  pl.slots = fixed + 2 * (size_t)pl.ring_slot <= MAX_SMEM ? 2 : 1;
+  pl.smem = fixed + pl.slots * (size_t)pl.ring_slot;
   return pl.smem <= MAX_SMEM;
 }
 
@@ -534,6 +559,7 @@ extern "C" int blind_rotate_latency(
   p.region = pl.region;
   p.bands = pl.bands;
   p.ring_slot = pl.ring_slot;
+  p.slots = pl.slots;
 
   cudaError_t err = cudaFuncSetAttribute(
       blind_rotate_latency_kernel,

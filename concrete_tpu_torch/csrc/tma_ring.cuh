@@ -3,7 +3,7 @@
 // csrc/blind_rotate_fused_latency.cu): a bulk copy (TMA) into shared
 // memory counted on an mbarrier, the arrival that makes the mbarrier wait
 // for its bytes, and the barrier that orders every block's shared-memory
-// writes before every block's reads.
+// writes before every block's reads (whole, or in its two halves).
 
 #pragma once
 
@@ -38,6 +38,17 @@ __device__ __forceinline__ void cluster_barrier() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 #endif
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The two halves of a cluster barrier, for a warp that writes nothing
+// another block reads: it arrives, does its own work, then waits for the
+// others.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 }  // namespace tma

@@ -9,14 +9,19 @@ runs all n_small steps for all B ciphertexts in one launch: one
 thread-block cluster per ciphertext, its blocks splitting the outputs t,
 each block's slice of the accumulator double-buffered in its shared
 memory and read by the others through distributed shared memory, the key
-rows staged in a 2-slot ring.  Its plain version is that scan on the plain
-versions of kernel 1, kernel 9's latency form and the recombine.
+rows staged in a ring of two whole steps, or of one where two do not fit.
+Its plain version is that scan on the plain versions of kernel 1, kernel
+9's latency form and the recombine.
 
 ``plan`` is the shape rule: the shapes whose block fits the card's shared
-memory (the B <= 4 latency shape, N=1024, k+1 = 2, l = 4, 4 kept key
-limbs; k+1 = 3 with two digit limbs).  ``core.kernels`` sends a CUDA
-accumulator at any other shape to the three-kernel step loop.  This is the
-banded key's form; a fused (CRT-NTT) key at B <= 4 takes
+memory.  Two ring slots: the B <= 4 latency shape (N=1024, k+1 = 2, l = 4,
+4 kept key limbs), k+1 = 3 with two digit limbs, N=2048 at l = 2 and 4 key
+limbs.  One slot: GameOfLife's lookups (N=2048, k+1 = 2, l = 2, base 2^7,
+5 kept key limbs), N=2048 at l = 2 up to 8 key limbs, the latency shape's
+untruncated key (8 limbs) and ``examples/table_lookup.py``'s (k+1 = 5,
+N=256, l = 3, 8 limbs).  ``core.kernels`` sends a CUDA accumulator at any
+other shape to the three-kernel step loop.  This is the banded key's
+form; a fused (CRT-NTT) key at B <= 4 takes
 ``ops.fused_latency``'s kernel, and its three-kernel loop
 (``ops.fused_ntt``) elsewhere.
 ``blind_rotate_latency`` launches the kernel on CUDA tensors, raises at a
@@ -71,7 +76,10 @@ class Plan:
     t each (a power of two); K slices of `js` j (`slices` of them); shared
     memory `smem` = `region` (digits, then the int32 planes) + the
     accumulator slice's two buffers + the slices' bands (first the whole
-    accumulator's copy) + 2 x `ring_slot` (the key ring)."""
+    accumulator's copy) + `slots` x `ring_slot` (the key ring, a whole
+    step's rows a slot: two slots where they fit, step i + 1 staged while
+    step i computes, else one, refilled once step i's product has read
+    it) + the ring's 4 mbarriers."""
     cluster: int
     ltb: int
     js: int
@@ -79,6 +87,7 @@ class Plan:
     band_bytes: int
     region: int
     ring_slot: int
+    slots: int
     smem: int
 
 
@@ -115,12 +124,14 @@ def plan(batch: int, n: int, kp1: int, levels: int, d_limbs: int,
     region = -(-max(dig, red) // 16) * 16
     ring_slot = slices * slice_bytes
     bands = max(slices * band_bytes, kp1 * n * 8)   # or the acc's copy
-    smem = region + 2 * kp1 * ltb * 8 + bands + 2 * ring_slot + 32
+    fixed = region + 2 * kp1 * ltb * 8 + bands + 32
+    slots = 2 if fixed + 2 * ring_slot <= MAX_SMEM else 1
+    smem = fixed + slots * ring_slot
     if smem > MAX_SMEM:
         return None
     return Plan(cluster=cluster, ltb=ltb, js=js, slices=slices,
                 band_bytes=band_bytes, region=region, ring_slot=ring_slot,
-                smem=smem)
+                slots=slots, smem=smem)
 
 
 def _shape(a_t: torch.Tensor, acc: torch.Tensor, planes: torch.Tensor,

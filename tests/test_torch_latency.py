@@ -15,12 +15,17 @@ and runs kernel 9's fragments warp by warp: 16 K chunks over all 4
 t-tiles, tiles 2 and 3 taking the A fragments tiles 0 and 1 had a k-step
 before; the partials are kept in C-fragment order and read back by the
 recombine's index arithmetic into the other buffer.  The key rows come
-from a 2-slot ring.  The blocks of a step run one after another, so a
-single accumulator buffer would show.  chip_smoke.py holds the CUDA
+from each block's ring of two whole steps, or of one where two do not fit
+(the shape rule forced down at small shapes), refilled as the kernel's
+producer warp refills it.  The blocks of a step run one after another, so
+a single accumulator buffer would show.  chip_smoke.py holds the CUDA
 kernel to the plain version on the card.
 """
 
+import math
+import re
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -39,6 +44,10 @@ from concrete_tpu_torch.core import limbs as tlb
 from concrete_tpu_torch.ops import latency as tlat
 
 M32 = (1 << 32) - 1
+
+
+def _csrc(name):
+    return (Path(tlat.__file__).parent.parent / "csrc" / name).read_text()
 
 
 def _case(rng, batch, kp1, levels, n, s_key, base_log, n_small):
@@ -130,7 +139,9 @@ def emulate_persistent(a_t, acc0, planes, *, kp1, levels, base_log,
     one accumulator buffer), "slot_off_by_one" (the product reads the ring
     slot of the next step), "limb_offset" (the recombine shifts one limb
     further), "no_reuse_shift" (tiles 2, 3 take tiles 0, 1's A fragments
-    of the same k-step instead of the previous one)."""
+    of the same k-step instead of the previous one), "early_refill" (a
+    one-slot ring refilled with step i + 1's rows before the last pass of
+    step i has read it)."""
     batch, n_small = a_t.shape
     n = acc0.shape[2]
     s_key = planes.shape[3]
@@ -152,14 +163,15 @@ def emulate_persistent(a_t, acc0, planes, *, kp1, levels, base_log,
     step_bytes = cin * kp1 * s_key * vlen
     strides = (vlen, s_key * vlen, kp1 * s_key * vlen)   # a, r, ci
     y0 = G - 4 * TG + js - 3
-    ring = [None, None]
+    passes = ltb // 64 * d_limbs * ntiles
+    staged = {}
 
-    def stage_key(i):
-        """Step i's key rows into slot i & 1: each from the 16-byte
-        boundary at or below its start, js + 16 bytes, zeros past the
-        storage, as words; with its offset m past the boundary."""
-        if i >= n_small:
-            return
+    def key_rows(i):
+        """Step i's key rows as the producer stages them: each from the
+        16-byte boundary at or below its start, js + 16 bytes, zeros past
+        the storage, as words; with its offset m past the boundary."""
+        if i in staged:
+            return staged[i]
         rows = {}
         for sl in range(pl.slices):
             ci, jb = divmod(sl, jblocks)
@@ -171,22 +183,38 @@ def emulate_persistent(a_t, acc0, planes, *, kp1, levels, base_log,
                                mem[np.minimum(idx, len(mem) - 1)], 0)
                 rows[sl, c] = (win.astype(np.uint8).view("<u4")
                                .astype(np.uint64), addr & 15)
-        ring[i & 1] = rows
+        staged[i] = rows
+        return rows
+
+    # ring[b][rank]: that block's slots, each the step whose rows it holds
+    ring = [[[None] * pl.slots for _ in range(pl.cluster)]
+            for _ in range(batch)]
+
+    def stage_key(b, rank, i):
+        """Step i's key rows into block (b, rank)'s slot i mod slots."""
+        if i < n_small:
+            ring[b][rank][i % pl.slots] = i
 
     # mine[b][rank]: that block's two buffers of its t slice (k+1, ltb)
     mine = [[[acc0[:, b, rank * ltb:(rank + 1) * ltb].copy(),
               np.zeros((kp1, ltb), np.uint64)]
              for rank in range(pl.cluster)] for b in range(batch)]
-    stage_key(0)
-    stage_key(1)
+    for b in range(batch):
+        for rank in range(pl.cluster):
+            for i in range(pl.slots):
+                stage_key(b, rank, i)
     order = np.random.default_rng(seed)
     for i in range(n_small):
         cur, nxt = (0, 0) if mutation == "single_buffer" else \
             (i & 1, (i + 1) & 1)
-        rows = ring[(i + 1) & 1 if mutation == "slot_off_by_one" else i & 1]
+        slot = (i + 1 if mutation == "slot_off_by_one" else i) % pl.slots
         for b in order.permutation(batch):
             for rank in range(pl.cluster):
                 tb = rank * ltb
+                if pl.slots == 2 and i >= 1:
+                    # during step i, step i + 1's rows into the slot that
+                    # step i - 1 has left
+                    stage_key(b, rank, i + 1)
                 # every block's slice of buffer `cur`, as the block reads it
                 whole = np.concatenate([mine[b][r][cur]
                                         for r in range(pl.cluster)], axis=1)
@@ -201,9 +229,15 @@ def emulate_persistent(a_t, acc0, planes, *, kp1, levels, base_log,
                 # the int32 planes in C-fragment order: per pass (64-t
                 # group, digit limb, n tile), word (q 4 + e) 32 + lane
                 red = np.zeros((ltb // 64, d_limbs, ntiles, 512), np.int64)
+                done = 0                 # passes of step i run
                 for t0 in range(0, ltb, 64):
                     for s in range(d_limbs):
                         for nt in range(ntiles):
+                            if mutation == "early_refill" \
+                                    and done == passes - 1:
+                                stage_key(b, rank, i + 1)
+                            rows = key_rows(ring[b][rank][slot])
+                            done += 1
                             for kc in range(KCHUNKS):
                                 # warp kc: K chunk kc, every t-tile
                                 acc = np.zeros((4, 16, 8), np.int64)
@@ -241,6 +275,10 @@ def emulate_persistent(a_t, acc0, planes, *, kp1, levels, base_log,
                                             (q * 4 + e) * 32 + LANES] += \
                                             acc[q][G + 8 * (e >> 1),
                                                    2 * TG + (e & 1)]
+                if pl.slots == 1:
+                    # every warp has arrived on the slot's empty barrier:
+                    # step i + 1's rows into it, during the recombine
+                    stage_key(b, rank, i + 1)
                 new = mine[b][rank][cur].copy()
                 tl = np.arange(ltb)
                 q, row = (tl & 63) >> 4, tl & 15
@@ -261,7 +299,6 @@ def emulate_persistent(a_t, acc0, planes, *, kp1, levels, base_log,
                             8 * (p + off))
                     new[r] += add
                 mine[b][rank][nxt] = new
-        stage_key(i + 2)
     last = n_small & 1 if mutation != "single_buffer" else 0
     return np.stack([np.concatenate([mine[b][r][last]
                                      for r in range(pl.cluster)], axis=1)
@@ -296,17 +333,70 @@ def test_persistent_design_matches_plain(batch, kp1, levels, n, s_key,
     assert np.array_equal(got, want)
 
 
+def _force_rule(monkeypatch, case, slots, cluster):
+    """Force the shape rule down at a small shape: clusters of at most
+    `cluster` blocks (more outputs t a block), and a key ring of one slot
+    where two would fit (the budget cut to the one-slot layout)."""
+    batch, kp1, levels, n, s_key, base_log = case[:6]
+    args = (batch, n, kp1, levels, tlb.num_digit_limbs(base_log), s_key)
+    if cluster is not None:
+        monkeypatch.setattr(tlat, "MAX_CLUSTER", cluster)
+    pl = tlat.plan(*args)
+    if slots == 1 and pl.slots == 2:
+        monkeypatch.setattr(tlat, "MAX_SMEM", pl.smem - pl.ring_slot)
+    pl = tlat.plan(*args)
+    assert pl.slots == slots
+    return pl
+
+
+FORCED_CASES = [
+    # DESIGN_CASES[0] + (slots, most blocks a cluster)
+    (*DESIGN_CASES[0], 1, None),
+    # GameOfLife's key form: l = 2, base 2^7, 5 key limbs at offset 3;
+    # two 64-t groups a block, as at its N=2048
+    (2, 2, 2, 256, 5, 7, 3, 3, 1, 2),
+    (1, 2, 1, 256, 4, 5, 3, 4, 2, 2),
+]
+
+
+@pytest.mark.parametrize(
+    "batch,kp1,levels,n,s_key,base_log,n_small,limb_offset,slots,cluster",
+    FORCED_CASES, ids=["b1-k2-one-slot", "b2-gol-form-ltb128-one-slot",
+                       "b1-ltb128-two-slots"])
+def test_persistent_design_forced_rule_matches_plain(
+        batch, kp1, levels, n, s_key, base_log, n_small, limb_offset, slots,
+        cluster, monkeypatch):
+    """The rehearsal under the rule forced down == the plain version: a key
+    ring of one slot, refilled with step i + 1's rows once step i's last
+    pass has read it, and blocks of 128 outputs t (two 64-t groups, as
+    GameOfLife's N=2048 gives), with one slot and with two."""
+    case = (batch, kp1, levels, n, s_key, base_log)
+    pl = _force_rule(monkeypatch, case, slots, cluster)
+    assert pl.ltb == (64 if cluster is None else n // cluster)
+    rng = np.random.default_rng(batch * 1000 + n + s_key)
+    a_t, acc, planes = _case(rng, batch, kp1, levels, n, s_key, base_log,
+                             n_small)
+    want = _plain(a_t, acc, planes, kp1, levels, base_log, limb_offset)
+    with threadpool_limits(1):
+        got = emulate_persistent(a_t, acc, planes, kp1=kp1, levels=levels,
+                                 base_log=base_log, limb_offset=limb_offset)
+    assert np.array_equal(got, want)
+
+
 @pytest.mark.parametrize("mutation", ["single_buffer", "sign_at_zero",
                                       "limb_offset", "slot_off_by_one",
-                                      "no_reuse_shift"])
+                                      "no_reuse_shift", "early_refill"])
 def test_persistent_design_mutations_fail(mutation, monkeypatch):
     """The rehearsal has teeth: one accumulator buffer read after another
     block's write, the band's sign boundary moved to u <= 0, the recombine
-    one limb off, the key ring's slot a step off, or the reused A
-    fragments taken from the same k-step, each gives another
-    accumulator."""
+    one limb off, the key ring's slot a step off, the reused A fragments
+    taken from the same k-step, or a one-slot ring refilled with the next
+    step's rows before the step's last pass has read it, each gives
+    another accumulator."""
     batch, kp1, levels, n, s_key, base_log, n_small, limb_offset = \
         DESIGN_CASES[0]
+    if mutation == "early_refill":
+        _force_rule(monkeypatch, DESIGN_CASES[0], 1, None)
     rng = np.random.default_rng(3)
     a_t, acc, planes = _case(rng, batch, kp1, levels, n, s_key, base_log,
                              n_small)
@@ -321,20 +411,23 @@ def test_persistent_design_mutations_fail(mutation, monkeypatch):
     assert not np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("truncate", [0, 4], ids=["full", "truncated"])
+@pytest.mark.parametrize("truncate,levels,base_log", [
+    (0, 3, 6), (4, 3, 6),
+    # GameOfLife's key form: 5 kept limbs, l = 2, base 2^7
+    (3, 2, 7)], ids=["full", "truncated", "gol-form"])
 @pytest.mark.parametrize("batch", [1, 2, 3, 4])
-def test_blind_rotate_latency_plain_matches_jax(batch, truncate,
-                                                monkeypatch):
+def test_blind_rotate_latency_plain_matches_jax(batch, truncate, levels,
+                                                base_log, monkeypatch):
     """The port's latency blind rotate on the CPU, which takes the plain
     version of the persistent kernel, == the JAX package's
     _blind_rotate_xla_latency at B = 1 .. 4, with and without a truncated
-    key."""
-    params = CryptoParams.make(n_small=6, glwe_dimension=1,
-                               polynomial_size=256, pbs_level=3,
-                               pbs_base_log=6, ks_level=2, ks_base_log=4)
-    tparams = tpp.CryptoParams.make(
-        n_small=6, glwe_dimension=1, polynomial_size=256, pbs_level=3,
-        pbs_base_log=6, ks_level=2, ks_base_log=4)
+    key, and at GameOfLife's key form (the persistent kernel's one-slot
+    shape on the card) at a small N."""
+    shape = dict(n_small=6, glwe_dimension=1, polynomial_size=256,
+                 pbs_level=levels, pbs_base_log=base_log, ks_level=2,
+                 ks_base_log=4)
+    params = CryptoParams.make(**shape)
+    tparams = tpp.CryptoParams.make(**shape)
     n, kp1 = params.polynomial_size, params.glwe_dimension + 1
     rng = np.random.default_rng(40 + batch + truncate)
     ct = rng.integers(0, 1 << 64, (batch, params.n_small + 1),
@@ -373,7 +466,8 @@ def test_plan_takes_the_latency_shapes():
         pl = tlat.plan(batch, p.polynomial_size, p.glwe_dimension + 1,
                        p.pbs_level, tlb.num_digit_limbs(p.pbs_base_log), keep)
         assert pl is not None and (pl.cluster, pl.ltb) == (16, 64)
-        assert pl.smem <= tlat.MAX_SMEM
+        # the layout the kernel has had since it was written: two slots
+        assert (pl.slots, pl.smem) == (2, 203808)
     assert tlat.plan(2, 1024, 3, 2, 2, 4) is not None
     for case in DESIGN_CASES:
         batch, kp1, levels, n, s_key, base_log = case[:6]
@@ -381,9 +475,76 @@ def test_plan_takes_the_latency_shapes():
                          tlb.num_digit_limbs(base_log), s_key) is not None
 
 
+def test_plan_takes_gol_shape_with_one_slot():
+    """GameOfLife(16, 16)'s lookups as the port compiles them at the
+    default Configuration() (N=2048, k+1 = 2, l = 2, base 2^7: one digit
+    limb, 5 kept key limbs) fit with a key ring of one slot, at B = 1 ..
+    4: two steps' rows (2 x 83,200 bytes) would take 241,184 bytes; and
+    blocks of 128 outputs t, 16 to a cluster."""
+    for batch in (1, 2, 3, 4):
+        pl = tlat.plan(batch, 2048, 2, 2, 1, 5)
+        assert pl is not None
+        assert (pl.cluster, pl.ltb, pl.slots) == (16, 128, 1)
+        assert (pl.ring_slot, pl.smem) == (83200, 157984)
+    # 4 key limbs at the same N keep their two slots
+    assert tlat.plan(1, 2048, 2, 2, 1, 4).slots == 2
+
+
+@pytest.mark.parametrize("batch,n,kp1,levels,d_limbs,s_key,smem", [
+    (1, 1024, 2, 4, 1, 8, 203808),  # the latency shape's untruncated key
+    (4, 1024, 2, 4, 1, 8, 203808),
+    (1, 2048, 2, 2, 1, 8, 207904),  # N=2048, l = 2, 8 key limbs
+    (1, 256, 5, 3, 1, 8, 216096),   # examples/table_lookup.py's, untruncated
+], ids=["latency-s8", "latency-s8-b4", "n2048-s8", "table-lookup-s8"])
+def test_plan_takes_untruncated_keys_with_one_slot(batch, n, kp1, levels,
+                                                   d_limbs, s_key, smem):
+    """8 kept key limbs fit with one slot where they would not with two:
+    the latency shape's and table_lookup's untruncated keys (the compile
+    phase's) run in one launch too."""
+    pl = tlat.plan(batch, n, kp1, levels, d_limbs, s_key)
+    assert pl is not None and (pl.slots, pl.smem) == (1, smem)
+    assert pl.smem + pl.ring_slot > tlat.MAX_SMEM
+
+
+def test_plan_layout_is_the_kernels():
+    """plan()'s limits are the kernel's constants, and it lays shared
+    memory out and picks the ring's slots as make_plan does: the region,
+    the accumulator slice's two buffers, the bands, `slots` ring slots of
+    a whole step and 4 mbarriers; two slots where they fit, else one."""
+    src = _csrc("blind_rotate_latency.cu")
+    consts = {name: math.prod(int(f) for f in expr.split("*"))
+              for name, expr in re.findall(
+                  r"constexpr \w+ (MAX_\w+) = ([\d *]+);", src)}
+    assert consts == {"MAX_SMEM": tlat.MAX_SMEM,
+                      "MAX_CLUSTER": tlat.MAX_CLUSTER}
+    shared = _csrc("banded_latency.cuh")
+    assert f"constexpr int LT = {tlat.LT};" in shared
+    assert f"constexpr int JS_MAX = {tlat.JS_MAX};" in shared
+    rule = re.sub(r"\s+", " ", src[src.index("bool make_plan("):])
+    for line in (
+            "const size_t fixed = (size_t)pl.region + 2 * (size_t)kp1 * "
+            "pl.ltb * 8 + pl.bands + 32;",
+            "pl.slots = fixed + 2 * (size_t)pl.ring_slot <= MAX_SMEM ? 2 : 1;",
+            "pl.smem = fixed + pl.slots * (size_t)pl.ring_slot;",
+            "return pl.smem <= MAX_SMEM;"):
+        assert line in rule, line
+    for args in ((1, 1024, 2, 4, 1, 4), (1, 2048, 2, 2, 1, 5),
+                 (1, 256, 5, 3, 1, 8), (2, 1024, 3, 2, 2, 4)):
+        batch, n, kp1, levels, d_limbs, s_key = args
+        pl = tlat.plan(*args)
+        fixed = pl.region + 2 * kp1 * pl.ltb * 8 + max(
+            pl.slices * pl.band_bytes, kp1 * n * 8) + 32
+        assert pl.slots == (2 if fixed + 2 * pl.ring_slot <= tlat.MAX_SMEM
+                            else 1)
+        assert pl.smem == fixed + pl.slots * pl.ring_slot
+        assert pl.ring_slot == pl.slices * kp1 * s_key * (pl.js + 16)
+        assert all(x % 16 == 0 for x in (pl.region, pl.band_bytes,
+                                         pl.ring_slot))
+
+
 @pytest.mark.parametrize("batch,n,kp1,levels,d_limbs,s_key", [
-    (1, 2048, 2, 4, 1, 4),      # the key ring of two steps: 266 KB
-    (2, 1024, 3, 4, 1, 4),      # Cin = 12, 12 columns: 312 KB
+    (1, 2048, 2, 4, 1, 4),      # l = 4: 278,560 bytes with one ring slot
+    (2, 1024, 3, 4, 1, 4),      # Cin = 12, 12 columns: 255,776 with one
     (9, 1024, 2, 4, 1, 4),      # more clusters than the card holds at once
     (1, 32, 2, 1, 1, 4),        # fewer outputs than one 64-t group
     (1, 1000, 2, 4, 1, 4),      # N not a multiple of the 64-t group

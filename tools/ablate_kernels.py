@@ -306,9 +306,6 @@ def main(wanted: list[str]) -> None:
         # the instrumented builds: clocks per phase of one lookup's steps
         # in block 0 of the cluster (thread 0, from one block or cluster
         # barrier to the next)
-        phases = ("", "acc copy in", "digits", "bands and key wait",
-                  "MMA", "warp reduction", "slot release",
-                  "recombine and cluster barrier")
         for idx, (label, switches) in enumerate(VARIANTS_BR.items()):
             if "PHASE_CLOCKS" not in switches:
                 continue
@@ -318,7 +315,8 @@ def main(wanted: list[str]) -> None:
             _build.check(label, call_br(loaded[f"BR_{idx}"][0]))
             torch.cuda.synchronize()
             _build.check(label, lib.blind_rotate_latency_phases(clocks))
-            per_step = {phases[k]: clocks[k] / n_small for k in range(1, 8)}
+            per_step = {name: c / n_small
+                        for name, c in zip(cs.LATENCY_PHASES, clocks)}
             results.append({"kernel": "blind_rotate_latency",
                             "variant": label, "clocks_per_step": per_step})
             print(f"kernel BR, {label}, clocks per step by phase: "
