@@ -136,8 +136,7 @@
    version on the card on the same inputs (the key packs' too);
    StaticKeyValueDatabase over 2 keys (0 and 30: the 16-key database's
    N=2048 fused key, truncated) also against the same run on CPU copies
-   of the keys; and PrivateInformationRetrieval at 64 rows, whose row
-   fetch needs WoP-PBS, refused with ROADMAP item 7.  Requests are random
+   of the keys.  Requests are random
    inputs within the bounds the compile's inputset measured, through
    ``Circuit.run`` on the keys its packing rule gives.  Where the rule
    truncates a fused key (its noise is a reference fault, ROADMAP queue
@@ -151,13 +150,22 @@
    ``Circuit.run`` (and on the exact key, as above) and decrypted
    against the graph's clear evaluation (rounding ties, which the noise
    decides in both packages, counted apart), every kernel call held to
-   its plain version on the same inputs;
-10. prints one JSON line per the kernels run (each one's launches
-   include those of the models phase's requests), then the result line.
+   its plain version on the same inputs; then fhe.bits, fhe.crt_tlu and a
+   10-bit lookup (WoP-PBS at N=256), also held to the CPU's plain path;
+10. the wop phase: kernel 3's keyed entry (a key per ciphertext) and
+   kernel 2's pack entry at the vertical packing's shapes against their
+   plain versions, timed; PrivateInformationRetrieval over 32 rows of 16
+   (a 9-bit WoP row fetch at N=4096) served as the models are, with its
+   PFPKSK generated, split and uploaded and its launches by kernel; PIR
+   over 64 rows compiled, its PFPKSK's size printed, not served;
+11. prints one JSON line per the kernels run (each one's launches
+   include those of the models and wop phases' requests), then the
+   result line.
 
 Any failed phase exits non-zero before the result line.  Without CUDA, or
 next to no checkout of the port, it exits non-zero at once.
-``tools/smoke_phases.py`` runs the models and node-kinds phases alone.
+``tools/smoke_phases.py`` runs the models, node-kinds and wop phases
+alone.
 """
 
 from __future__ import annotations
@@ -239,10 +247,13 @@ KVDB_VALUES = [(3 * i + 1) % 16 for i in range(16)]
 # primes, 27 bits), and 2 lookups, few enough for the CPU's plain path
 KVDB_CPU_KEYS = [0, 30]
 HAMMING = (32, 4)                       # words, bits a word
-# 16 rows: at 64 the product ones * index is 11 bits wide and the row
-# fetch lowers to WoP-PBS (ROADMAP queue 1 item 7), which the port refuses
+# 16 rows: the row fetch is a native lookup; at 32 rows it is 9 bits wide
+# and lowers to WoP-PBS (the wop phase serves it), at 64 rows 11 bits (the
+# wop phase compiles it; its PFPKSK of 65,544 GLWE rows is not generated)
 PIR_SHAPE = (16, 16)
-PIR_REFUSED_SHAPE = (64, 16)
+PIR_WOP_SHAPE = (32, 16)
+PIR_COMPILED_SHAPE = (64, 16)
+KEYED = "crt_external_product_keyed"
 LOOKUP_KINDS = ("tlu", "univariate", "multivariate", "dynamic_tlu")
 # Operations bounds of the CRT-NTT kernels.  The NTT kernels (2, 3) are
 # charged the instructions of their butterflies, pointwise multiply-adds
@@ -1270,56 +1281,151 @@ def compile_phase(rng):
             "table_lookup": lookup}
 
 
-def lookup_forms(circuit, bsk) -> dict:
-    """{uid: (kind, batch, form, launches)} of every encrypted lookup node:
-    the blind-rotate form that core.kernels.blind_rotate takes for its
-    batch and key (the persistent kernel where ops/latency.plan takes the
-    shape, else the step loop, at B <= LATENCY_BATCH_MAX; the banded scan
-    above; for a fused key, the CRT-NTT kernel of ops/fused_latency.py
-    where its plan takes the shape at B <= LATENCY_BATCH_MAX, else the
-    CRT-NTT loop) and the port launches a run of the node makes there."""
-    import numpy as np
+def br_form(bsk, p, batch: int, min_scale: int = None) -> tuple:
+    """(form, launches) of one blind rotate of `batch` ciphertexts on the
+    packed key `bsk` at parameters `p`: the form core.kernels.blind_rotate
+    takes (the persistent kernel where ops/latency.plan takes the shape,
+    else the step loop, at B <= LATENCY_BATCH_MAX; the banded scan above;
+    for a fused key, the CRT-NTT kernel of ops/fused_latency.py where its
+    plan takes the shape and the accumulator's mode at B <=
+    LATENCY_BATCH_MAX, else the CRT-NTT loop; `min_scale`, a WoP sign
+    PBS's smallest output scale, gates the acc32 mode) and the port
+    launches it makes there."""
     from concrete_tpu_torch.core import kernels as kn
     from concrete_tpu_torch.core import limbs as lb
     from concrete_tpu_torch.ops import fused_latency as fl
     from concrete_tpu_torch.ops import latency as lat
     from concrete_tpu_torch.ops.fused_ntt import FusedBSK, acc32_eligible
-    p = circuit.client_specs.params
     steps = p.n_small
+    if isinstance(bsk, FusedBSK):
+        plan = fl.plan(batch, p.polynomial_size, p.glwe_dimension + 1,
+                       bsk.levels, len(bsk.primes),
+                       acc32_eligible(bsk, min_scale)) \
+            if batch <= kn.LATENCY_BATCH_MAX else None
+        if plan is None:
+            return "fused loop", dict.fromkeys(FUSED_KERNELS, steps)
+        return f"fused persistent kernel (cluster of {plan.cluster})", \
+            {fl.NAME: 1}
+    if batch > kn.LATENCY_BATCH_MAX:
+        return f"banded scan ({kn.BANDED_MM_MODE})", {
+            "rotate_decompose": steps, "external_product_accumulate": steps}
+    s_key = bsk.planes.shape[3]
+    plan = lat.plan(batch, p.polynomial_size, p.glwe_dimension + 1,
+                    p.pbs_level, lb.num_digit_limbs(p.pbs_base_log), s_key)
+    if plan is None:
+        return f"step loop ({s_key} key limbs)", \
+            dict.fromkeys(LATENCY_KERNELS, steps)
+    return f"persistent kernel (cluster of {plan.cluster}, {s_key} key " \
+        f"limbs)", {lat.NAME: 1}
+
+
+def wop_counts(circuit) -> dict:
+    """The launches the WoP-PBS design fixes for one request: one pack of
+    each chunk's GGSWs (kernel 2's pack entry; a crt_tlu's sibling residues
+    share it) and nb keyed products for each vertical packing of a
+    chunk."""
+    import numpy as np
+    from concrete_tpu_torch.core import kernels_wop as kw
+    ex = circuit.server._executor
+    out, sets = {"ntt_forward_pack": 0, KEYED: 0}, set()
+    for node in circuit.graph.topological_order():
+        spec = ex.wop_specs.get(node.uid)
+        if spec is None:
+            continue
+        size = max(int(np.prod(node.output.shape)), 1)
+        chunks = -(-size // kw.chunk_size(ex.wop_params, spec.nb_bits))
+        key = tuple(q.uid for q in circuit.graph.ordered_preds_of(node)) \
+            if node.name == "crt_tlu" else node.uid
+        if key not in sets:
+            sets.add(key)
+            out["ntt_forward_pack"] += chunks
+        out[KEYED] += spec.nb_bits * chunks
+    return {k: v for k, v in out.items() if v}
+
+
+class wop_schedule:
+    """Within the block, the calls core/kernels_wop.py makes: each sign-PBS
+    batch (its rows and smallest output scale), each transform of a
+    chunk's GGSWs and each vertical packing (its bits).  launches(bsk, p)
+    gives the port launches those calls make on the packed key `bsk`: a
+    sign PBS its blind rotate's (br_form), a transform one of kernel 2's
+    pack entry, a vertical packing a keyed product and a Garner a bit and
+    kernel 1's digits a rotation bit; and the sign PBS's forms."""
+
+    NOTES = {
+        "sign_pbs_batch": lambda lwe, ksk, bsk, params, scales: (
+            lwe.shape[0], min(int(s) for s in scales)),
+        "ggsw_spectra": lambda *args: (),
+        "vertical_packing_batch": lambda lut, keys, wp: (keys.shape[1],)}
+
+    def __init__(self):
+        self.calls, self.saved = [], []
+
+    def __enter__(self):
+        from concrete_tpu_torch.core import kernels_wop as kw
+        for attr, note in self.NOTES.items():
+            fn = getattr(kw, attr)
+            self.saved.append((kw, attr, fn))
+
+            def recorded(*args, _fn=fn, _attr=attr, _note=note):
+                self.calls.append((_attr,) + _note(*args))
+                return _fn(*args)
+            setattr(kw, attr, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved:
+            setattr(module, attr, fn)
+
+    def launches(self, bsk, p) -> tuple:
+        out, forms = {}, set()
+
+        def add(name, n):
+            out[name] = out.get(name, 0) + n
+        for attr, *note in self.calls:
+            if attr == "sign_pbs_batch":
+                form, more = br_form(bsk, p, *note)
+                forms.add(form)
+                for k, v in more.items():
+                    add(k, v)
+            elif attr == "ggsw_spectra":
+                add("ntt_forward_pack", 1)
+            else:
+                nb = note[0]
+                add(KEYED, nb)
+                add("garner_accumulate", nb)
+                add("rotate_decompose_digits",
+                    min(nb, p.polynomial_size.bit_length() - 1))
+        return out, sorted(forms)
+
+
+def lookup_forms(circuit, bsk) -> dict:
+    """{uid: (kind, pbs, form, launches)} of every encrypted lookup node:
+    a native lookup is one blind rotate of its elements (pbs: the
+    elements), in the form br_form gives, with its launches; a WoP-PBS
+    node's pbs is the statistics' count (elements x extracted bits, and
+    for fhe.bits the lsb cascade's unshared count), its launches those
+    of the calls it makes (wop_schedule, read on the run)."""
+    import numpy as np
+    p = circuit.client_specs.params
+    ex = circuit.server._executor
     forms = {}
     for node in circuit.graph.topological_order():
-        if node.name not in LOOKUP_KINDS or not node.output.is_encrypted:
+        if not node.output.is_encrypted or not (
+                node.name in LOOKUP_KINDS + ("crt_tlu", "extract_bits")):
             continue
         batch = max(int(np.prod(node.output.shape)), 1)
-        if isinstance(bsk, FusedBSK):
-            plan = fl.plan(batch, p.polynomial_size, p.glwe_dimension + 1,
-                           bsk.levels, len(bsk.primes),
-                           acc32_eligible(bsk)) \
-                if batch <= kn.LATENCY_BATCH_MAX else None
-            if plan is None:
-                form = "fused loop"
-                launches = dict.fromkeys(FUSED_KERNELS, steps)
-            else:
-                form = f"fused persistent kernel (cluster of " \
-                    f"{plan.cluster})"
-                launches = {fl.NAME: 1}
-        elif batch > kn.LATENCY_BATCH_MAX:
-            form = f"banded scan ({kn.BANDED_MM_MODE})"
-            launches = {"rotate_decompose": steps,
-                        "external_product_accumulate": steps}
-        else:
-            s_key = bsk.planes.shape[3]
-            plan = lat.plan(batch, p.polynomial_size, p.glwe_dimension + 1,
-                            p.pbs_level, lb.num_digit_limbs(p.pbs_base_log),
-                            s_key)
-            if plan is None:
-                form = f"step loop ({s_key} key limbs)"
-                launches = dict.fromkeys(LATENCY_KERNELS, steps)
-            else:
-                form = f"persistent kernel (cluster of {plan.cluster}, " \
-                    f"{s_key} key limbs)"
-                launches = {lat.NAME: 1}
-        forms[node.uid] = (node.name, batch, form, launches)
+        spec = ex.wop_specs.get(node.uid)
+        if spec is None and node.name != "extract_bits":
+            forms[node.uid] = (node.name, batch) + br_form(bsk, p, batch)
+        elif spec is not None:
+            forms[node.uid] = (node.name, batch * spec.nb_bits, "WoP-PBS",
+                               {})
+        else:       # the statistics' unshared count of the lsb cascade
+            positions = node.properties["kwargs"]["positions"]
+            forms[node.uid] = (node.name,
+                               batch * (max(positions) + len(positions)),
+                               "WoP-PBS", {})
     return forms
 
 
@@ -1331,13 +1437,14 @@ def key_form(bsk) -> str:
     return f"banded, {bsk.truncate_limbs} limbs truncated"
 
 
-def cpu_keys(ksk, bsk):
-    """CPU copies of a packed key pair (LimbKSK, LimbBSK or FusedBSK)."""
+def cpu_keys(*keys):
+    """CPU copies of packed keys (LimbKSK, LimbBSK or FusedBSK[,
+    LimbPFPKSK])."""
     import dataclasses
     import torch
     return tuple(dataclasses.replace(k, **{
         f.name: getattr(k, f.name).cpu() for f in dataclasses.fields(k)
-        if isinstance(getattr(k, f.name), torch.Tensor)}) for k in (ksk, bsk))
+        if isinstance(getattr(k, f.name), torch.Tensor)}) for k in keys)
 
 
 def covered_draws(circuit, draw, count: int, limit: int = 5000):
@@ -1364,7 +1471,8 @@ def exact_keys(circuit, ev):
     """None where the packing rule's key pair `ev` (what Circuit.run serves
     on) holds no truncated fused key; else the pair that decryptions are
     held on: the rule's KSK and the exact fused key (no bits dropped, the
-    fewest primes whose range holds the external product).  The JAX
+    fewest primes whose range holds the external product), and a WoP
+    circuit's PFPKSK.  The JAX
     package's fused truncation rule admits keys too noisy for their output
     width (ROADMAP queue 3); the port keeps its bits, so the rule's key
     serves the path and this one the decryption check."""
@@ -1380,7 +1488,7 @@ def exact_keys(circuit, ev):
                  >= host.required_bits(p, 0))
     exact = pack_bsk_fused(circuit.keys.server.bsk, p, primes=pool[:count],
                            trunc_bits=0, device=circuit.device)
-    return ev[0], exact
+    return (ev[0], exact) + tuple(ev[2:])
 
 
 class timed_calls:
@@ -1430,8 +1538,8 @@ def kernel_wrappers() -> dict:
                 (xp, "external_product_accumulate"), (bm, "banded_matmul"),
                 (bm, "banded_matmul_latency"), (rc, "recombine_accumulate"),
                 (lat, "blind_rotate_latency"), (fn, "crt_external_product"),
-                (fn, "garner_accumulate"), (tn, "ntt_forward_pack"),
-                (fl, FUSED_LATENCY))}
+                (fn, KEYED), (fn, "garner_accumulate"),
+                (tn, "ntt_forward_pack"), (fl, FUSED_LATENCY))}
 
 
 class same_inputs:
@@ -1556,20 +1664,49 @@ def serve_model(name, compile_fn, draw, wrong_of, cpu_check=False):
     from concrete_tpu_torch.core import keygen as kg
     from concrete_tpu_torch.core import kernels as kn
     from concrete_tpu_torch.ops import fused_ntt as fn
+    from concrete_tpu_torch.core import kernels_wop as kw
+    wp = specs.wop_params()
+    wop = None
+    if wp is not None:
+        # the memory check Circuit.run makes before any key exists
+        est = circuit.server.check_wop_memory()
+        p = specs.params
+        wop = {"gadgets": specs.wop_gadgets,
+               "nb_bits": [s.nb_bits for s in
+                           circuit.server._executor.wop_specs.values()],
+               "pfpksk_glwe_rows": (p.glwe_dimension + 1) * (p.n_big + 1)
+               * wp.pfks_level, "memory_estimates": est}
     t0 = time.perf_counter()
     with timed_calls({"bsk_s": (kg, "make_bsk"),
                       "ksk_s": (kg, "make_ksk")}) as keygen_parts:
         circuit.keygen(seed=SEED)
+        if wp is not None:          # the PFPKSK, on its own line below
+            t1 = time.perf_counter()
+            circuit.keys.wop_keys(wp)
+            keygen_parts.seconds["pfpksk_s"] = time.perf_counter() - t1
     keygen_s = time.perf_counter() - t0
     checks = same_inputs(name)
     t0 = time.perf_counter()
     with timed_calls({"ksk_split_and_upload_s": (kn, "pack_ksk"),
                       "banded_bsk_s": (kn, "pack_bsk"),
-                      "fused_bsk_s": (fn, "pack_bsk_fused")}) as pack_parts, \
-            checks:
+                      "fused_bsk_s": (fn, "pack_bsk_fused"),
+                      "pfpksk_upload_and_split_s": (kw, "pack_pfpksk"),
+                      "pfpksk_split_s": (kw, "split_u64_limbs")}) \
+            as pack_parts, checks:
         ev = circuit._evaluation_keys()    # what Circuit.run serves on
         torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
+    if wop is not None:
+        parts = pack_parts.seconds
+        parts["pfpksk_upload_s"] = parts["pfpksk_upload_and_split_s"] \
+            - parts["pfpksk_split_s"]
+        print(f"model {name}: WoP gadgets (cbs_level, cbs_base_log, "
+              f"pfks_level, pfks_base_log) {wop['gadgets']}, extracted bits "
+              f"{wop['nb_bits']}, PFPKSK {wop['pfpksk_glwe_rows']} GLWE "
+              f"rows, generated in {keygen_parts.seconds['pfpksk_s']:.2f} s; "
+              f"its split {parts['pfpksk_split_s']:.3f} s and upload "
+              f"{parts['pfpksk_upload_s']:.3f} s on the card; modeled bytes "
+              f"{wop['memory_estimates']}", flush=True)
     t0 = time.perf_counter()
     with checks:
         exact = exact_keys(circuit, ev)
@@ -1579,7 +1716,7 @@ def serve_model(name, compile_fn, draw, wrong_of, cpu_check=False):
     if lookups != sum(b for _, b, _, _ in forms.values()):
         fail(f"{name}: {lookups} PBS a run, the lookup nodes hold "
              f"{sum(b for _, b, _, _ in forms.values())}")
-    want = {}
+    want, wop_want = {}, wop_counts(circuit)
     for *_, launches in forms.values():
         for k, v in launches.items():
             want[k] = want.get(k, 0) + v
@@ -1590,16 +1727,28 @@ def serve_model(name, compile_fn, draw, wrong_of, cpu_check=False):
     encrypted = [circuit.encrypt(*x) for x in inputs]
     encrypted = [ct if isinstance(ct, tuple) else (ct,) for ct in encrypted]
 
+    sign_pbs_forms = set()
+
     def request(ct):
         before = dict(_build.LAUNCHES)
         t0 = time.perf_counter()
-        out = circuit.run(*ct)
+        with wop_schedule() as sched:
+            out = circuit.run(*ct)
         wall = time.perf_counter() - t0
         counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
                   if v - before.get(k, 0)}
-        if counts != want:
+        made, wop_forms = sched.launches(ev[1], specs.params)
+        if any(made.get(k, 0) != v for k, v in wop_want.items()):
+            fail(f"{name}: the WoP-PBS calls make {made}, the design "
+                 f"{wop_want} (a pack a chunk, nb keyed products a vertical "
+                 f"packing)")
+        expect = dict(want)
+        for k, v in made.items():
+            expect[k] = expect.get(k, 0) + v
+        if counts != expect:
             fail(f"{name}: a request launched {counts}, its lookup nodes' "
-                 f"forms give {want}")
+                 f"forms and WoP-PBS calls give {expect}")
+        sign_pbs_forms.update(wop_forms)
         return wall, out if isinstance(out, tuple) else (out,), counts
 
     wall, out, counts = request(encrypted[0])        # the path's run ...
@@ -1655,7 +1804,10 @@ def serve_model(name, compile_fn, draw, wrong_of, cpu_check=False):
           f"pack {pack_s:.3f} s "
           f"({ {k: round(v, 3) for k, v in pack_parts.seconds.items()} }); "
           f"{lookups} lookups a request; lookup nodes by "
-          f"form {by_form}; {MODEL_REQUESTS} requests within the compiled "
+          f"form {by_form}"
+          + (f", their sign PBS as {sorted(sign_pbs_forms)}"
+             if sign_pbs_forms else "")
+          + f"; {MODEL_REQUESTS} requests within the compiled "
           f"bounds in {draws} draws; Circuit.run request {wall:.4f} s, "
           f"output ciphertexts equal bit for bit to the archive-loaded "
           f"Server's"
@@ -1677,10 +1829,12 @@ def serve_model(name, compile_fn, draw, wrong_of, cpu_check=False):
             "keygen_s": keygen_s, "keygen_parts_s": keygen_parts.seconds,
             "pack_s": pack_s, "pack_parts_s": pack_parts.seconds,
             "lookups_per_request": lookups, "forms": by_form,
+            "sign_pbs_forms": sorted(sign_pbs_forms),
             "draws": draws, "wall_s": wall, "path_wrong": path_wrong,
             "wrong": wrong, "values": values, "launches": launches,
             "exact_key": None if exact is None else {
                 "bsk": key_form(exact[1]), "pack_s": exact_pack_s},
+            "wop": wop,
             "checked_on_served_inputs": checked, "cpu_plain_s": cpu_s,
             "traced": {"wall_s": traced_wall, "device_busy_ms": busy,
                        "idle_share": 1 - busy / (traced_wall * 1e3),
@@ -1694,8 +1848,7 @@ def models_phase(rng):
     """Five of the JAX package's model circuits, compiled by the port at the
     default Configuration() and served on the card (serve_model), then
     StaticKeyValueDatabase with 2 keys (KVDB_CPU_KEYS) also against CPU
-    copies of its keys, and the refusal of PrivateInformationRetrieval at
-    64 rows (WoP-PBS)."""
+    copies of its keys."""
     import numpy as np
     from concrete_tpu_torch import models as tm
     from concrete_tpu_torch.ops import latency as lat
@@ -1751,18 +1904,6 @@ def models_phase(rng):
         "kvdb_2_keys", small.compile,
         lambda: (int(rng.integers(0, KVDB_CPU_KEYS[1] + 2)),),
         wrong_of(small.query_clear), cpu_check=True)
-    wide = tm.PrivateInformationRetrieval(rng.integers(0, 16,
-                                                       PIR_REFUSED_SHAPE))
-    try:
-        wide.compile()
-    except NotImplementedError as e:
-        if "item 7" not in str(e):
-            fail(f"PIR at {PIR_REFUSED_SHAPE} refused with {e}")
-        print(f"PIR at {PIR_REFUSED_SHAPE} refuses as it should: {e}",
-              flush=True)
-    else:
-        fail(f"PIR at {PIR_REFUSED_SHAPE} compiled; its row fetch needs "
-             f"WoP-PBS")
     return out
 
 
@@ -1874,16 +2015,21 @@ def kinds_phase(rng):
     on the same inputs (same_inputs).  Where the packing rule's key is a
     truncated fused key (exact_keys), the same ciphertexts run again on
     the exact key, whose decryptions are held, and the rule's wrong count
-    is printed."""
+    is printed.  Then the WoP-PBS kinds (wop_kind_circuits, each at its
+    own configuration), whose output ciphertexts are also held to the
+    CPU's plain path on the same keys and ciphertexts."""
     import numpy as np
     import concrete_tpu_torch as tfhe
     from concrete_tpu_torch.ops import _build
     out = {}
     circuits = kind_circuits(tfhe, rng)
-    cases = [(name, case, {}) for name, case in circuits.items()]
+    cases = [(name, case, {}, False) for name, case in circuits.items()]
     cases.append(("lookups_approximate", circuits["lookups"],
-                  {"rounding_exactness": tfhe.Exactness.APPROXIMATE}))
-    for name, (statuses, fn, inputset, draw, kinds, ties), cfg in cases:
+                  {"rounding_exactness": tfhe.Exactness.APPROXIMATE}, False))
+    cases += [(name, case, cfg, True) for name, (case, cfg)
+              in wop_kind_circuits(tfhe, rng).items()]
+    for name, (statuses, fn, inputset, draw, kinds, ties), cfg, wop in cases:
+        approx = "rounding_exactness" in cfg
         t0 = time.perf_counter()
         circuit = tfhe.compiler(statuses)(fn).compile(
             inputset, tfhe.Configuration(**cfg))
@@ -1909,8 +2055,8 @@ def kinds_phase(rng):
             # approximate rounding may land a truncation a step up: its
             # rounded outputs are not held to the exact evaluation; a tie
             # of the exact one is counted apart
-            held_out = 3 if cfg else len(want)
-            tie = ties(*args) if ties and not cfg else {}
+            held_out = 3 if approx else len(want)
+            tie = ties(*args) if ties and not approx else {}
             wrong = values = flips = n_ties = 0
             for k, (d, w) in enumerate(zip(dec[:held_out], want[:held_out])):
                 off = np.asarray(d).reshape(-1) != np.asarray(w).reshape(-1)
@@ -1922,9 +2068,13 @@ def kinds_phase(rng):
                 n_ties += int(np.count_nonzero(mask))
             return wrong, values, flips, n_ties, wall
 
+        served_runs = []
+
         def served(enc):
             res = circuit.run(*enc)
-            return res if isinstance(res, tuple) else (res,)
+            res = res if isinstance(res, tuple) else (res,)
+            served_runs.append((enc, res))
+            return res
 
         def on_exact(enc):
             return circuit.server.run(*enc, evaluation_keys=exact)
@@ -1945,12 +2095,29 @@ def kinds_phase(rng):
                                                           counts)]
                     walls += [wall] if label == "path" else []
         checked = checks.check()
+        cpu_s = None
+        if wop:
+            # the WoP circuits' bits against the CPU's plain path on the
+            # same keys and ciphertexts
+            cpu = tfhe.Server(circuit.graph, circuit.client_specs,
+                              device="cpu")
+            t0 = time.perf_counter()
+            for enc, res in served_runs:
+                if any(not np.array_equal(a, b) for a, b in zip(
+                        res, cpu.run(*enc, evaluation_keys=cpu_keys(*ev)))):
+                    fail(f"kinds circuit {name}: the card's outputs differ "
+                         f"from the plain path's on the CPU")
+            cpu_s = time.perf_counter() - t0
         wrong, values, flips, n_ties = tally["path" if exact is None
                                              else "exact"]
         allowed = max(2, 1e-3 * values)
         p = circuit.client_specs.params
         print(f"kinds {name} ({sorted(kinds)}): n_small={p.n_small} "
-              f"k={p.glwe_dimension} N={p.polynomial_size}, compile "
+              f"k={p.glwe_dimension} N={p.polynomial_size} security "
+              f"{p.security_level}"
+              + (f", WoP gadgets {circuit.client_specs.wop_gadgets}"
+                 if circuit.client_specs.wop_gadgets else "")
+              + f", compile "
               f"{compile_s:.3f} s, {circuit.programmable_bootstrap_count} "
               f"PBS a run, runs within the compiled bounds in {draws} "
               f"draws, {key_form(ev[1])}, Circuit.run "
@@ -1962,6 +2129,8 @@ def kinds_phase(rng):
                  f"({key_form(exact[1])}; allowed {allowed})")
               + (f", rounding ties decided the other way {flips} of "
                  f"{n_ties}" if n_ties else "")
+              + (f", output ciphertexts equal to the CPU's plain path's "
+                 f"({cpu_s:.1f} s)" if wop else "")
               + f", launches {launches}, kernel calls held to their plain "
               f"versions: { {k: v['signatures'] for k, v in checked.items()} }",
               flush=True)
@@ -1971,10 +2140,185 @@ def kinds_phase(rng):
                      "draws": draws, "key": key_form(ev[1]), "wrong": wrong,
                      "values": values, "tie_flips": flips, "ties": n_ties,
                      "launches": launches, "checked": checked,
-                     "path_wrong": tally["path"][0],
+                     "path_wrong": tally["path"][0], "cpu_plain_s": cpu_s,
                      "exact_key": None if exact is None
                      else key_form(exact[1])}
     return out
+
+
+def check_keyed(rng, *, batch, n, kp1, levels, base_log, keys, index,
+                clock=None, mix=None, timed=False, label=""):
+    """Kernel 3's keyed entry on random digits and a stack of `keys`
+    random GGSW-shaped keys (their spectra from kernel 2's pack entry, as
+    the vertical packing makes them), ciphertext b reading key index[b],
+    held bit-exact to its plain version; timed at this shape.  Its bytes
+    bound reads each distinct key's spectra and companions once."""
+    import numpy as np
+    import torch
+    from concrete_tpu_torch.core import ntt as host
+    from concrete_tpu_torch.ops import fused_ntt as fn
+    from concrete_tpu_torch.ops import ntt as tn
+    dev = "cuda"
+    primes = host.runtime_primes(n, kp1, base_log, levels)
+    cin, n_p = levels * kp1, len(primes)
+    ggsw = rand_torus(rng, (keys * cin * kp1, n), dev)
+    spec, sh = tn.ntt_forward_pack(ggsw, primes, cin * kp1, 0)
+    digits = torch.from_numpy(rng.integers(
+        -(1 << (base_log - 1)), 1 << (base_log - 1),
+        (levels, batch * kp1, n)).astype(np.int32)).to(dev)
+    idx = torch.from_numpy(np.asarray(index, dtype=np.int32)).to(dev)
+    got = fn.crt_external_product_keyed(digits, spec, sh, idx, primes, kp1)
+    want = fn.crt_external_product_keyed_plain(digits, spec, sh, idx,
+                                               primes, kp1)
+    torch.cuda.synchronize()
+    shape = (f"B={batch} N={n} k+1={kp1} l={levels} base 2^{base_log} "
+             f"P={n_p}, {keys} keys, {len(set(np.asarray(index).tolist()))} "
+             f"read{label}")
+    if not torch.equal(got, want):
+        fail(f"{KEYED} differs from its plain version at {shape}")
+    rec = {"max_abs_err": max_abs_err(got, want), "shape": shape}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: fn.crt_external_product_keyed(
+            digits, spec, sh, idx, primes, kp1), 10)
+        rec["plain_ms"] = cuda_ms(
+            lambda: fn.crt_external_product_keyed_plain(
+                digits, spec, sh, idx, primes, kp1), 3)
+        work = {**ntt_work(batch * n_p * cin, n),
+                **ntt_work(batch * n_p * kp1, n, inverse=True),
+                "mul_add": batch * n_p * cin * kp1 * n}
+        ops_ms, detail = pipe_ms(work, mix, clock)
+        distinct = len(set(np.asarray(index).tolist()))
+        nbytes = (digits.numel() + idx.numel() + got.numel()) * 4 \
+            + distinct * 2 * spec[0].numel() * 4
+        rec.update(bound(ops_ms, nbytes, work=work, **detail),
+                   library_ms=None)
+    print(f"{KEYED} bit-exact at {shape}: {rec}", flush=True)
+    return rec
+
+
+def wop_keyed_checks(rng, clock, mix):
+    """Kernel 3's keyed entry and kernel 2's pack entry at the vertical
+    packing's shapes: PIR 32's (16 ciphertexts of 9 bits, N=4096, k+1=2,
+    cbs 3 x 2^5: its rotation phase, one key per ciphertext, and the pack
+    of its 144 GGSWs), a tree phase's (pairs of ciphertexts on one key:
+    repeated indices), the node-kinds circuits' N=256 and 512, and k+1=3
+    (accumulators in shared memory)."""
+    from concrete_tpu_torch.core import ntt as host
+    b, nb = PIR_WOP_SHAPE[1], 9
+    rec = check_keyed(rng, batch=b, n=4096, kp1=2, levels=3, base_log=5,
+                      keys=b * nb, index=[i * nb + nb - 1 for i in range(b)],
+                      clock=clock, mix=mix, timed=True,
+                      label=": PIR 32's rotation step")
+    tree = check_keyed(rng, batch=4 * b, n=4096, kp1=2, levels=3,
+                       base_log=5, keys=b * nb,
+                       index=[(i // 4) * nb + 1 for i in range(4 * b)],
+                       clock=clock, mix=mix, timed=True,
+                       label=": a tree step, 4 pairs a key")
+    for n, kp1 in ((256, 2), (512, 2), (1024, 3), (16384, 2)):
+        check_keyed(rng, batch=3, n=n, kp1=kp1, levels=3, base_log=6,
+                    keys=5, index=[4, 0, 4])
+    pack = check_ntt_pack(rng, n_small=b * nb, rows=3 * 2 * 2, n=4096,
+                          primes=host.runtime_primes(4096, 2, 5, 3),
+                          trunc_bits=0, clock=clock, mix=mix, timed=True)
+    for n in (256, 512):
+        check_ntt_pack(rng, n_small=4, rows=12, n=n,
+                       primes=host.runtime_primes(n, 2, 6, 3), trunc_bits=0)
+    return {"rotation": rec, "tree": tree, "pack": pack}
+
+
+def wop_phase(rng):
+    """PrivateInformationRetrieval over 32 rows of 16 (a 9-bit WoP row
+    fetch) compiled by the port at the default Configuration() and served
+    on the card as the models are (serve_model: keygen with its PFPKSK,
+    the pack by part, two requests through Circuit.run within the
+    models' rule of wrong decryptions, bits equal to the archive-loaded
+    Server's, every kernel call held to its plain version on the same
+    inputs, the launches of its blind-rotate forms and vertical packing,
+    one request traced); then PIR over 64 rows compiled, its parameters
+    and set-up printed, not served."""
+    import numpy as np
+    from concrete_tpu_torch import models as tm
+    from concrete_tpu_torch.core import kernels_wop as kw
+    pir = tm.PrivateInformationRetrieval(rng.integers(0, 16, PIR_WOP_SHAPE))
+
+    def wrong_of(x, dec):
+        want = np.asarray(pir.query_clear(*x)).reshape(-1)
+        got = np.concatenate([np.asarray(d).reshape(-1) for d in dec])
+        return int(np.count_nonzero(got != want)), want.size
+
+    rec = serve_model("pir_32", pir.compile,
+                      lambda: (int(rng.integers(0, PIR_WOP_SHAPE[0])),),
+                      wrong_of)
+    per_request = {k: v / MODEL_REQUESTS for k, v in rec["launches"].items()}
+    print(f"PIR {PIR_WOP_SHAPE}: launches a request {per_request} "
+          f"({rec['launches'].get('ntt_forward_pack', 0)} packs of the "
+          f"circuit bootstrap's GGSWs and "
+          f"{rec['launches'].get(KEYED, 0)} keyed products in "
+          f"{MODEL_REQUESTS} requests)", flush=True)
+    big = tm.PrivateInformationRetrieval(
+        rng.integers(0, 16, PIR_COMPILED_SHAPE))
+    t0 = time.perf_counter()
+    circuit = big.compile()
+    compile_s = time.perf_counter() - t0
+    specs, p = circuit.client_specs, circuit.client_specs.params
+    wp = specs.wop_params()
+    nb = [s.nb_bits for s in circuit.server._executor.wop_specs.values()]
+    rows = (p.glwe_dimension + 1) * (p.n_big + 1) * wp.pfks_level
+    est = kw.wop_memory_estimate(wp, max(nb), PIR_COMPILED_SHAPE[1])
+    rec_big = {"params": str(p), "gadgets": specs.wop_gadgets,
+               "nb_bits": nb, "compile_s": compile_s,
+               "pfpksk_glwe_rows": rows, "memory_estimate": est}
+    print(f"PIR {PIR_COMPILED_SHAPE} compiles (not served: ROADMAP queue 1 "
+          f"waits on its set-up): {p}, WoP gadgets {specs.wop_gadgets}, "
+          f"extracted bits {nb}, compile {compile_s:.3f} s; PFPKSK {rows} "
+          f"GLWE rows, {est['pfpksk_upload']} bytes as u64 and "
+          f"{est['pfpksk']} packed; a chunk of the circuit bootstrap "
+          f"{est['chunk']} bytes", flush=True)
+    return {"pir_32": rec, "pir_64": rec_big}
+
+
+def wop_kind_circuits(tfhe, rng):
+    """The WoP-PBS node kinds at N=256 (a banded key): fhe.bits at the
+    default Configuration() (the function of tests/test_extensions.py: no
+    WoP gadgets, the lsb cascade of sign PBS), fhe.crt_tlu at
+    tests/test_crt_tlu.py's forced parameters and a 10-bit lookup at
+    tests/test_wop_frontend.py's (TEST_PARAMS_TINY_WIDE, security 0,
+    gadgets (3, 6, 8, 4)); entries as kind_circuits', with each one's
+    configuration."""
+    import numpy as np
+    from concrete_tpu_torch.extensions import crt
+    from concrete_tpu_torch.params import TEST_PARAMS_TINY_WIDE
+    forced = {"forced_parameters": TEST_PARAMS_TINY_WIDE,
+              "forced_wop_parameters": (3, 6, 8, 4)}
+    moduli = (3, 4, 5)
+    crt_table = np.array([(7 * v + 1) % 60 for v in range(60)],
+                         dtype=np.int64)
+    wide = tfhe.LookupTable([(3 * i + 1) % 32 for i in range(1 << 10)])
+
+    def bits(x):
+        return tfhe.bits(x)[0] + 2 * tfhe.bits(x)[2]
+
+    def crt_lookup(r0, r1, r2):
+        return crt.crt_tlu((r0, r1, r2), crt_table, moduli)
+
+    def wide_lookup(x):
+        return wide[x]
+
+    return {
+        "bits": (({"x": "encrypted"}, bits, range(8),
+                  lambda: (int(rng.integers(0, 8)),), {"extract_bits"},
+                  None), {}),
+        "crt_tlu": (({"r0": "encrypted", "r1": "encrypted",
+                      "r2": "encrypted"}, crt_lookup,
+                     [tuple(crt.crt_encode_clear(v, moduli))
+                      for v in range(0, 60, 7)] + [(2, 3, 4)],
+                     lambda: tuple(crt.crt_encode_clear(
+                         int(rng.integers(0, 60)), moduli)),
+                     {"crt_tlu"}, None), forced),
+        "wide_tlu": (({"x": "encrypted"}, wide_lookup, [0, 517, 1023],
+                      lambda: (int(rng.integers(0, 1024)),), {"tlu"},
+                      None), forced),
+    }
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -2711,19 +3055,20 @@ def main() -> None:
     from concrete_tpu_torch.utils.csprng import BUILD_DIR
     os.makedirs(BUILD_DIR, exist_ok=True)
     var_dir = tempfile.mkdtemp(dir=BUILD_DIR)
-    # the persistent latency kernel without its MMA (its chain floor) and
-    # without its key rows, and its PHASE_CLOCKS build, beside the port's
-    # library
-    br_builds = variant_builds(var_dir, "blind_rotate_latency.cu",
-                               "blind_rotate_latency", LATENCY_VARIANTS)
-    # ... and the B <= 4 CRT-NTT kernel's variants
-    fl_builds = fused_latency_builds(var_dir)
     t0 = time.perf_counter()
     _build.library()
     per_source = {k: round(v, 1)
                   for k, v in _build.BUILD_INFO["source_seconds"].items()}
     print(f"build: {time.perf_counter() - t0:.1f} s; nvcc seconds per "
           f"source, all started together: {per_source}", flush=True)
+    # then, while the first checks run, the persistent latency kernel
+    # without its MMA (its chain floor) and without its key rows, and its
+    # PHASE_CLOCKS build, and the B <= 4 CRT-NTT kernel's variants: after
+    # the library, so that at most one set of nvcc processes shares the
+    # host's memory at a time
+    br_builds = variant_builds(var_dir, "blind_rotate_latency.cu",
+                               "blind_rotate_latency", LATENCY_VARIANTS)
+    fl_builds = fused_latency_builds(var_dir)
     for line in ptxas_summary(_build.BUILD_INFO["log"]):
         print("  ptxas:", line, flush=True)
     card_line = card()
@@ -2998,9 +3343,12 @@ def main() -> None:
     compiled = compile_phase(rng)
     models = models_phase(rng)
     kinds = kinds_phase(rng)
-    # the models phase's own launches of the kernels that its lookups ran
+    keyed = wop_keyed_checks(rng, clock, mix)
+    wop = wop_phase(rng)
+    # the models and wop phases' own launches of the kernels that their
+    # lookups ran
     model_launches = {}
-    for rec in models.values():
+    for rec in list(models.values()) + [wop["pir_32"]]:
         for k, v in rec["launches"].items():
             model_launches[k] = model_launches.get(k, 0) + v
 
@@ -3079,6 +3427,15 @@ def main() -> None:
                      "explicit-CRT Garner and accumulate, :622)",
          "launches": mlp["launches"].get("garner_accumulate", 0),
          **{k: rec_f["garner_accumulate"][k] for k in fields}},
+        {"name": KEYED, "route": "cuda",
+         "source": "concrete_tpu_torch/csrc/crt_external_product_keyed.cu",
+         "replaces": "concrete_tpu/ops/pallas_fused_ntt.py:1223 (kernel 3's "
+                     "step, _step_kernel :1018) with a key per ciphertext: "
+                     "the runtime external product that "
+                     "concrete_tpu/core/kernels_wop.py:115 computes by a "
+                     "grouped limb convolution",
+         "launches": 0,       # its path is the wop phase's requests
+         **{k: keyed["rotation"][k] for k in fields}},
         {"name": FUSED_LATENCY, "route": "cuda",
          "source": "concrete_tpu_torch/csrc/blind_rotate_fused_latency.cu",
          "replaces": "concrete_tpu/ops/pallas_fused_ntt.py:1223 "
@@ -3106,7 +3463,7 @@ def main() -> None:
                    "banded_modes_walls_s": modes, "latency": latency,
                    "serve_mlp": mlp, "direct_lookups": direct,
                    "compiled": compiled, "models": models,
-                   "kinds": kinds,
+                   "kinds": kinds, "wop": wop, "wop_kernels": keyed,
                    "detail": {"rotate_decompose": rec_a,
                               "external_product_accumulate": rec_b,
                               "banded_matmul": rec_bm,

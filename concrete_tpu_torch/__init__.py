@@ -53,7 +53,8 @@ from concrete_tpu_torch.compilation.specs import ClientSpecs
 from concrete_tpu_torch.compilation.value import TransportValue, Value
 from concrete_tpu_torch.dtypes import Float, Integer
 from concrete_tpu_torch.extensions import (AutoRounder, AutoTruncator,
-                                           LookupTable, array, constant, conv,
+                                           LookupTable, array, bits,
+                                           constant, conv,
                                            hint, identity, if_then_else,
                                            inputset, maxpool, multivariate,
                                            mux, one, ones, ones_like, refresh,
@@ -110,7 +111,8 @@ __all__ = [
     "AutoRounder", "AutoTruncator", "LookupTable", "hint", "multivariate",
     "round_bit_pattern", "tag", "truncate_bit_pattern", "univariate",
     "constant", "identity", "trace", "array", "inputset", "refresh", "zero",
-    "zeros", "one", "ones", "zeros_like", "ones_like", "if_then_else",
+    "zeros", "one", "ones", "zeros_like", "ones_like", "bits",
+    "if_then_else",
     "mux", "relu", "conv", "maxpool", "ClientSpecs", "Value",
     "TransportValue", "EncryptionStatus", "GraphProcessor",
     "MAXIMUM_TLU_BIT_WIDTH", "DEFAULT_P_ERROR", "DEFAULT_GLOBAL_P_ERROR",

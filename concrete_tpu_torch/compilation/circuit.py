@@ -75,14 +75,26 @@ class Circuit:
 
     def _evaluation_keys(self):
         """The keyset packed for this circuit's device, BSK form and
-        truncation (as the JAX package's mono ``_evaluation_keys``)."""
+        truncation, with the packed PFPKSK for a WoP circuit (as the JAX
+        package's mono ``_evaluation_keys``).  A WoP circuit packs the
+        untruncated BSK: the truncation rule is sized for one
+        message_bits-wide PBS, and the circuit bootstrap consumes the blind
+        rotate's noise at scale 2^(64 - cbs_level cbs_base_log)."""
         if not hasattr(self, "_norm2"):
             self._norm2 = self.graph.max_norm2()
-        return self.keys.evaluation_for(self.client_specs.message_bits,
-                                        norm2=self._norm2,
-                                        device=self.device)
+        wp = self.client_specs.wop_params()
+        eval_keys = self.keys.evaluation_for(
+            None if wp is not None else self.client_specs.message_bits,
+            norm2=self._norm2, device=self.device)
+        if wp is not None:
+            eval_keys = eval_keys + (self.keys.wop_evaluation(
+                wp, device=self.device),)
+        return eval_keys
 
     def run(self, *args):
+        if self.client_specs.wop_params() is not None:
+            # fail fast, before the PFPKSK is generated or packed
+            self.server.check_wop_memory()
         self.keygen()
         return_tuple = self.server.run(
             *args, evaluation_keys=self._evaluation_keys())
@@ -206,7 +218,7 @@ class Circuit:
                     min(w, 8), norm2=specs.partition_norm2.get(w, 1))
                 for w in specs.partitions)
         params = specs.params
-        native, wide_in, _ = tlu_pattern_split(self.graph)
+        native, wide_in, wop = tlu_pattern_split(self.graph)
         v_fresh = params.glwe_std ** 2
         v_br = pp.variance_blind_rotate(
             params.n_small, params.glwe_dimension, params.polynomial_size,
@@ -215,6 +227,12 @@ class Circuit:
                                      params.ks_level, params.lwe_std ** 2)
         v_ms = pp.variance_modulus_switch(params.n_small,
                                           params.log2_polynomial_size)
+        v_out_wop = None
+        if wop and specs.wop_gadgets:
+            cbs_l, cbs_b, pfks_l, pfks_b = specs.wop_gadgets
+            nb_max = max(nb for nb, _, _ in wop)
+            v_out_wop = pp.wop_output_variance(params, nb_max, cbs_b,
+                                               cbs_l, pfks_b, pfks_l)
         worst = 0.0
         for p, i_sq, l_sq in native:
             var = i_sq * v_fresh + l_sq * v_br + v_ks + v_ms
@@ -225,6 +243,10 @@ class Circuit:
             var = (i_sq * v_fresh + l_sq * v_br
                    + (v_ks + v_ms) * 4.0 ** -int(p))
             worst = max(worst, pp.p_error_from_variance(var, int(p)))
+        if v_out_wop is not None:
+            for _, w, n2o in wop:
+                var = v_out_wop * float(n2o) ** 2 + v_ks + v_ms
+                worst = max(worst, pp.p_error_from_variance(var, int(w)))
         return worst
 
     @property

@@ -34,8 +34,12 @@ class Client:
 
     @property
     def evaluation_keys(self):
-        """Public key material for the server: serializable, secret-free."""
+        """Public key material for the server: serializable, secret-free;
+        with the PFPKSK a WoP circuit needs (generated at first use)."""
         self.keygen()
+        wp = self.specs.wop_params()
+        if wp is not None:
+            self.keys.wop_keys(wp)
         return self.keys.evaluation_keys
 
     def encrypt(self, *args):

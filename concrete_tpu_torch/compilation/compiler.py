@@ -10,9 +10,11 @@ Counterpart of ``concrete_tpu/compilation/compiler.py``: the same trace,
 transforms, width assignment, multi-partition planning and parameter
 search, so one function compiles to the JAX package's graph, widths,
 ``CryptoParams`` and ``ClientSpecs``.  Compiling is host code; the
-resulting ``Circuit`` runs on ``device`` (None means CUDA).  Debug
-artifacts (ROADMAP queue 1 item 6) and WoP-PBS table lookups above 8 bits
-(item 7) raise ``NotImplementedError``.
+resulting ``Circuit`` runs on ``device`` (None means CUDA).  Table
+lookups above the native width compile to WoP-PBS, with the JAX package's
+gadget search (``optimizer.v0.choose_wop_gadgets``) or
+``forced_wop_parameters``.  Debug artifacts (ROADMAP queue 1 item 6) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -221,9 +223,7 @@ class Compiler:
                 # plan may have flipped to None (mono now modeled
                 # cheaper): the mono branch below calibrates itself
 
-        if wop_triples and plan is None:
-            raise not_ported("a table lookup above 8 bits (WoP-PBS)",
-                             "ROADMAP queue 1 item 7, WoP-PBS and CRT")
+        wop_gadgets = config.forced_wop_parameters
         if plan is not None:
             from concrete_tpu_torch.compilation.widths import part_width
             params = plan.params[max(plan.params, key=part_width)]
@@ -231,12 +231,13 @@ class Compiler:
             params = config.forced_parameters
         else:
             # one (precision, norm2) constraint per TLU/output — each PBS
-            # runs at its own width (multi-precision mono)
+            # runs at its own width (multi-precision mono); >8-bit TLUs add
+            # noise-only input + WoP-output constraints (the CRT/WoP path)
             def _solve(pe):
                 return optimize_v0_multi(
                     native_patterns, p_error=pe,
                     security_level=config.security_level,
-                    noise_only=wide_inputs,
+                    noise_only=wide_inputs, wop_patterns=wop_triples,
                     restriction=config.range_restriction)
             params = _solve(p_error)
             if config.global_p_error is not None and native_patterns:
@@ -256,6 +257,21 @@ class Compiler:
                 else:
                     p_error = target / n_pbs
                     params = _solve(p_error)
+            if wop_triples and wop_gadgets is None:
+                from concrete_tpu_torch.optimizer.v0 import \
+                    choose_wop_gadgets
+                nb_max = max(nb for nb, _, _ in wop_triples)
+                out_cons = tuple(sorted({(w, n2)
+                                         for _, w, n2 in wop_triples}))
+                wp = choose_wop_gadgets(params, nb_max, out_cons,
+                                        p_error=p_error)
+                wop_gadgets = (wp.cbs_level, wp.cbs_base_log,
+                               wp.pfks_level, wp.pfks_base_log)
+        if wop_triples and plan is None and wop_gadgets is None:
+            raise ValueError(
+                "circuit contains >8-bit table lookups; forced_parameters "
+                "compilation also needs forced_wop_parameters "
+                "(cbs_level, cbs_base_log, pfks_level, pfks_base_log)")
 
         from concrete_tpu_torch.compilation.widths import partition_of
         specs = ClientSpecs(
@@ -274,7 +290,7 @@ class Compiler:
                                else output_encoding_width(n, p)
                                for n in graph.ordered_outputs]
             if plan is not None else None,
-            wop_gadgets=None,
+            wop_gadgets=wop_gadgets if wop_triples and plan is None else None,
             partitions=plan.params if plan is not None else None,
             partition_wop_gadgets=(plan.wop_gadgets or None)
             if plan is not None else None,
@@ -288,7 +304,8 @@ class Compiler:
                   f"N={params.polynomial_size} "
                   f"br=({params.pbs_level},{params.pbs_base_log}) "
                   f"ks=({params.ks_level},{params.ks_base_log}) "
-                  f"p_error<={p_error:.2e}")
+                  f"p_error<={p_error:.2e}"
+                  + (f" wop_gadgets={wop_gadgets}" if wop_gadgets else ""))
         progress("lowering")
         circuit = Circuit(graph, specs, configuration=config, device=device)
         if config.show_mlir:

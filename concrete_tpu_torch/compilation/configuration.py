@@ -14,7 +14,7 @@ same parameters in both packages.  Four classes of fields:
   (device_batch_size, mesh_shape and others, documented per field).
 - **not ported yet**: setting one raises ``NotImplementedError`` naming its
   ROADMAP queue 1 item (``_NOT_PORTED``): simulation, the dataflow
-  scheduler, the insecure key cache, seeded compression, WoP-PBS gadgets.
+  scheduler, the insecure key cache, seeded compression.
 - **unsupported**: use_gpu raises, as in the JAX package; the port's
   device comes from the ``device`` argument of ``compile`` / ``Circuit``.
 
@@ -128,7 +128,6 @@ _NOT_PORTED = {
     "insecure_key_cache_location": "item 6, the key cache",
     "compress_input_ciphertexts": "item 6, seeded compression",
     "compress_evaluation_keys": "item 6, seeded compression",
-    "forced_wop_parameters": "item 7, WoP-PBS and CRT",
 }
 
 
@@ -236,7 +235,7 @@ class Configuration:
     # forced crypto parameters (bypass the optimizer; e.g. for benches)
     forced_parameters: Optional[object] = None
     # forced WoP-PBS gadgets (cbs_level, cbs_base_log, pfks_level,
-    # pfks_base_log) — bypass choose_wop_gadgets: not ported
+    # pfks_base_log) — bypass choose_wop_gadgets (tests/benches)
     forced_wop_parameters: Optional[tuple] = None
 
     def __post_init__(self):

@@ -25,7 +25,7 @@ _FORMAT_VERSION = 1
 @dataclasses.dataclass
 class EvaluationKeys:
     """bsk (n, l, k+1, k+1, N) u64, ksk (n_big, ks_l, n_small+1) u64,
-    optional PFPKSKs keyed by (level, base_log) (carried, not used)."""
+    optional PFPKSKs keyed by (level, base_log)."""
     params: CryptoParams
     bsk: np.ndarray
     ksk: np.ndarray
@@ -38,17 +38,31 @@ class EvaluationKeys:
                    pfpksk=dict(keys._pfpksk))
 
     def packed(self, message_bits: Optional[int] = None, norm2: float = 1,
-               device=None):
+               device=None, wop_params=None):
         """(LimbKSK, LimbBSK or FusedBSK) on `device` (default CUDA) for
-        Server.run, with the JAX package's BSK form and truncation policy;
-        cached per arguments."""
+        Server.run, with the JAX package's BSK form and truncation policy,
+        and the packed PFPKSK of `wop_params` as a third element (a WoP
+        circuit packs the untruncated BSK: its server passes
+        ``message_bits=None``); cached per arguments."""
         from concrete_tpu_torch.compilation.keys import pack_evaluation
         device = resolve_device(device)
-        key = (message_bits, float(norm2), str(device))
+        wop_key = None if wop_params is None else \
+            (wop_params.pfks_level, wop_params.pfks_base_log)
+        key = (message_bits, float(norm2), str(device), wop_key)
         cache = self.__dict__.setdefault("_packed_cache", {})
         if key not in cache:
-            cache[key] = pack_evaluation(self.params, self.bsk, self.ksk,
-                                         message_bits, norm2, device)
+            out = pack_evaluation(self.params, self.bsk, self.ksk,
+                                  message_bits, norm2, device)
+            if wop_params is not None:
+                from concrete_tpu_torch.core import kernels_wop as kw
+                if wop_key not in self.pfpksk:
+                    raise ValueError(
+                        f"evaluation keys carry no PFPKSK for gadget "
+                        f"{wop_key}; regenerate them from a keyset with WoP "
+                        "keys")
+                out = out + (kw.pack_pfpksk(self.pfpksk[wop_key], wop_params,
+                                            device=device),)
+            cache[key] = out
         return cache[key]
 
     def serialize(self) -> bytes:

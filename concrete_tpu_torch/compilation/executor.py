@@ -8,14 +8,18 @@ and a table lookup flattens its whole tensor into one ``pbs_batch``.
 Ciphertext layout: an encrypted integer tensor of shape S is an int64
 tensor of shape (*S, n_big + 1), LWE dimension last.
 
-Every node kind of the JAX package's executor runs here but the WoP-PBS
-ones: a lookup wider than the native LUT, ``crt_tlu`` and
-``extract_bits`` raise ``NotImplementedError`` naming ROADMAP queue 1 item
-7 when the executor is built, before any key is packed or ciphertext is
-read; multi-partition circuits are refused by ``Server`` and ``Client``
-(item 8).  The JAX package's own refusals stay: encrypted x encrypted
-multiply and matmul (the transforms lower them before they get here) and
-a clear ``matmul`` operand above 2-D.
+Every node kind of the JAX package's executor runs here.  A lookup wider
+than the native LUT (``tlu``, ``univariate``, ``multivariate``) runs one
+``core.kernels_wop.wop_pbs_batch`` over its elements; ``crt_tlu`` shares
+one bit extraction and chunked circuit bootstrap across the sibling output
+residues of one ``fhe.crt_tlu`` and runs a vertical packing per residue;
+``extract_bits`` (``fhe.bits``) runs the lsb cascade
+``core.kernels_wop.extract_bits_to``.  Multi-partition circuits are
+refused by ``Server`` and ``Client`` (ROADMAP queue 1 item 8).  The JAX
+package's own refusals stay: encrypted x encrypted multiply and matmul
+(the transforms lower them before they get here), a clear ``matmul``
+operand above 2-D, and a WoP lookup in a circuit compiled without WoP
+gadgets.
 
 Runtime clear inputs are numpy arrays, and every clear value stays one:
 a fully clear node runs its own numpy evaluator on the host.  Values that
@@ -39,9 +43,9 @@ from concrete_tpu_torch.params import CryptoParams
 from concrete_tpu_torch.representation import Graph, Node, Operation
 
 _ITEM6 = "ROADMAP queue 1 item 6, the execution layer"
-_ITEM7 = "ROADMAP queue 1 item 7, WoP-PBS and CRT"
 _KINDS = (
-    "tlu", "univariate", "multivariate", "dynamic_tlu",
+    "tlu", "univariate", "multivariate", "dynamic_tlu", "crt_tlu",
+    "extract_bits",
     "add", "subtract", "negative", "multiply", "matmul", "dot", "sum",
     "conv", "round_bit_pattern", "truncate_bit_pattern", "hint", "array",
     "trace_message", "concatenate", "transpose", "broadcast_to", "index",
@@ -59,6 +63,107 @@ class TluSpec:
     lut_poly: np.ndarray      # (N,) or (rows, N) u64 accumulator polynomial
     signed_input: bool
     message_bits: int         # input encoding width (LUT index domain)
+
+
+@dataclasses.dataclass
+class WopTluSpec:
+    """A wide (>8-bit) table lookup lowered to WoP-PBS.
+
+    `table` holds 2^nb_bits raw integer entries indexed by the extracted
+    bit pattern of the encoding (signed inputs extract p+1 bits, negative
+    values indexing the wrapped top range).  Reference: the FHEToTFHECrt
+    lowering's wop_pbs path (wrappers.cpp:855)."""
+    node_uid: int
+    table: np.ndarray         # (2^nb,) int64 raw entries
+    nb_bits: int
+    delta_log: int            # bit position of the extraction LSB
+    out_bits: int             # output encoding width
+    # multivariate packing layout (None for univariate wide TLUs)
+    mins: list = None
+    offsets: list = None
+
+
+@dataclasses.dataclass
+class CrtTluSpec:
+    """One output residue of a CRT TLU (fhe.crt_tlu), lowered to WoP-PBS:
+    shared per-residue bit extraction + circuit bootstrap, one vertical
+    packing per output residue.  Reference: memref_wop_pbs_crt_buffer
+    (wrappers.cpp:855-998)."""
+    node_uid: int
+    table: np.ndarray         # (2^nb,) raw entries for THIS output residue
+    nb_bits: int              # total bits over all residue blocks
+    delta_log: int            # unused (per-block deltas); stats compat
+    out_bits: int             # this residue's assigned encoding width
+    moduli: tuple = None
+    block_bits: tuple = None    # index bits per residue block
+    block_widths: tuple = None  # actual encoding width per residue block
+    out_index: int = 0
+    mins: list = None         # WopTluSpec-compat (unused)
+    offsets: list = None
+
+
+def _materialize_crt_tlu(node: Node, p_out: int,
+                         block_widths: tuple) -> CrtTluSpec:
+    """`block_widths[j]` is residue j's ASSIGNED encoding width — the index
+    bits per block are min(ceil(log2 m_j), width): a residue can't exceed
+    its encoding (measured bounds), and values above m_j-1 are unreachable.
+    The output residue is encoded at the node's assigned width `p_out`."""
+    from concrete_tpu_torch.core.wop import crt_block_bits, crt_lut_tables
+    kw = node.properties["kwargs"]
+    moduli = tuple(kw["moduli"])
+    j = int(kw["out_index"])
+    bits = tuple(min(nb, w) for nb, w in
+                 zip(crt_block_bits(moduli), block_widths))
+    luts = crt_lut_tables(kw["table"], moduli, bits=bits)
+    return CrtTluSpec(node_uid=node.uid, table=luts[j],
+                      nb_bits=sum(bits), delta_log=0, out_bits=p_out,
+                      moduli=moduli, block_bits=bits,
+                      block_widths=tuple(block_widths), out_index=j)
+
+
+def _materialize_wop_table(node: Node, p_in: int, p_out: int,
+                           lsbs: int = 0) -> WopTluSpec:
+    """Build the bit-indexed table for a wide TLU.
+
+    Unsigned p-bit input: nb = p, index = value.  Signed: nb = p+1 (the
+    encoding's p+1-bit pattern, sign wrap at the top), index =
+    value mod 2^(p+1) — entries in the unused middle range are don't-care
+    (filled with f of the wrapped value).
+
+    `lsbs` > 0 is fused rounding (ProcessRounding for the WoP path): only
+    the top p_in - lsbs message bits are extracted — bit extraction floors
+    the value for free; entry j maps the rounded value j << lsbs."""
+    signed = isinstance(node.inputs[0].dtype, Integer) \
+        and node.inputs[0].dtype.is_signed
+    p_eff = max(p_in - lsbs, 1)
+    nb = p_eff + (1 if signed else 0)
+    idx = np.arange(1 << nb)
+    if signed:
+        dom = 1 << nb
+        sval = np.where(idx < (1 << p_eff), idx, idx - dom)
+        # the middle band of the nb-bit pattern space is unreachable
+        # (don't-care); clamp into the declared signed domain so partial
+        # user functions are never evaluated out of range
+        half = 1 << (p_eff - 1)
+        sval = np.clip(sval, -half, half - 1)
+    else:
+        sval = idx
+    sval = sval << lsbs
+    if node.name == "tlu":
+        table = np.asarray(node.properties["kwargs"]["table"],
+                           dtype=np.int64)
+        if table.ndim > 1:
+            # per-element tables (apply_multi_lookup_table): one row per
+            # flattened element, matching the flattened PBS batch order
+            flat = table.reshape(-1, table.shape[-1])
+            vals = flat[:, sval % table.shape[-1]]
+        else:
+            vals = table[sval % len(table)]
+    else:
+        fn = node.properties["kwargs"]["function"]
+        vals = np.vectorize(fn, otypes=[np.int64])(sval)
+    return WopTluSpec(node_uid=node.uid, table=vals.astype(np.int64),
+                      nb_bits=nb, delta_log=63 - p_eff, out_bits=p_out)
 
 
 def raw_table(node: Node, p: int, shift: int = 0) -> np.ndarray:
@@ -188,15 +293,18 @@ def _torch_index(index: tuple) -> tuple:
 class GraphExecutor:
     """Node-by-node evaluation of a mono-keyset graph on torch tensors."""
 
-    def __init__(self, graph: Graph, params: CryptoParams, p: int):
+    def __init__(self, graph: Graph, params: CryptoParams, p: int,
+                 wop_params=None):
         from concrete_tpu_torch.compilation.widths import (encoding_width,
                                                            tlu_fused_lsbs)
         self.graph = graph
         self.params = params
         self.p = p
+        self.wop_params = wop_params
         self.width_of = lambda node: encoding_width(node, p)
         self.tlu_specs: dict[int, TluSpec] = {}
         self.multivariate_specs: dict[int, MultivariateSpec] = {}
+        self.wop_specs: dict[int, WopTluSpec] = {}
         max_native = min(8, params.polynomial_size.bit_length() - 2)
         for node in graph.topological_order():
             if not node.output.is_encrypted \
@@ -210,26 +318,57 @@ class GraphExecutor:
                 p_in = self.width_of(preds[0]) if preds else p
                 lsbs = tlu_fused_lsbs(graph, node)
                 if max(p_in - lsbs, 1) > max_native:
-                    raise not_ported(f"a {p_in}-bit table lookup (WoP-PBS)",
-                                     _ITEM7)
-                self.tlu_specs[node.uid] = _materialize_table(
-                    node, p_in, self.width_of(node), params, lsbs=lsbs)
+                    self._require_wop(node)
+                    self.wop_specs[node.uid] = _materialize_wop_table(
+                        node, p_in, self.width_of(node), lsbs=lsbs)
+                else:
+                    self.tlu_specs[node.uid] = _materialize_table(
+                        node, p_in, self.width_of(node), params, lsbs=lsbs)
             elif name == "multivariate":
                 enc = [q for q in preds if q.output.is_encrypted]
                 p_in = max((self.width_of(q) for q in enc), default=p)
                 if p_in > max_native:
-                    raise not_ported(f"a {p_in}-bit multivariate lookup "
-                                     "(WoP-PBS)", _ITEM7)
-                self.multivariate_specs[node.uid] = \
-                    _materialize_multivariate(graph, node, p_in,
-                                              self.width_of(node), params)
+                    self._require_wop(node)
+                    mins, _, offsets = packed_layout(graph, node)
+                    self.wop_specs[node.uid] = WopTluSpec(
+                        node_uid=node.uid,
+                        table=multivariate_raw_table(graph, node, p_in),
+                        nb_bits=p_in, delta_log=63 - p_in,
+                        out_bits=self.width_of(node), mins=mins,
+                        offsets=offsets)
+                else:
+                    self.multivariate_specs[node.uid] = \
+                        _materialize_multivariate(graph, node, p_in,
+                                                  self.width_of(node), params)
+            elif name == "crt_tlu":
+                enc = [q for q in preds if q.output.is_encrypted]
+                self._require_wop(node)
+                self.wop_specs[node.uid] = _materialize_crt_tlu(
+                    node, self.width_of(node),
+                    tuple(self.width_of(q) for q in enc))
             elif name == "dynamic_tlu":
                 self._check_dynamic_tlu(preds, max_native)
-            elif name in ("crt_tlu", "extract_bits"):
-                raise not_ported(f"operation '{name}'", _ITEM7)
             elif name not in _KINDS:
                 raise NotImplementedError(
                     f"operation '{name}' is not lowered yet")
+
+    def _require_wop(self, node: Node) -> None:
+        if self.wop_params is None:
+            raise ValueError(
+                f"node '{node.name}' needs a WoP-PBS lowering "
+                "(input wider than the native LUT) but the circuit was "
+                "compiled without WoP gadget parameters")
+
+    def wop_lookups(self) -> list:
+        """(nb_bits, elements) of every WoP lookup: what
+        ``core.kernels_wop.check_wop_memory`` models."""
+        out = []
+        for node in self.graph.graph.nodes:
+            spec = self.wop_specs.get(node.uid)
+            if spec is not None:
+                out.append((spec.nb_bits,
+                            max(int(np.prod(node.output.shape)), 1)))
+        return out
 
     def _check_dynamic_tlu(self, preds, max_native: int) -> None:
         """The JAX package's construction-time checks of a dynamic table."""
@@ -372,12 +511,76 @@ class GraphExecutor:
 
     # -- the evaluation ----------------------------------------------------
 
+    def _run_wop(self, ct, spec: WopTluSpec, table, ksk, bsk,
+                 pfpksk) -> torch.Tensor:
+        """One wop_pbs_batch over every element of `ct`."""
+        from concrete_tpu_torch.core import kernels_wop as kw
+        flat = ct.reshape(-1, ct.shape[-1]).contiguous()
+        out = kw.wop_pbs_batch(flat, table, spec.nb_bits, spec.delta_log,
+                               spec.out_bits, ksk, bsk, pfpksk,
+                               self.wop_params)
+        return out.reshape(ct.shape[:-1] + (out.shape[-1],))
+
+    def _run_crt_tlu(self, node, preds, args, ksk, bsk, wop) -> torch.Tensor:
+        """One output residue of an ``fhe.crt_tlu``.  The first residue
+        run on a set of residue inputs extracts their bits and runs the
+        chunked circuit bootstrap once for every output residue on those
+        inputs (its siblings), each chunk's GGSWs serving all their
+        vertical packings; the run's cache keeps the residues."""
+        from concrete_tpu_torch.core import kernels_wop as kw
+        wop_tables, pfpksk, crt_cache = wop
+        if node.uid not in crt_cache:
+            spec = self.wop_specs[node.uid]
+            cache_key = tuple(pr.uid for pr in preds)
+            siblings = [
+                n for n in self.graph.graph.nodes
+                if n.name == "crt_tlu" and tuple(
+                    pr.uid for pr in self.graph.ordered_preds_of(n))
+                == cache_key]
+            chunks = []
+            for j in reversed(range(len(spec.moduli))):
+                flat = args[j].reshape(-1, args[j].shape[-1]).contiguous()
+                # the LSB of residue j sits at 63 - its encoding width; the
+                # index bits per block were clamped to that width
+                chunks.append(kw.extract_bits_batch(
+                    flat, spec.block_bits[j], 63 - spec.block_widths[j],
+                    ksk, bsk, self.wop_params.base))
+            outs = kw._cbs_vp_chunked(
+                torch.cat(chunks, dim=1),
+                [kw.lut_torus(wop_tables[n.uid],
+                              self.wop_specs[n.uid].out_bits,
+                              args[0].device) for n in siblings],
+                ksk, bsk, pfpksk, self.wop_params)
+            crt_cache.update(zip((n.uid for n in siblings), outs))
+        out = crt_cache[node.uid]
+        return out.reshape(args[0].shape[:-1] + (out.shape[-1],))
+
+    def _run_extract_bits(self, node, preds, ct, ksk, bsk) -> torch.Tensor:
+        """``fhe.bits``: the lsb cascade (``extract_bits_to``), requested
+        bit j re-encoded at weight 2^j of the output width and summed."""
+        from concrete_tpu_torch.core import kernels_wop as kw
+        positions = node.properties["kwargs"]["positions"]
+        enc = [q for q in preds if q.output.is_encrypted]
+        p_in = self.width_of(enc[0])
+        p_out = self.width_of(node)
+        order = sorted(range(len(positions)), key=lambda j: positions[j])
+        flat = ct.reshape(-1, ct.shape[-1]).contiguous()
+        bits_out = kw.extract_bits_to(
+            flat, tuple(positions[j] for j in order),
+            tuple(63 - p_out + j for j in order), 63 - p_in, ksk, bsk,
+            self.params)
+        out = bits_out.sum(dim=1)
+        return out.reshape(ct.shape[:-1] + (out.shape[-1],))
+
     def run(self, enc_inputs: dict, ksk: kn.LimbKSK, bsk,
-            lut_polys: dict) -> tuple:
+            lut_polys: dict, wop_tables: dict = None,
+            pfpksk=None) -> tuple:
         """Evaluate the graph.  enc_inputs maps input position -> int64
         ciphertext tensor (or a clear numpy array for clear inputs);
         lut_polys maps lookup node uid -> (N,) or (rows, N) int64 LUT
-        polynomial.  Clear outputs come back as trivial ciphertexts."""
+        polynomial; wop_tables maps a WoP lookup's uid -> its raw int64
+        table on the device, served with the packed PFPKSK `pfpksk`.
+        Clear outputs come back as trivial ciphertexts."""
         from concrete_tpu_torch.compilation.widths import \
             output_encoding_width
         graph = self.graph
@@ -385,6 +588,8 @@ class GraphExecutor:
         runtime: set[Node] = set()     # clear values from clear inputs
         device = ksk.device
         input_pos = {n: q for q, n in graph.input_nodes.items()}
+        # the crt_tlu residues computed with their siblings
+        wop = (wop_tables or {}, pfpksk, {})
         for node in graph.topological_order():
             name = node.name
             if node.operation == Operation.Input:
@@ -415,7 +620,7 @@ class GraphExecutor:
                 values[node] = node(*args)
                 continue
             values[node] = self._run_node(node, preds, args, enc_flags,
-                                          ksk, bsk, lut_polys, device)
+                                          ksk, bsk, lut_polys, device, wop)
         outs = []
         for out_node in graph.ordered_outputs:
             v = values[out_node]
@@ -428,9 +633,26 @@ class GraphExecutor:
         return tuple(outs)
 
     def _run_node(self, node, preds, args, enc_flags, ksk, bsk, lut_polys,
-                  device) -> torch.Tensor:
+                  device, wop) -> torch.Tensor:
         name = node.name
         kw = node.properties.get("kwargs", {})
+        wop_tables, pfpksk, _ = wop
+        if node.uid in self.wop_specs:
+            spec = self.wop_specs[node.uid]
+            if name == "crt_tlu":
+                return self._run_crt_tlu(node, preds, args, ksk, bsk, wop)
+            ct = args[0]
+            if name == "multivariate":
+                ct, bias = None, 0
+                for arg, mn, off in zip(args, spec.mins, spec.offsets):
+                    term = arg * (1 << off)
+                    ct = term if ct is None else ct + term
+                    bias += mn << off
+                ct[..., -1] -= self._encode_clear(bias, spec.nb_bits, device)
+            return self._run_wop(ct, spec, wop_tables[node.uid], ksk, bsk,
+                                 pfpksk)
+        if name == "extract_bits":
+            return self._run_extract_bits(node, preds, args[0], ksk, bsk)
         if name in ("add", "subtract"):
             a, b = args
             ea, eb = enc_flags

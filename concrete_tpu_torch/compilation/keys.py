@@ -52,9 +52,10 @@ class Keys:
         self.params = params
         self._secret: Optional[SecretKeys] = None
         self._server: Optional[ServerKeys] = None
-        # WoP packing keys read from a file are kept, not used
+        # WoP packing keys (u64), one per (pfks_level, pfks_base_log)
         self._pfpksk: dict[tuple, np.ndarray] = {}
         self._packed: dict = {}
+        self._packed_pfpksk: dict = {}
 
     @classmethod
     def from_arrays(cls, params: CryptoParams, lwe_small, glwe, bsk,
@@ -77,6 +78,8 @@ class Keys:
         self._secret, self._server = kg.keygen(SecureGenerator(seed),
                                                self.params)
         self._packed = {}
+        self._pfpksk = {}
+        self._packed_pfpksk = {}
 
     @property
     def secret(self) -> SecretKeys:
@@ -108,6 +111,30 @@ class Keys:
                 self.params, self.server.bsk, self.server.ksk, message_bits,
                 norm2, device)
         return self._packed[key]
+
+    def wop_keys(self, wop_params) -> np.ndarray:
+        """The u64 PFPKSK of `wop_params`' pfks gadget, generated at first
+        use (``core/wop.pfpksk_gen`` from the ChaCha20 CSPRNG seeded from
+        os.urandom, as the JAX package's ``Keys.wop_evaluation`` does)."""
+        from concrete_tpu_torch.core import wop
+        from concrete_tpu_torch.utils.csprng import SecureGenerator
+        self._require()
+        key = (wop_params.pfks_level, wop_params.pfks_base_log)
+        if key not in self._pfpksk:
+            self._pfpksk[key] = wop.pfpksk_gen(
+                SecureGenerator(), self._secret, wop_params).pfpksk
+        return self._pfpksk[key]
+
+    def wop_evaluation(self, wop_params, device=None):
+        """The PFPKSK packed as int8 limb planes on `device` (default
+        CUDA), generated lazily per pfks gadget; cached."""
+        from concrete_tpu_torch.core import kernels_wop as kw
+        device = resolve_device(device)
+        key = (wop_params.pfks_level, wop_params.pfks_base_log, str(device))
+        if key not in self._packed_pfpksk:
+            self._packed_pfpksk[key] = kw.pack_pfpksk(
+                self.wop_keys(wop_params), wop_params, device=device)
+        return self._packed_pfpksk[key]
 
     def _require(self):
         if self._secret is None:
@@ -147,6 +174,7 @@ class Keys:
                 _, lev, base = name.split("_")
                 self._pfpksk[(int(lev), int(base))] = np.asarray(z[name])
         self._packed = {}
+        self._packed_pfpksk = {}
 
     def save(self, path: str) -> None:
         with open(path, "wb") as f:

@@ -6,7 +6,8 @@ every compile runs it: for a circuit whose cheapest grouping is mono it
 returns None, and the compiler's mono search then chooses the JAX
 package's parameters.  Serving a multi-partition result (``MultiKeys``,
 the conversion keyswitch of ``core/partitions.py``) is ROADMAP queue 1
-item 8; a WoP partition's gadget choice is item 7.
+item 8, and so is serving a WoP partition, whose gadgets the planner
+chooses here (``optimizer.v0.choose_wop_gadgets``).
 
 The reference optimizer's PRECISION cut (concrete-optimizer/src/optimization/
 dag/multi_parameters/partitionning.rs): circuit values are grouped into

@@ -29,17 +29,31 @@ class Server:
             raise NotImplementedError(
                 "multi-partition circuits are not ported yet "
                 "(ROADMAP queue 1 item 8)")
-        specs.wop_params()       # raises for circuits with WoP gadgets
         self.graph = graph
         self.client_specs = specs
         self._executor = GraphExecutor(graph, specs.params,
-                                       specs.message_bits)
+                                       specs.message_bits,
+                                       wop_params=specs.wop_params())
         specs_by_uid = {**self._executor.tlu_specs,
                         **self._executor.multivariate_specs}
         self._lut_polys = {
             uid: torch.from_numpy(np.ascontiguousarray(s.lut_poly)
                                   .view(np.int64)).to(self.device)
             for uid, s in specs_by_uid.items()}
+        self._wop_tables = {
+            uid: torch.from_numpy(np.asarray(s.table, dtype=np.int64)).to(
+                self.device)
+            for uid, s in self._executor.wop_specs.items()}
+
+    def check_wop_memory(self, free_bytes: int = None) -> list:
+        """Refuse, before any key is generated or packed, a circuit whose
+        largest WoP lookup (one chunk of its circuit bootstrap with the
+        packed PFPKSK) does not fit this server's device
+        (``core.kernels_wop.check_wop_memory``); returns the estimates."""
+        from concrete_tpu_torch.core import kernels_wop as kw
+        wp = self._executor.wop_params
+        return [kw.check_wop_memory(wp, nb, size, self.device, free_bytes)
+                for nb, size in self._executor.wop_lookups()]
 
     def run(self, *args, evaluation_keys) -> tuple:
         """Run the circuit; returns the output ciphertexts as u64 arrays
@@ -47,21 +61,31 @@ class Server:
         numpy arrays, Python integers or CPU tensors.
 
         evaluation_keys: the client's ``EvaluationKeys`` (packed here with
-        this circuit's BSK form and truncation) or an already packed
-        (LimbKSK, LimbBSK or FusedBSK) pair on this server's device."""
+        this circuit's BSK form and truncation; a WoP circuit packs the
+        untruncated BSK and its PFPKSK) or an already packed (LimbKSK,
+        LimbBSK or FusedBSK[, LimbPFPKSK]) tuple on this server's
+        device."""
         from concrete_tpu_torch.compilation.evaluation_keys import \
             EvaluationKeys
         if isinstance(evaluation_keys, EvaluationKeys):
+            wp = self.client_specs.wop_params()
+            if wp is not None:
+                self.check_wop_memory()
             evaluation_keys = evaluation_keys.packed(
-                self.client_specs.message_bits,
-                norm2=self.graph.max_norm2(), device=self.device)
-        if len(evaluation_keys) != 2:
+                None if wp is not None else self.client_specs.message_bits,
+                norm2=self.graph.max_norm2(), device=self.device,
+                wop_params=wp)
+        if len(evaluation_keys) not in (2, 3):
             raise NotImplementedError(
-                "only (LimbKSK, LimbBSK or FusedBSK) evaluation keys are "
-                "ported; WoP and multi-partition keys are ROADMAP queue 1 "
-                "items 7-8")
-        ksk, bsk = evaluation_keys
-        for k in (ksk, bsk):
+                "only (LimbKSK, BSK[, LimbPFPKSK]) evaluation keys are "
+                "ported; multi-partition keys are ROADMAP queue 1 item 8")
+        ksk, bsk, *rest = evaluation_keys
+        pfpksk = rest[0] if rest else None
+        if self._executor.wop_specs and pfpksk is None:
+            raise ValueError(
+                "circuit contains WoP-PBS table lookups; pass the packed "
+                "PFPKSK as evaluation_keys[2] (Keys.wop_evaluation)")
+        for k in (ksk, bsk) + tuple(rest):
             if k.device != self.device:
                 raise ValueError(f"evaluation keys are on {k.device}, the "
                                  f"server runs on {self.device}")
@@ -74,7 +98,8 @@ class Server:
                   else np.asarray(arg))
             for pos, (arg, spec) in enumerate(zip(args,
                                                   self.client_specs.inputs))}
-        outs = self._executor.run(enc_inputs, ksk, bsk, self._lut_polys)
+        outs = self._executor.run(enc_inputs, ksk, bsk, self._lut_polys,
+                                  self._wop_tables, pfpksk)
         return tuple(o.cpu().numpy().view(np.uint64) for o in outs)
 
     # -- deployment (reference server.py:245-378) --------------------------
@@ -147,7 +172,10 @@ class Server:
             w = encoding_width(node, self.client_specs.message_bits)
             kind = node.name
             s = self._executor.tlu_specs.get(node.uid)
-            if s is not None:
+            if node.uid in self._executor.wop_specs:
+                s = self._executor.wop_specs[node.uid]
+                kind = f"wop_pbs(nb={s.nb_bits}, out={s.out_bits})"
+            elif s is not None:
                 kind = f"keyswitch+pbs(p={s.message_bits}" \
                     + (", signed" if s.signed_input else "") + ")"
             elif node.uid in self._executor.multivariate_specs:
@@ -161,20 +189,39 @@ class Server:
         """Estimated cost in the search's modeled int8 MACs (the JAX
         package's cost model, ``optimizer/v0.py``): one keyswitch and one
         blind rotate per element of every encrypted lookup, dynamic and
-        multivariate ones included."""
+        multivariate ones included; a WoP lookup at ``cost_wop_macs``, a
+        bit extraction at its sign PBS count."""
         from concrete_tpu_torch.optimizer.v0 import (cost_ks_macs,
-                                                     cost_pbs_macs)
+                                                     cost_pbs_macs,
+                                                     cost_wop_macs)
+        ex = self._executor
         p = self.client_specs.params
         atomic = (cost_pbs_macs(p.n_small, p.glwe_dimension,
                                 p.polynomial_size, p.pbs_level,
                                 p.pbs_base_log)
                   + cost_ks_macs(p.n_big, p.n_small, p.ks_level,
                                  p.ks_base_log))
-        return float(sum(max(int(np.prod(n.output.shape)), 1) * atomic
-                         for n in self.graph.graph.nodes
-                         if n.name in ("tlu", "univariate", "multivariate",
-                                       "dynamic_tlu")
-                         and n.output.is_encrypted))
+        total = 0.0
+        for n in self.graph.graph.nodes:
+            if n.name not in ("tlu", "univariate", "multivariate",
+                              "dynamic_tlu", "extract_bits") \
+                    or not n.output.is_encrypted:
+                continue
+            size = max(int(np.prod(n.output.shape)), 1)
+            if n.name == "extract_bits":
+                # lsb cascade: cleans + per-requested-bit sign-PBS
+                positions = n.properties["kwargs"]["positions"]
+                n_pbs = max(int(b) for b in positions) + len(positions)
+                total += size * n_pbs * atomic
+                continue
+            spec, wp = ex.wop_specs.get(n.uid), ex.wop_params
+            if spec is not None and wp is not None:
+                total += size * cost_wop_macs(
+                    p, spec.nb_bits, wp.cbs_level, wp.pfks_level,
+                    wp.cbs_base_log, wp.pfks_base_log)
+            else:
+                total += size * atomic
+        return total
 
     def programmable_bootstrap_count(self) -> int:
         """PBS count from the statistics grid (one source of truth with

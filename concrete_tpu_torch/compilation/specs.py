@@ -69,10 +69,16 @@ class ClientSpecs:
 
         Under multi-partition compilation, pass the partition width of the
         wide TLU's input class."""
-        if not (self.wop_gadgets or self.partition_wop_gadgets):
+        from concrete_tpu_torch.core.wop import WopParams
+        if self.partitions and self.partition_wop_gadgets:
+            raise NotImplementedError(
+                "WoP-PBS gadgets per partition are not ported yet (ROADMAP "
+                "queue 1 item 8, multi-partition)")
+        if self.wop_gadgets is None:
             return None
-        raise NotImplementedError(
-            "WoP-PBS is not ported yet (ROADMAP queue 1 item 7)")
+        cbs_l, cbs_b, pfks_l, pfks_b = self.wop_gadgets
+        return WopParams(base=self.params, cbs_level=cbs_l, cbs_base_log=cbs_b,
+                         pfks_level=pfks_l, pfks_base_log=pfks_b)
 
     def input_width(self, pos: int) -> int:
         if self.input_widths is None:

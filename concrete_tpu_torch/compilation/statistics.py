@@ -1,7 +1,7 @@
 """Primitive crypto-op statistics extracted from the lowered graph.
 
 A copy of ``concrete_tpu/compilation/statistics.py`` for the port's mono
-executor (no WoP-PBS lookups, no partition frontiers yet), the analog of
+executor (no partition frontiers yet), the analog of
 the reference's ExtractStatistics pass
 (compiler/lib/Dialect/TFHE/Analysis/ExtractStatistics.cpp: counts of
 PBS / KEY_SWITCH / WOP_PBS / PACKING_KEY_SWITCH / CLEAR_ADDITION /
@@ -147,11 +147,19 @@ def collect(graph, executor, default_width: int) -> list[Record]:
             # cost; the keyset is the same within the mono partition)
             w_in = tlu_effective_input_width(graph, node, default_width) \
                 if preds_enc else default_width
-            # native PBS only: the port's executor has no WoP-PBS lookups
-            # (ROADMAP queue 1 item 7) to count as bit extractions,
-            # circuit bootstraps and a WOP_PBS
-            emit(KEY_SWITCH, node, size, w_in)
-            emit(PBS, node, size, w_in)
+            spec = getattr(executor, "wop_specs", {}).get(node.uid)
+            if spec is not None:
+                # WoP-PBS: nb bit-extract PBS, then a circuit bootstrap
+                # per bit (PBS + packing keyswitch) feeding the
+                # vertical-packing lookup (counted as the WOP_PBS op)
+                nb = spec.nb_bits
+                emit(KEY_SWITCH, node, size * nb, w_in)
+                emit(PBS, node, size * nb, w_in)
+                emit(PACKING_KEY_SWITCH, node, size * nb, w_in)
+                emit(WOP_PBS, node, size, w_in)
+            else:
+                emit(KEY_SWITCH, node, size, w_in)
+                emit(PBS, node, size, w_in)
         elif name == "extract_bits":
             positions = node.properties["kwargs"]["positions"]
             preds_enc = [q for q in preds if enc(q)]

@@ -407,9 +407,13 @@ def tlu_pattern_split(graph: Graph):
                 # CRT TLU: per-residue extraction (noise-only at the
                 # residue width) + one WoP vertical packing over the
                 # concatenated residue bits (wrappers.cpp:855-998)
-                raise NotImplementedError(
-                    "CRT table lookups are not ported yet "
-                    "(ROADMAP queue 1 item 7)")
+                from concrete_tpu_torch.core.wop import crt_block_bits
+                nb = sum(crt_block_bits(
+                    node.properties["kwargs"]["moduli"]))
+                wide_in.append((p_in, in_c, lut_c))
+                for w, n2o in decision_constraints_after(
+                        graph, node, default, (manp, boundary)):
+                    wop.append((nb, w, n2o))
             elif p_in > MAX_NATIVE_TLU_BITS:
                 wide_in.append((p_in, in_c, lut_c))
                 nb = wop_nb_bits(graph, node, default)

@@ -269,7 +269,8 @@ def _switch_and_init(ct_small: torch.Tensor, lut_poly: torch.Tensor,
 
 
 def blind_rotate(ct_small: torch.Tensor, bsk, lut_poly: torch.Tensor,
-                 params: CryptoParams) -> torch.Tensor:
+                 params: CryptoParams,
+                 min_scale_log: int = None) -> torch.Tensor:
     """Batched blind rotation: (B, n+1) ct, (N,) or (B, N) LUT ->
     accumulator (B, k+1, N), dispatched as in the JAX package: a
     ``FusedBSK`` runs the CRT-NTT scan at any batch, at B <=
@@ -279,14 +280,24 @@ def blind_rotate(ct_small: torch.Tensor, bsk, lut_poly: torch.Tensor,
     chooses); a ``LimbBSK`` runs ``_blind_rotate_latency`` at B <=
     ``LATENCY_BATCH_MAX``, else the banded scan in ``BANDED_MM_MODE``.
 
+    `min_scale_log`, the smallest output scale of the rows (the WoP sign
+    PBS passes it; native lookups pass nothing and keep the JAX package's
+    rule), holds a fused key's acc32 mode to ``ops.fused_ntt.
+    acc32_eligible``'s message-scale gate; a banded key's accumulator is
+    exact and ignores it.
+
     Banded, per step i: acc += recombine(Decomp(X^{a_i} acc - acc) (.)
     BSK_i), the kept limb planes shifted by 8*(s + truncate_limbs).  The
     accumulator is one (B*(k+1), N) int64 tensor, updated in place by
     kernel B or by ``recombine_accumulate``.
     """
-    from concrete_tpu_torch.ops.fused_ntt import FusedBSK, blind_rotate_fused
+    from concrete_tpu_torch.ops.fused_ntt import (FusedBSK, acc32_eligible,
+                                                  blind_rotate_fused)
     if isinstance(bsk, FusedBSK):
-        return blind_rotate_fused(ct_small, bsk, lut_poly, params)
+        acc32 = None if min_scale_log is None \
+            else acc32_eligible(bsk, min_scale_log)
+        return blind_rotate_fused(ct_small, bsk, lut_poly, params,
+                                  acc32=acc32)
     if not isinstance(bsk, LimbBSK):
         raise TypeError(f"unknown bootstrap key type {type(bsk).__name__}")
     mode = BANDED_MM_MODE

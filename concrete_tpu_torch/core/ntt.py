@@ -31,6 +31,9 @@ import numpy as np
 #: FUSED_NTT_MAX_POLY_SIZE bounds the top; its kernel needs N/128 >= 8)
 MIN_POLY_SIZE = 1024
 MAX_POLY_SIZE = 16384
+#: the smallest N at which the WoP vertical packing's runtime external
+#: product (kernel 2's pack entry, kernel 3's keyed entry) runs
+RUNTIME_MIN_POLY_SIZE = 256
 
 
 def _is_prime(n: int) -> bool:
@@ -82,6 +85,28 @@ def required_bits(params, trunc_bits: int) -> int:
     cin = params.pbs_level * (params.glwe_dimension + 1)
     return ((64 - trunc_bits) + (params.pbs_base_log - 1)
             + (params.polynomial_size * cin).bit_length() + 2)
+
+
+def runtime_required_bits(n: int, kp1: int, base_log: int,
+                          levels: int) -> int:
+    """``required_bits`` for the external product with a runtime GGSW (a
+    circuit bootstrap's output: full u64 entries, no truncation) at the
+    cbs gadget: |z| <= Cin * N * 2^(base_log-1) * 2^63, Cin = levels *
+    (k+1); +1 for sign, +1 safety."""
+    return 64 + (base_log - 1) + (n * levels * kp1).bit_length() + 2
+
+
+def runtime_primes(n: int, kp1: int, base_log: int, levels: int) -> tuple:
+    """The fewest special-form primes whose product covers
+    ``runtime_required_bits`` (log2(prod) >= the bits, as
+    ``choose_fused_primes`` counts at t = 0): 3 at PIR 32's vertical
+    packing (N=4096, k+1=2, cbs 3 x 2^5: 85 bits)."""
+    need = runtime_required_bits(n, kp1, base_log, levels)
+    pool = special_ntt_primes(n, 128)
+    for count in range(2, len(pool) + 1):
+        if math.prod(pool[:count]).bit_length() - 1 >= need:
+            return tuple(pool[:count])
+    raise ValueError(f"no {len(pool)}-prime product covers {need} bits")
 
 
 @functools.lru_cache(maxsize=None)

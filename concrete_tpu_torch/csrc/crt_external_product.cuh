@@ -74,6 +74,19 @@
 // of the step's key spectra, 201 MB of L2 traffic per launch at the MLP
 // shape.  tools/ablate_kernels.py times those parts through the ABLATE_*
 // switches below, which only its builds set.
+//
+// The runtime-key entry (KEYED, csrc/crt_external_product_keyed.cu) is the
+// same kernel with one more input: an int32 key index per ciphertext into a
+// stack of per-ciphertext spectra (n_keys, P * Cin * (k+1), N), where the
+// BSK entry reads one step's spectra for every ciphertext.  The WoP
+// vertical packing multiplies by the circuit bootstrap's GGSWs this way
+// (core/kernels_wop.py): their layout is a BSK step's, kernel 2's pack
+// entry transforms them, and ciphertext b reads key key_index[b].  Every
+// ciphertext reads its own Cin (k+1) N spectra and companions per prime
+// (8 bytes a coefficient) beside the (Cin + k + 1) (N/2) log2 N
+// butterflies.  It is compiled for N = 256 .. 16384 (the WoP circuits'
+// N = 256 and 512 included); the BSK entry's instantiations do not
+// change.
 
 #pragma once
 
@@ -112,12 +125,13 @@ __device__ __forceinline__ void mac16(uint32_t (&acc)[E],
   }
 }
 
-template <int G, int LOG_N, bool WIDE>
+template <int G, int LOG_N, bool WIDE, bool KEYED = false>
 __global__ void __launch_bounds__(MAX_THREADS) crt_external_product_kernel(
     const int32_t* __restrict__ digits, const uint32_t* __restrict__ spec,
     const uint32_t* __restrict__ spec_sh, uint32_t* __restrict__ out,
     const uint2* __restrict__ tw, const uint32_t* __restrict__ consts,
-    int batch, int levels, int kp1_arg, int co_group) {
+    int batch, int levels, int kp1_arg, int co_group,
+    const int32_t* __restrict__ key_index) {
   const int kp1 = WIDE ? kp1_arg : KR;
   // this block's output components co0 .. co0+ng-1 (WIDE: a group of
   // co_group, blockIdx.z the group; else both of k+1 = 2)
@@ -130,6 +144,13 @@ __global__ void __launch_bounds__(MAX_THREADS) crt_external_product_kernel(
   const int b = blockIdx.x, pr = blockIdx.y, tid = threadIdx.x;
   const int rows = batch * kp1, cin = levels * kp1;
   const uint32_t p = consts[3 * pr];
+  if constexpr (KEYED) {
+    // ciphertext b's own key: a stack entry of P * Cin * (k+1) rows
+    const size_t step = (size_t)__ldg(key_index + b) * gridDim.y * cin *
+                        kp1 << LOG_N;
+    spec += step;
+    spec_sh += step;
+  }
   const uint2* fwd = tw + (size_t)pr * 2 * n;
   const uint2* inv = fwd + n;
   // residue k of group i of accumulator KR + c: slot ((c G + i) E + k) T
@@ -214,28 +235,29 @@ __global__ void __launch_bounds__(MAX_THREADS) crt_external_product_kernel(
   }
 }
 
-template <int LOG_N, bool WIDE>
+template <int LOG_N, bool WIDE, bool KEYED = false>
 cudaError_t launch(const void* digits, const void* spec, const void* spec_sh,
                    void* out, const void* tw, const void* consts, int batch,
                    int levels, int kp1, int n_primes, int co_group,
-                   void* stream) {
+                   void* stream, const void* key_index = nullptr) {
   constexpr int G = LOG_N == 14 ? 2 : 1;   // 1024 groups: 512 threads of 2
   const int in_smem = co_group > KR ? co_group - KR : 0;
   const int smem = (int)(sizeof(uint32_t) * (size_t)(2 + in_smem) << LOG_N);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        crt_external_product_kernel<G, LOG_N, WIDE>,
+        crt_external_product_kernel<G, LOG_N, WIDE, KEYED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)batch, (unsigned)n_primes,
                   (unsigned)((kp1 + co_group - 1) / co_group));
-  crt_external_product_kernel<G, LOG_N, WIDE>
+  crt_external_product_kernel<G, LOG_N, WIDE, KEYED>
       <<<grid, (1 << LOG_N) / (E * G), smem, (cudaStream_t)stream>>>(
           (const int32_t*)digits, (const uint32_t*)spec,
           (const uint32_t*)spec_sh, (uint32_t*)out, (const uint2*)tw,
-          (const uint32_t*)consts, batch, levels, kp1, co_group);
+          (const uint32_t*)consts, batch, levels, kp1, co_group,
+          (const int32_t*)key_index);
   return cudaGetLastError();
 }
 

@@ -45,8 +45,9 @@
 //    floor(2^64 / p) and one correction (companion), no division.
 // Compiled once per N: N >= 16 through the register schedule (one block of
 // N/16 threads, or 512 threads of two groups at N = 16384), N = 4 and 8 by
-// one thread per transform (ntt_forward_tiny); the pack only at the sizes
-// the CRT-NTT path packs, N = 1024 .. 16384.  The ABLATE_* switches are
+// one thread per transform (ntt_forward_tiny); the pack at the sizes the
+// CRT-NTT path packs, N = 1024 .. 16384, and at N = 256 and 512, where the
+// WoP vertical packing transforms its runtime GGSWs (core/kernels_wop.py).  The ABLATE_* switches are
 // set only by tools/ablate_kernels.py's variant builds.
 
 #include <cstdint>
@@ -374,7 +375,7 @@ extern "C" int ntt_forward(const void* x, void* out, const void* tw,
 
 // The key pack: x (n_small rows, N) int64, the u64 key's polynomials as
 // uploaded (rows per step), each >> shift; spec and spec_sh (n_small,
-// P rows, N) u32.  N = 2^log_n, 1024 <= N <= 16384.
+// P rows, N) u32.  N = 2^log_n, 256 <= N <= 16384.
 extern "C" int ntt_forward_pack(const void* x, void* spec, void* spec_sh,
                                 const void* tw, const void* consts, int polys,
                                 int rows, int n_primes, int log_n, int shift,
@@ -384,8 +385,8 @@ extern "C" int ntt_forward_pack(const void* x, void* spec, void* spec_sh,
     return (int)launch<L, true>(x, spec, spec_sh, tw, consts, polys, rows, \
                                 n_primes, shift, stream);
   switch (log_n) {
-    NTT_PACK_CASE(10) NTT_PACK_CASE(11) NTT_PACK_CASE(12) NTT_PACK_CASE(13)
-    NTT_PACK_CASE(14)
+    NTT_PACK_CASE(8) NTT_PACK_CASE(9) NTT_PACK_CASE(10) NTT_PACK_CASE(11)
+    NTT_PACK_CASE(12) NTT_PACK_CASE(13) NTT_PACK_CASE(14)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef NTT_PACK_CASE

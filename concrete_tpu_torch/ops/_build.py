@@ -58,6 +58,10 @@ _SIGNATURES = {
     # kp1, n_primes, log_n, co_group, stream
     "crt_external_product": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _P],
+    # digits, spec stack, spec_sh stack, out, twiddles, prime constants,
+    # key_index, batch, levels, kp1, n_primes, log_n, co_group, stream
+    "crt_external_product_keyed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _P],
     # residues, acc, constants, n_primes, elems, shift, acc32, stream
     "garner_accumulate": [_P, _P, _P, _I, _L, _I, _I, _P],
     # lhs, vv, out, a_limbs, rows, cin, kp1, cout, s_planes, n, stream

@@ -39,6 +39,7 @@ CPU ones; there is no other fallback.
 from __future__ import annotations
 
 import dataclasses
+import math
 import struct
 
 import numpy as np
@@ -133,10 +134,32 @@ def kernel_groups(n: int, kp1: int,
     return groups, -(-kp1 // groups)
 
 
-def acc32_eligible(bsk: FusedBSK) -> bool:
+#: bits between the acc32 mode's perturbation bound and the smallest
+#: message scale it may serve (the JAX package's docstring claim)
+ACC32_MARGIN_BITS = 13
+
+
+def acc32_min_scale_log(n_small: int) -> int:
+    """The smallest output scale log2 the acc32 mode may serve: its
+    perturbation is bounded by (n_small + 2) 2^32 a coefficient, and the
+    scale must sit ``ACC32_MARGIN_BITS`` above that (55 at n_small=822)."""
+    return math.ceil(math.log2((n_small + 2) * 2.0 ** 32)) \
+        + ACC32_MARGIN_BITS
+
+
+def acc32_eligible(bsk: FusedBSK, min_scale_log: int = None) -> bool:
     """The acc32 mode is the default wherever the digits read only the
-    top word (``blind_rotate_fused``'s ``acc32=`` overrides it)."""
-    return host.digits_lo_free(bsk.base_log, bsk.levels)
+    top word (``blind_rotate_fused``'s ``acc32=`` overrides it), the JAX
+    package's rule.  A caller that knows the smallest message scale of its
+    rows (the WoP sign PBS, ``core/kernels_wop.sign_pbs_batch``) passes it
+    as `min_scale_log`, and the mode is then also held to
+    ``acc32_min_scale_log``: the JAX package's claim that its perturbation
+    sits 2^13 below every message scale fails at a deep circuit-bootstrap
+    level (PIR 32's 2^49 against a 2^41.7 bound)."""
+    if not host.digits_lo_free(bsk.base_log, bsk.levels):
+        return False
+    return min_scale_log is None \
+        or min_scale_log >= acc32_min_scale_log(bsk.n_small)
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +219,81 @@ def crt_external_product(digits: torch.Tensor, spec: torch.Tensor,
         out.data_ptr(), tw.data_ptr(), cst.data_ptr(), rows // kp1, levels,
         kp1, n_p, n.bit_length() - 1, co_group, _build.stream_of(digits)))
     _build.LAUNCHES[XP] += 1
+    return out
+
+
+XPK = "crt_external_product_keyed"
+
+
+def crt_external_product_keyed_plain(digits: torch.Tensor,
+                                     spec: torch.Tensor,
+                                     spec_sh: torch.Tensor,
+                                     key_index: torch.Tensor, primes: tuple,
+                                     kp1: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel 3's runtime-key entry: ciphertext b
+    reads the stack's key ``key_index[b]`` (the Shoup companions are not
+    needed for int64 arithmetic)."""
+    levels, rows, n = digits.shape
+    b_ct, cin, n_p = rows // kp1, levels * kp1, len(primes)
+    d = digits.view(levels, b_ct, kp1, n).transpose(0, 1) \
+        .reshape(b_ct * cin, n)                     # row b * Cin + ci
+    dhat = tn.ntt_forward_plain(d, primes).view(n_p, b_ct, cin, 1, n)
+    keys = spec.view(spec.shape[0], n_p, cin, kp1, n)[key_index.long()]
+    prods = []
+    for pi, p in enumerate(primes):
+        key = keys[:, pi].to(torch.int64) & _M32        # (B, Cin, k+1, N)
+        prod = dhat[pi].to(torch.int64) * key % p
+        prods.append((prod.sum(dim=1) % p).view(rows, n))
+    return tn.ntt_inverse_plain(torch.stack(prods).to(torch.int32), primes)
+
+
+def crt_external_product_keyed(digits: torch.Tensor, spec: torch.Tensor,
+                               spec_sh: torch.Tensor,
+                               key_index: torch.Tensor, primes: tuple,
+                               kp1: int) -> torch.Tensor:
+    """digits (l, B*(k+1), N) int32, a stack of keys spec/spec_sh (n_keys,
+    P * l(k+1) * (k+1), N) int32 (kernel 2's pack layout), key_index (B,)
+    int32 -> (P, B*(k+1), N) int32 canonical residues of each ciphertext's
+    exact external product with its own key (``csrc/
+    crt_external_product_keyed.cu``, N a power of two in 256..16384)."""
+    if digits.device.type == "cpu":
+        return crt_external_product_keyed_plain(digits, spec, spec_sh,
+                                                key_index, primes, kp1)
+    if digits.device.type != "cuda":
+        raise ValueError(f"{XPK}: unsupported device {digits.device}")
+    levels, rows, n = digits.shape
+    n_p = len(primes)
+    if n & (n - 1) or not host.RUNTIME_MIN_POLY_SIZE <= n \
+            <= host.MAX_POLY_SIZE:
+        raise ValueError(f"{XPK}: N must be a power of two in "
+                         f"{host.RUNTIME_MIN_POLY_SIZE}..{host.MAX_POLY_SIZE}"
+                         f", got {n}")
+    if rows % kp1:
+        raise ValueError(f"{XPK}: {rows} rows are not a multiple of "
+                         f"k+1={kp1}")
+    _, co_group = kernel_groups(n, kp1)
+    for name, t in (("digits", digits), ("spec", spec),
+                    ("spec_sh", spec_sh), ("key_index", key_index)):
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != digits.device:
+            raise ValueError(f"{XPK}: {name} must be contiguous int32 on "
+                             f"{digits.device}")
+    if spec.ndim != 3 or spec.shape[1:] != (n_p * levels * kp1 * kp1, n) \
+            or spec_sh.shape != spec.shape:
+        raise ValueError(f"{XPK}: spectra {tuple(spec.shape)} are not a "
+                         f"stack of {n_p} primes, {levels} levels, "
+                         f"k+1={kp1}, N={n}")
+    if key_index.shape != (rows // kp1,):
+        raise ValueError(f"{XPK}: key_index must be ({rows // kp1},)")
+    tw = tn.pair_tables(n, primes, digits.device)
+    cst = tn.prime_constants(n, primes, digits.device)
+    out = torch.empty((n_p, rows, n), dtype=torch.int32, device=digits.device)
+    _build.check(XPK, _build.library().crt_external_product_keyed(
+        digits.data_ptr(), spec.data_ptr(), spec_sh.data_ptr(),
+        out.data_ptr(), tw.data_ptr(), cst.data_ptr(), key_index.data_ptr(),
+        rows // kp1, levels, kp1, n_p, n.bit_length() - 1, co_group,
+        _build.stream_of(digits)))
+    _build.LAUNCHES[XPK] += 1
     return out
 
 

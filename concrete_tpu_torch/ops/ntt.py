@@ -174,12 +174,13 @@ def ntt_forward_pack(x: torch.Tensor, primes: tuple, rows: int,
     int32 holding u32: the bit-reversed spectra of x >> trunc_bits
     (arithmetic) mod each prime, row pr * rows + r of each step, and
     their Shoup companions floor(v * 2^32 / p).  One launch on CUDA; N a
-    power of two in 1024..16384."""
+    power of two in 256..16384 (the BSK's sizes, 1024 up, and the WoP
+    runtime GGSWs' at N = 256 and 512)."""
     if x.device.type == "cpu":
         return ntt_forward_pack_plain(x, primes, rows, trunc_bits)
     x = _check_x(PACK, x)
     polys, n = x.shape
-    _check_n(PACK, n, host.MIN_POLY_SIZE)
+    _check_n(PACK, n, host.RUNTIME_MIN_POLY_SIZE)
     if rows < 1 or polys % rows:
         raise ValueError(f"{PACK}: {polys} polynomials are not whole steps "
                          f"of {rows} rows")

@@ -22,8 +22,8 @@ together (ROADMAP).
 ``CONCRETE_TPU_FUSED_NTT=0`` forces the banded form and ``=1`` the fused
 form, as in the JAX package's ``Keys.evaluation_for`` (``use_fused``).
 
-WoP-PBS gadget selection (``choose_wop_gadgets``) needs ``core/wop``'s
-``WopParams`` and is ROADMAP queue 1 item 7.
+WoP-PBS gadget selection (``choose_wop_gadgets``) returns the port's
+``core/wop.WopParams``.
 
 Vectorized numpy search over (k, logN, n, br, ks); milliseconds per query,
 lru-cached.
@@ -608,13 +608,55 @@ def cost_wop_macs(params: pp.CryptoParams, nb_bits: int, cbs_level: int,
             + nb_bits * c_cmux)
 
 
+@functools.lru_cache(maxsize=None)
 def choose_wop_gadgets(params: pp.CryptoParams, nb_bits_max: int,
                        out_constraints: tuple, p_error: float = 6.3e-5):
-    """Pick (cbs, pfks) gadget parameters for WoP-PBS on top of `params`
-    (the JAX package's search returns a ``core/wop.WopParams``)."""
-    raise NotImplementedError(
-        "WoP-PBS gadget selection (a table lookup above 8 bits) is not "
-        "ported yet (ROADMAP queue 1 item 7, WoP-PBS and CRT)")
+    """Pick (cbs, pfks) gadget parameters for WoP-PBS on top of `params`.
+
+    out_constraints: ((width, norm2), ...) decision points the WoP output
+    noise must satisfy (its consumers' TLU inputs / circuit outputs):
+    var_wop * norm2^2 + v_ks + v_ms < safe_variance(width).  Minimizes the
+    kernel MAC cost.  The reference analog is the WoP atomic-pattern search
+    (concrete-optimizer/src/optimization/wop_atomic_pattern/optimize.rs).
+    """
+    from concrete_tpu_torch.core.wop import WopParams
+    out_constraints = pareto_patterns(out_constraints) or ((1, 0.0, 1.0),)
+    v_fresh = params.glwe_std ** 2
+    v_ks = pp.variance_keyswitch(params.n_big, params.ks_base_log,
+                                 params.ks_level, params.lwe_std ** 2)
+    v_ms = pp.variance_modulus_switch(params.n_small,
+                                      params.log2_polynomial_size)
+    best = None
+    best_cost = math.inf
+    for cbs_l in (1, 2, 3, 4, 5, 6, 8, 10, 12, 14):
+        for cbs_b in range(2, 17):
+            if cbs_l * cbs_b > 63:
+                continue
+            for pfks_l in (1, 2, 3, 4, 5, 6, 8, 10):
+                for pfks_b in range(2, 11):
+                    if pfks_l * pfks_b > 40:
+                        continue
+                    v_wop = pp.wop_output_variance(
+                        params, nb_bits_max, cbs_b, cbs_l, pfks_b, pfks_l)
+                    ok = all(
+                        i_sq * v_fresh + l_sq * v_wop + v_ks + v_ms
+                        < safe_variance_bound(w, p_error)
+                        for w, i_sq, l_sq in out_constraints)
+                    if not ok:
+                        continue
+                    cost = cost_wop_macs(params, nb_bits_max, cbs_l, pfks_l,
+                                         cbs_b, pfks_b)
+                    if cost < best_cost:
+                        best_cost = cost
+                        best = WopParams(base=params, cbs_level=cbs_l,
+                                         cbs_base_log=cbs_b,
+                                         pfks_level=pfks_l,
+                                         pfks_base_log=pfks_b)
+    if best is None:
+        raise ValueError(
+            f"no feasible WoP gadgets for nb_bits={nb_bits_max}, "
+            f"constraints={out_constraints} on {params}")
+    return best
 
 
 def use_fused(params, message_bits: int = None) -> bool:

@@ -22,7 +22,6 @@ NOT_PORTED = {
                     "item 6, compilation/artifacts.py"),
     **dict.fromkeys(("Function", "Module", "function", "module"),
                     "item 6, compilation/module.py"),
-    "bits": "item 7, extensions/bits.py (lowers to extract_bits)",
     "tfhers": "item 9, the TFHE-rs bridge",
 }
 

@@ -37,6 +37,7 @@ from concrete_tpu.ops import pallas_step as ps
 from concrete_tpu.ops.pallas_banded_mm import banded_matmul_fused
 from concrete_tpu.params import (TEST_PARAMS_TINY, TEST_PARAMS_TINY_WIDE,
                                  choose_truncate_limbs)
+from torch_threads import one_intra_op_thread  # noqa: F401
 from concrete_tpu_torch.core import kernels as tk
 from concrete_tpu_torch.ops import banded_mm as tbm
 from concrete_tpu_torch.ops import recombine as trc

@@ -34,6 +34,7 @@ from concrete_tpu.models import QuantizedMLP as JMLP
 from concrete_tpu.optimizer import v0 as jv0
 from concrete_tpu.params import TEST_PARAMS_TINY, TEST_PARAMS_TINY_WIDE
 
+from torch_threads import one_intra_op_thread  # noqa: F401
 import concrete_tpu_torch as tfhe
 from concrete_tpu_torch.compilation import graph_io as tgio
 from concrete_tpu_torch.compilation import multi as tmulti
@@ -408,8 +409,13 @@ def test_compiled_circuit_run_matches_reference(name, params):
     ("forced_wop_parameters", "item 7")])
 def test_unported_configuration_raises(field, item):
     value = (1, 2, 3, 4) if field == "forced_wop_parameters" else True
-    with pytest.raises(NotImplementedError, match=item):
-        tfhe.Configuration(**{field: value})
+    if item == "item 7":
+        # WoP-PBS is ported: the forced gadgets are taken as they are
+        assert tfhe.Configuration(**{field: value}).forced_wop_parameters \
+            == value
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            tfhe.Configuration(**{field: value})
     # fields the JAX package accepts and ignores stay accepted
     tfhe.Configuration(loop_parallelize=False, dataflow_parallelize=True,
                        auto_parallelize=True, mesh_shape=(2, 2))
@@ -425,14 +431,20 @@ def test_unported_features_raise():
         tc.run_async(1, 2)
     with pytest.raises(NotImplementedError, match="item 6"):
         _compile(tfhe, "quickstart", artifacts=object())
-    wide = tfhe.LookupTable(list(range(512)))
+    # a 9-bit lookup (ROADMAP item 7, WoP-PBS) now compiles, to the JAX
+    # package's parameters and WoP gadgets
+    def nine_bits(pkg):
+        wide = pkg.LookupTable(list(range(512)))
 
-    @tfhe.compiler({"x": "encrypted"})
-    def nine_bits(x):
-        return wide[x]
+        @pkg.compiler({"x": "encrypted"})
+        def f(x):
+            return wide[x]
+        return f
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        nine_bits.compile(range(512), device="cpu")
+    compiled = nine_bits(tfhe).compile(range(512), device="cpu")
+    assert compiled.client_specs.serialize() \
+        == nine_bits(fhe).compile(range(512)).client_specs.serialize()
+    assert compiled.client_specs.wop_gadgets is not None
 
 
 def test_circuit_defaults_to_cuda():

@@ -22,6 +22,7 @@ from concrete_tpu.core import keygen as jkg
 from concrete_tpu.core import refimpl as jref
 from concrete_tpu.params import TEST_PARAMS_TINY, TEST_PARAMS_TINY_WIDE
 
+from torch_threads import one_intra_op_thread  # noqa: F401
 import concrete_tpu_torch as tfhe
 from concrete_tpu_torch.core import kernels as tk
 from concrete_tpu_torch.core import refimpl as tref

@@ -33,6 +33,7 @@ import jax.numpy as jnp
 
 from concrete_tpu.ops import pallas_dot_recombine as pdr
 from concrete_tpu.ops import pallas_step as ps
+from torch_threads import one_intra_op_thread  # noqa: F401
 from concrete_tpu_torch.ops import external_product as txp
 
 # the kernel's tile constants (csrc/banded_wgmma.cuh, and the

@@ -38,6 +38,7 @@ from concrete_tpu.core import kernels as kn
 from concrete_tpu.core import refimpl as ref
 from concrete_tpu.ops import pallas_fused_ntt as jfn
 from concrete_tpu.params import CryptoParams
+from torch_threads import one_intra_op_thread  # noqa: F401
 from concrete_tpu_torch import params as tpp
 from concrete_tpu_torch.core import kernels as tk
 from concrete_tpu_torch.core import ntt as tntt

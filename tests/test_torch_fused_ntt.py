@@ -31,6 +31,7 @@ from concrete_tpu.ops import pallas_step as jps
 from concrete_tpu.optimizer import v0 as jv0
 from concrete_tpu.params import BENCH_PARAMS_6BIT, CryptoParams
 
+from torch_threads import one_intra_op_thread  # noqa: F401
 from concrete_tpu_torch import params as tpp
 from concrete_tpu_torch.compilation.specs import ClientSpecs as TSpecs
 from concrete_tpu_torch.core import ntt as tntt

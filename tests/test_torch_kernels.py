@@ -22,6 +22,7 @@ from concrete_tpu.ops import pallas_dot_recombine as pdr
 from concrete_tpu.ops import pallas_step as ps
 from concrete_tpu.params import (TEST_PARAMS_TINY, TEST_PARAMS_TINY_WIDE,
                                  CryptoParams, choose_truncate_limbs)
+from torch_threads import one_intra_op_thread  # noqa: F401
 from concrete_tpu_torch.core import kernels as tk
 from concrete_tpu_torch.core import limbs as tlb
 from concrete_tpu_torch.ops import external_product as txp

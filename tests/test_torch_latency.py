@@ -38,6 +38,7 @@ import jax.numpy as jnp
 import test_torch_banded_mm as bmt
 from concrete_tpu.core import kernels as kn
 from concrete_tpu.params import CryptoParams
+from torch_threads import one_intra_op_thread  # noqa: F401
 from concrete_tpu_torch import params as tpp
 from concrete_tpu_torch.core import kernels as tk
 from concrete_tpu_torch.core import limbs as tlb

@@ -20,6 +20,7 @@ from concrete_tpu.core import keygen as jkg
 from concrete_tpu.core import refimpl as jref
 from concrete_tpu.params import TEST_PARAMS_TINY_WIDE
 
+from torch_threads import one_intra_op_thread  # noqa: F401
 import concrete_tpu_torch as tfhe
 from concrete_tpu_torch import models as tm
 from concrete_tpu_torch.params import CryptoParams as TParams
@@ -90,8 +91,14 @@ def _compiled(name):
     return _COMPILED[name]
 
 
-@pytest.mark.parametrize("name", list(MODELS))
-def test_model_compile_and_archive_match_reference(tmp_path, name):
+#: the models this file runs; GameOfLife and Levenshtein, the slowest on
+#: the CPU, run the same checks from test_torch_models_gol.py and
+#: test_torch_models_lev.py, so that a run with one file per worker spreads
+#: them over three workers
+NAMES = ["kvdb", "hamming_packed", "hamming_xor", "pir"]
+
+
+def check_compile_and_archive(tmp_path, name):
     jc, tc = _compiled(name)
     assert tc.client_specs.serialize() == jc.client_specs.serialize()
     assert not tc.client_specs.is_multi
@@ -104,8 +111,7 @@ def test_model_compile_and_archive_match_reference(tmp_path, name):
     tfhe.Server.load(jpath, device="cpu")
 
 
-@pytest.mark.parametrize("name", list(MODELS))
-def test_model_run_matches_reference(tmp_path, name):
+def check_run(tmp_path, name):
     """Identical output ciphertexts, also from the port's Server.load of
     the JAX package's archive, and the model's clear answer."""
     jc, tc = _compiled(name)
@@ -131,6 +137,16 @@ def test_model_run_matches_reference(tmp_path, name):
         assert np.array_equal(np.asarray(dec).reshape(-1),
                               np.asarray(clear(*args)).reshape(-1)), \
             (name, args, dec)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_model_compile_and_archive_match_reference(tmp_path, name):
+    check_compile_and_archive(tmp_path, name)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_model_run_matches_reference(tmp_path, name):
+    check_run(tmp_path, name)
 
 
 @pytest.mark.parametrize("name", ["game_of_life", "levenshtein"])

@@ -22,6 +22,7 @@ import concrete_tpu.jax_config  # noqa: F401
 from concrete_tpu.core import ntt as jntt_host
 from concrete_tpu.ops import pallas_fused_ntt as jfn
 
+from torch_threads import one_intra_op_thread  # noqa: F401
 from concrete_tpu_torch.core import ntt as tntt
 from concrete_tpu_torch.ops import fused_ntt as tfn
 from concrete_tpu_torch.ops import ntt as tn

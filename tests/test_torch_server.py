@@ -30,6 +30,7 @@ from concrete_tpu.core import refimpl as jref
 from concrete_tpu.optimizer.v0 import fused_ntt_preferred
 from concrete_tpu.params import TEST_PARAMS_TINY, TEST_PARAMS_TINY_WIDE
 
+from torch_threads import one_intra_op_thread  # noqa: F401
 import concrete_tpu_torch as tfhe
 from concrete_tpu_torch.compilation.keys import Keys as TKeys
 from concrete_tpu_torch.params import CryptoParams as TParams
@@ -412,10 +413,10 @@ def test_default_device_is_cuda():
 
 
 def test_unported_operations_raise(tmp_path):
-    """An unported node kind raises its ROADMAP item when the port's Server
-    is built: a JAX-package archive whose graph holds ``extract_bits``
-    (``fhe.bits``, which lowers to bit extraction: item 7), before any key
-    is read."""
+    """A JAX-package archive whose graph holds ``extract_bits``
+    (``fhe.bits``, ROADMAP item 7, now ported) loads in the port and
+    serves on its keys: the JAX package's output bits on the same
+    ciphertext, which decrypt to the bit."""
     def bit1(x):
         return fhe.bits(x)[1]
 
@@ -424,9 +425,20 @@ def test_unported_operations_raise(tmp_path):
     assert "extract_bits" in {n.name for n in circuit.graph.graph.nodes}
     path = str(tmp_path / "bits.zip")
     circuit.server.save(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        tfhe.Server.load(path, device="cpu")
-    assert not hasattr(tfhe, "bits")
+    server = tfhe.Server.load(path, device="cpu")
+    assert hasattr(tfhe, "bits")
+    circuit.keygen(seed=4)
+    keys = TKeys.from_arrays(_tparams(TEST_PARAMS_TINY),
+                             circuit.keys.secret.lwe_small,
+                             circuit.keys.secret.glwe,
+                             circuit.keys.server.bsk,
+                             circuit.keys.server.ksk)
+    ct = circuit.encrypt(6)
+    got = server.run(ct, evaluation_keys=keys.evaluation_keys)[0]
+    want = np.asarray(circuit.server.run(
+        ct, evaluation_keys=circuit.keys.evaluation_keys)[0])
+    np.testing.assert_array_equal(got, want)
+    assert circuit.decrypt(want) == 1
 
 
 def test_port_imports_no_jax():
@@ -450,7 +462,10 @@ def test_port_imports_no_jax():
             "concrete_tpu_torch.models.levenshtein, "
             "concrete_tpu_torch.models.kvdb, "
             "concrete_tpu_torch.models.xor_distance, "
-            "concrete_tpu_torch.models.pir; "
+            "concrete_tpu_torch.models.pir, "
+            "concrete_tpu_torch.core.kernels_wop, concrete_tpu_torch.core.wop, "
+            "concrete_tpu_torch.extensions.bits, "
+            "concrete_tpu_torch.extensions.crt; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'concrete_tpu' or m.startswith('concrete_tpu.')]"
             "; print(bad); sys.exit(1 if bad else 0)")

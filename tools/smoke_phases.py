@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Run some phases of ``chip_smoke.py`` alone on one NVIDIA GPU.
 
-    python3 tools/smoke_phases.py [models] [kinds] [fused]
+    python3 tools/smoke_phases.py [models] [kinds] [fused] [wop]
 
 Builds the port's kernels from ``concrete_tpu_torch/csrc``, then runs the
 named phases of the smoke (``models``: the five model circuits and the
 2-key database against the CPU; ``kinds``: the node-kinds circuits;
 ``fused``: the CRT-NTT blind rotate at B <= 4 in one launch at the models'
-shapes, with its variant builds; ``models`` and ``kinds`` when none is
-named), each as the whole smoke runs it, with its checks.
+shapes, with its variant builds; ``wop``: the WoP vertical packing's
+kernel entries and PrivateInformationRetrieval at 32 rows served, 64
+compiled; ``models`` and ``kinds`` when none is named), each as the whole
+smoke runs it, with its checks.
 It prints no kernel line and no result line, so it proves nothing about
 the rest of the smoke.  Writes chiprun_out/smoke_phases.json.
 """
@@ -39,8 +41,16 @@ def fused_phase(rng):
     return rec
 
 
+def wop_phase(rng):
+    """chip_smoke.py's checks of the WoP vertical packing's kernel entries,
+    then its wop phase."""
+    return {"kernels": cs.wop_keyed_checks(rng, cs.sm_clock(),
+                                           cs.sass_mix()),
+            "phase": cs.wop_phase(rng)}
+
+
 PHASES = {"models": cs.models_phase, "kinds": cs.kinds_phase,
-          "fused": fused_phase}
+          "fused": fused_phase, "wop": wop_phase}
 DEFAULT = ("models", "kinds")
 
 
