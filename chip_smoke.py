@@ -143,7 +143,22 @@
    3), the same ciphertexts run again on the exact key, whose
    decryptions are held to the clear function, and the path's wrong
    count is printed;
-9. the node-kinds phase: five small circuits holding every node kind the
+9. the multi phase: three multi-partition circuits compiled by the port
+   at the default ``Configuration()``, ``PrimeMatch(10, 10, 10, 50)``,
+   ``PrimeMatch(5, 5, 4, 7)`` and ``HammingDistance(32, 4)`` with
+   ``via="xor"``, served as the models are (two requests through
+   ``Circuit.run`` within the compiled bounds, output ciphertexts equal
+   to the archive-loaded ``Server``'s, each lookup node's launches those
+   of its blind-rotate form on its partition's key, every kernel call held
+   to its plain version): each partition's BSK form and N, compile,
+   keygen and pack seconds per partition and conversion key, the
+   conversion keyswitches a request (``torch._int_mm`` limb GEMMs, each
+   frontier's held to the same keyswitch on CPU copies and timed at its
+   shape), one traced request, and the wrong
+   decryptions against ``PrimeMatch.match_clear`` and
+   ``HammingDistance.distance_clear`` beside the noise model's expected
+   failing decisions (``compilation.multi.decision_failures``);
+10. the node-kinds phase: five small circuits holding every node kind the
    models do not (the levelled and shape kinds, runtime clear inputs and
    clear outputs, per-element, multivariate, dynamic and control lookups,
    rounding, conv, maxpool, fancy indices, assign, trace), run through
@@ -152,20 +167,20 @@
    decides in both packages, counted apart), every kernel call held to
    its plain version on the same inputs; then fhe.bits, fhe.crt_tlu and a
    10-bit lookup (WoP-PBS at N=256), also held to the CPU's plain path;
-10. the wop phase: kernel 3's keyed entry (a key per ciphertext) and
+11. the wop phase: kernel 3's keyed entry (a key per ciphertext) and
    kernel 2's pack entry at the vertical packing's shapes against their
    plain versions, timed; PrivateInformationRetrieval over 32 rows of 16
    (a 9-bit WoP row fetch at N=4096) served as the models are, with its
    PFPKSK generated, split and uploaded and its launches by kernel; PIR
    over 64 rows compiled, its PFPKSK's size printed, not served;
-11. prints one JSON line per the kernels run (each one's launches
-   include those of the models and wop phases' requests), then the
-   result line.
+12. prints one JSON line per the kernels run (each one's launches
+   include those of the models, multi and wop phases' requests), then
+   the result line.
 
 Any failed phase exits non-zero before the result line.  Without CUDA, or
 next to no checkout of the port, it exits non-zero at once.
-``tools/smoke_phases.py`` runs the models, node-kinds and wop phases
-alone.
+``tools/smoke_phases.py`` runs the models, multi, node-kinds and wop
+phases alone.
 """
 
 from __future__ import annotations
@@ -247,6 +262,8 @@ KVDB_VALUES = [(3 * i + 1) % 16 for i in range(16)]
 # primes, 27 bits), and 2 lookups, few enough for the CPU's plain path
 KVDB_CPU_KEYS = [0, 30]
 HAMMING = (32, 4)                       # words, bits a word
+PRIME_MATCH_10 = (10, 10, 10, 50)       # bank and client orders, symbols,
+PRIME_MATCH_5 = (5, 5, 4, 7)            # largest quantity (both multi)
 # 16 rows: the row fetch is a native lookup; at 32 rows it is 9 bits wide
 # and lowers to WoP-PBS (the wop phase serves it), at 64 rows 11 bits (the
 # wop phase compiles it; its PFPKSK of 65,544 GLWE rows is not generated)
@@ -1476,19 +1493,25 @@ def exact_keys(circuit, ev):
     package's fused truncation rule admits keys too noisy for their output
     width (ROADMAP queue 3); the port keeps its bits, so the rule's key
     serves the path and this one the decryption check."""
+    if getattr(ev[1], "trunc_bits", 0) == 0:
+        return None
+    exact = exact_fused_key(circuit.keys.server.bsk,
+                            circuit.client_specs.params, circuit.device)
+    return (ev[0], exact) + tuple(ev[2:])
+
+
+def exact_fused_key(bsk_u64, p, device):
+    """The fused key of a u64 BSK with no bits dropped, on the fewest
+    primes whose range holds the external product."""
     import math
     from concrete_tpu_torch.core import ntt as host
     from concrete_tpu_torch.ops.fused_ntt import pack_bsk_fused
-    if getattr(ev[1], "trunc_bits", 0) == 0:
-        return None
-    p = circuit.client_specs.params
     pool = host.special_ntt_primes(p.polynomial_size, 128)
     count = next(c for c in range(2, len(pool) + 1)
                  if math.prod(pool[:c]).bit_length() - 1
                  >= host.required_bits(p, 0))
-    exact = pack_bsk_fused(circuit.keys.server.bsk, p, primes=pool[:count],
-                           trunc_bits=0, device=circuit.device)
-    return (ev[0], exact) + tuple(ev[2:])
+    return pack_bsk_fused(bsk_u64, p, primes=pool[:count], trunc_bits=0,
+                          device=device)
 
 
 class timed_calls:
@@ -1904,6 +1927,400 @@ def models_phase(rng):
         "kvdb_2_keys", small.compile,
         lambda: (int(rng.integers(0, KVDB_CPU_KEYS[1] + 2)),),
         wrong_of(small.query_clear), cpu_check=True)
+    return out
+
+
+def multi_lookup_forms(circuit, ev) -> dict:
+    """lookup_forms for a multi-partition circuit: each lookup node's
+    blind rotate on its input partition's packed key and parameters, with
+    the partition (no WoP partition here: the phase refuses one)."""
+    import numpy as np
+    ex = circuit.server._executor
+    forms = {}
+    for node in circuit.graph.topological_order():
+        if not node.output.is_encrypted or node.name not in LOOKUP_KINDS:
+            continue
+        pid = ex.lookup_partition(node)
+        batch = max(int(np.prod(node.output.shape)), 1)
+        forms[node.uid] = (f"{node.name} in {pid}", batch) + br_form(
+            ev[1][pid], ex.params_for_width(pid), batch)
+    return forms
+
+
+def multi_exact_keys(circuit, ev):
+    """The keys of a multi circuit's exact path: ev with each truncated
+    fused key replaced by the exact one (the fewest primes whose range
+    holds the product, no bits dropped; exact_keys per partition), to be
+    run under int64_accumulators; None where the rule's path is already
+    exact (no fused key truncated or in the acc32 mode)."""
+    from concrete_tpu_torch.ops.fused_ntt import FusedBSK, acc32_eligible
+    ksk, bsk, pfpksk, fks = ev
+    exact = dict(bsk)
+    truncated = [pid for pid, key in bsk.items()
+                 if getattr(key, "trunc_bits", 0)]
+    if not truncated and not any(isinstance(key, FusedBSK)
+                                 and acc32_eligible(key)
+                                 for key in bsk.values()):
+        return None
+    for pid in truncated:
+        exact[pid] = exact_fused_key(circuit.keys.keys_for(pid).server.bsk,
+                                     circuit.client_specs.partitions[pid],
+                                     circuit.device)
+    return ksk, exact, pfpksk, fks
+
+
+class int64_accumulators:
+    """Within the block, every fused blind rotate keeps its accumulator in
+    int64 (``ops.fused_ntt.acc32_eligible`` refuses the acc32 mode, which
+    the JAX package's rule takes wherever the digits read only the top
+    word, and whose truncations add noise the noise model leaves out:
+    ROADMAP queue 3)."""
+
+    def __enter__(self):
+        from concrete_tpu_torch.ops import fused_ntt as fn
+        self.saved = fn.acc32_eligible
+        fn.acc32_eligible = lambda bsk, min_scale_log=None: False
+        return self
+
+    def __exit__(self, *exc):
+        from concrete_tpu_torch.ops import fused_ntt as fn
+        fn.acc32_eligible = self.saved
+
+
+class conversion_calls:
+    """Within the block, each conversion keyswitch (``core.kernels.keyswitch``
+    on one of `fks`' keys): its frontier, rows and the int8 GEMMs it
+    launches (one a digit limb); the first call's input kept per
+    frontier."""
+
+    def __init__(self, fks: dict):
+        self.by_key = {id(k): f for f, k in fks.items()}
+        self.calls, self.first = [], {}
+
+    def __enter__(self):
+        from concrete_tpu_torch.core import kernels as kn
+        from concrete_tpu_torch.core import limbs as lb
+        self.saved = kn.keyswitch
+
+        def keyswitch(ct, ksk, _fn=self.saved):
+            frontier = self.by_key.get(id(ksk))
+            if frontier is not None:
+                self.calls.append((frontier, ct.shape[0],
+                                   lb.num_digit_limbs(ksk.base_log)))
+                self.first.setdefault(frontier, (ct.clone(), ksk))
+            return _fn(ct, ksk)
+        kn.keyswitch = keyswitch
+        return self
+
+    def __exit__(self, *exc):
+        from concrete_tpu_torch.core import kernels as kn
+        kn.keyswitch = self.saved
+
+
+def serve_multi(name, compile_fn, draw, wrong_of):
+    """One multi-partition circuit on the card, as serve_model serves a
+    model: compile, keygen (each partition's keyset, the secret-only ones
+    and the conversion keys) and pack (each partition's keys, each
+    conversion key split on the card) timed; two requests of inputs
+    within the compiled bounds through Circuit.run, each one's launches
+    those of its lookup nodes' blind-rotate forms on their partitions'
+    keys, the second traced; the conversion keyswitches counted (their
+    int8 GEMMs: torch._int_mm, a library call), each frontier's equal to
+    the same keyswitch on CPU copies and timed at its shape; output
+    ciphertexts equal bit for bit to those of Server.load
+    of the circuit's own archive, whose kernel calls are held to their
+    plain versions (same_inputs); decryptions held to the clear function
+    on the exact path, where the rule's path is not exact (a truncated
+    fused key, or a fused key in the acc32 mode: multi_exact_keys, run
+    under int64_accumulators), beside the noise model's expected failing
+    decisions (compilation.multi.decision_failures); the rule path's
+    wrong count is printed."""
+    start = time.perf_counter()
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch.compilation import keys as ck
+    from concrete_tpu_torch.compilation.multi import (decision_failures,
+                                                      expected_failures)
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.core import limbs as lb
+    from concrete_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    circuit = compile_fn()
+    compile_s = time.perf_counter() - t0
+    specs = circuit.client_specs
+    if not specs.is_multi or circuit.device.type != "cuda":
+        fail(f"{name} compiled mono or off the card")
+    ex = circuit.server._executor
+    if ex.wop_specs:
+        fail(f"{name}: a WoP partition, which this phase does not check")
+    inputs, draws = covered_draws(circuit, draw, MODEL_REQUESTS)
+    model = decision_failures(circuit.graph, specs)
+    expected = expected_failures(model)
+
+    def timed_by(cls, attr, label_of, seconds):
+        fn = getattr(cls, attr)
+
+        def timed(self, *args, **kwargs):
+            t1 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            label = label_of(self, *args, **kwargs)
+            seconds[label] = seconds.get(label, 0.0) \
+                + time.perf_counter() - t1
+            return out
+        return fn, timed
+    pid_of = {id(k): w for w, k in circuit.keys._keys.items()}
+    keygen_parts, pack_parts = {}, {}
+    saved = []
+    for cls, attr, label_of, seconds in (
+            (ck.Keys, "generate",
+             lambda k, *a, secret_only=False: f"partition {pid_of[id(k)]}"
+             + (" (secret only)" if secret_only else ""), keygen_parts),
+            (ck.Keys, "evaluation_for",
+             lambda k, *a, **kw: f"partition {pid_of[id(k)]}", pack_parts),
+            (ck.MultiKeys, "conversion_key",
+             lambda k, s, d, *a, **kw: f"conversion {s}->{d}",
+             pack_parts)):
+        fn, timed = timed_by(cls, attr, label_of, seconds)
+        saved.append((cls, attr, fn))
+        setattr(cls, attr, timed)
+    checks = same_inputs(name)
+    try:
+        t0 = time.perf_counter()
+        circuit.keygen(seed=SEED)
+        keygen_s = time.perf_counter() - t0
+        keygen_parts["conversion keys"] = keygen_s - sum(
+            keygen_parts.values())
+        t0 = time.perf_counter()
+        with checks:
+            ev = circuit._evaluation_keys()    # what Circuit.run serves on
+            torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+    finally:
+        for cls, attr, fn in saved:
+            setattr(cls, attr, fn)
+    with checks:
+        exact = multi_exact_keys(circuit, ev)
+    forms = multi_lookup_forms(circuit, ev)
+    lookups = circuit.programmable_bootstrap_count
+    if lookups != sum(b for _, b, _, _ in forms.values()):
+        fail(f"{name}: {lookups} PBS a run, the lookup nodes hold "
+             f"{sum(b for _, b, _, _ in forms.values())}")
+    want = {}
+    for *_, launches in forms.values():
+        for k, v in launches.items():
+            want[k] = want.get(k, 0) + v
+    frontiers = {}
+    for node in circuit.graph.topological_order():
+        if node.name in LOOKUP_KINDS and node.output.is_encrypted:
+            key = (ex.lookup_partition(node), ex.part_of(node))
+            if key in specs.conversions:
+                frontiers[key] = frontiers.get(key, 0) + 1
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, f"{name}.zip")
+        circuit.server.save(path)
+        server = tfhe.Server.load(path, device=circuit.device)
+    encrypted = [circuit.encrypt(*x) for x in inputs]
+    encrypted = [ct if isinstance(ct, tuple) else (ct,) for ct in encrypted]
+    conv = conversion_calls(ev[3])
+
+    def request(ct):
+        before = dict(_build.LAUNCHES)
+        t1 = time.perf_counter()
+        with conv:
+            out = circuit.run(*ct)
+        wall = time.perf_counter() - t1
+        counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                  if v - before.get(k, 0)}
+        if counts != want:
+            fail(f"{name}: a request launched {counts}, its lookup nodes' "
+                 f"forms give {want}")
+        return wall, out if isinstance(out, tuple) else (out,), counts
+
+    wall, out, counts = request(encrypted[0])        # the path's run ...
+    (traced_wall, traced_out, traced_counts), rows, kernels, launch_calls = \
+        profile_run(lambda: request(encrypted[1]), host_ops=False)
+    launches = {k: counts.get(k, 0) + traced_counts.get(k, 0)
+                for k in {**counts, **traced_counts}}   # ... and its launches
+    made = {}
+    for frontier, _, _ in conv.calls:
+        made[frontier] = made.get(frontier, 0) + 1
+    if made != {f: n * MODEL_REQUESTS for f, n in frontiers.items()}:
+        fail(f"{name}: conversion keyswitches {made}, the graph's "
+             f"frontiers {frontiers} a request")
+    gemms = sum(a for _, _, a in conv.calls) // MODEL_REQUESTS
+    with checks:
+        refs = [server.run(*ct, evaluation_keys=ev) for ct in encrypted]
+    with checks, int64_accumulators():
+        exact_outs = [circuit.server.run(*ct, evaluation_keys=exact)
+                      for ct in encrypted] if exact else None
+    for o, r in zip((out, traced_out), refs):
+        if len(r) != len(o) or any(
+                a.dtype != np.uint64 or not np.array_equal(a, b)
+                for a, b in zip(o, r)):
+            fail(f"{name}: output ciphertexts differ from the archive-loaded "
+                 f"Server's")
+    checked = checks.check()
+    if set(launches) - set(checked):
+        fail(f"{name}: {sorted(set(launches) - set(checked))} launched on "
+             f"the path and never held to the plain version")
+    # each frontier's conversion keyswitch on the first request's rows:
+    # equal bit for bit to the same keyswitch on CPU copies (the GEMM's
+    # shapes are new: torch._int_mm pads M to 17 and K, N to 8 on the
+    # card), then it and one of its int8 GEMMs timed
+    conversions = {}
+    for (s, d), (x, key) in conv.first.items():
+        t0 = time.perf_counter()
+        cpu = kn.keyswitch(x.cpu(), dataclasses.replace(
+            key, planes=key.planes.cpu()))
+        cpu_s = time.perf_counter() - t0
+        if not torch.equal(kn.keyswitch(x, key).cpu(), cpu):
+            fail(f"{name}: the conversion keyswitch {s}->{d} on the card "
+                 f"differs from the CPU's")
+        a_limbs = lb.num_digit_limbs(key.base_log)
+        n_in, levels, n_out_p1, _ = key.planes.shape
+        lhs = torch.zeros((x.shape[0], n_in * levels), dtype=torch.int8,
+                          device=x.device)
+        rhs = key.planes.reshape(n_in * levels, n_out_p1 * 8)
+        conversions[f"{s}->{d}"] = {
+            "equal_to_cpu": True, "cpu_s": cpu_s,
+            "rows": x.shape[0], "gadget": list(specs.conversions[(s, d)]),
+            "n_in": n_in, "n_out": n_out_p1 - 1, "gemms": a_limbs,
+            "keyswitch_ms": cuda_ms(lambda: kn.keyswitch(x, key), 20),
+            "gemm_ms": cuda_ms(lambda: lb.int8_matmul(lhs, rhs), 20),
+            "gemm_shape": [max(x.shape[0], 17), n_in * levels,
+                           n_out_p1 * 8],
+            "key_bytes": key.planes.numel()}
+    path_wrong, values = decrypt_wrong(circuit, wrong_of, inputs,
+                                       (out, traced_out))
+    wrong = path_wrong if exact is None else decrypt_wrong(
+        circuit, wrong_of, inputs, exact_outs)[0]
+    allowed = max(2, 1e-3 * values)
+    if wrong > allowed:
+        for label, outs in (("rule keys", (out, traced_out)),
+                            ("exact keys", exact_outs or ())):
+            for x, o in zip(inputs, outs):
+                print(f"{name} on the {label}: decrypted {circuit.decrypt(*o)}"
+                      f" for inputs {x}", flush=True)
+        fail(f"{name}: {wrong} wrong decryptions of {values} ({path_wrong} "
+             f"on the packing rule's keys; the noise model expects "
+             f"{expected * MODEL_REQUESTS:.3g} failing decisions in "
+             f"{MODEL_REQUESTS} requests)")
+    busy = sum(ms for *_, ms in rows)
+    gemm_rows = [(k, c, ms) for k, c, ms in rows
+                 if "gemm" in k.lower() or "s8" in k.lower()
+                 or "imma" in k.lower()]
+    by_form = {}
+    for kind, batch, form, _ in forms.values():
+        key = f"{kind} B={batch}: {form}"
+        by_form[key] = by_form.get(key, 0) + 1
+    partitions = {
+        pid: {"N": p.polynomial_size, "k": p.glwe_dimension,
+              "n_small": p.n_small, "l": p.pbs_level,
+              "base_log": p.pbs_base_log,
+              "bsk": key_form(ev[1][pid]) if pid in ev[1] else
+              "none (secret-only: no PBS runs here)"}
+        for pid, p in specs.partitions.items()}
+    held = "" if exact is None else (
+        f" on the packing rule's keys (truncated fused keys, acc32 "
+        f"accumulators: ROADMAP queue 3); the same ciphertexts on the "
+        f"exact path (untruncated keys, int64 accumulators): {wrong} of "
+        f"{values}")
+    print(f"multi {name}: partitions "
+          f"{ {w: (r['N'], r['bsk']) for w, r in partitions.items()} }, "
+          f"conversions {specs.conversions}; compile {compile_s:.3f} s, "
+          f"keygen {keygen_s:.2f} s "
+          f"({ {k: round(v, 2) for k, v in keygen_parts.items()} }), pack "
+          f"{pack_s:.3f} s ({ {k: round(v, 3) for k, v in pack_parts.items()} }"
+          f"); {lookups} lookups a request; lookup nodes by form {by_form}; "
+          f"{MODEL_REQUESTS} requests within the compiled bounds in {draws} "
+          f"draws; Circuit.run request {wall:.4f} s, output ciphertexts "
+          f"equal bit for bit to the archive-loaded Server's; kernel calls "
+          f"held to their plain versions: "
+          f"{ {k: v['signatures'] for k, v in checked.items()} }; wrong "
+          f"decryptions {path_wrong} of {values}{held} (allowed {allowed}; "
+          f"the noise model's expected failing decisions a request "
+          f"{expected:.3g}); launches {launches}; conversion keyswitches a "
+          f"request {frontiers} ({gemms} int8 GEMMs): "
+          f"{ {f: (c['rows'], round(c['keyswitch_ms'], 4), round(c['gemm_ms'], 4)) for f, c in conversions.items()} }"
+          f" (rows, keyswitch ms, one GEMM ms), each equal to the CPU's; the "
+          f"traced request: wall "
+          f"{traced_wall * 1e3:.1f} ms, device busy {busy:.2f} ms, idle "
+          f"share {1 - busy / (traced_wall * 1e3):.3f}, int8 GEMM rows "
+          f"{sum(ms for *_, ms in gemm_rows):.3f} ms, kernels run {kernels}, "
+          f"launch calls {launch_calls}; phase "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    for k, c, ms in rows[:6]:
+        print(f"  {ms:9.3f} ms {c:6d}x  {k[:90]}", flush=True)
+    return {"partitions": partitions,
+            "conversions": {f"{s}->{d}": list(g)
+                            for (s, d), g in specs.conversions.items()},
+            "phase_s": time.perf_counter() - start, "compile_s": compile_s,
+            "keygen_s": keygen_s, "keygen_parts_s": keygen_parts,
+            "pack_s": pack_s, "pack_parts_s": pack_parts,
+            "lookups_per_request": lookups, "forms": by_form,
+            "draws": draws, "wall_s": wall, "path_wrong": path_wrong,
+            "wrong": wrong, "values": values, "launches": launches,
+            "exact_keys": exact is not None,
+            "model_expected_failures_per_request": expected,
+            "model_decisions": model,
+            "conversion_keyswitches_per_request": {
+                f"{s}->{d}": n for (s, d), n in frontiers.items()},
+            "conversion_gemms_per_request": gemms,
+            "conversion_timings": conversions,
+            "checked_on_served_inputs": checked,
+            "traced": {"wall_s": traced_wall, "device_busy_ms": busy,
+                       "idle_share": 1 - busy / (traced_wall * 1e3),
+                       "device_kernels": kernels,
+                       "launch_calls": launch_calls,
+                       "gemm_ms": sum(ms for *_, ms in gemm_rows),
+                       "by_kernel": [{"name": k, "count": c, "device_ms": ms}
+                                     for k, c, ms in rows[:12]]}}
+
+
+def multi_phase(rng):
+    """Three multi-partition circuits compiled by the port at the default
+    Configuration() and served on the card (serve_multi):
+    PrimeMatch(10, 10, 10, 50), PrimeMatch(5, 5, 4, 7) and
+    HammingDistance(32, 4) with via="xor"."""
+    import numpy as np
+    from concrete_tpu_torch import models as tm
+
+    def prime_match(sizes):
+        b, c, s, q = sizes
+        pm = tm.PrimeMatch(*sizes)
+
+        def draw():
+            return (rng.integers(0, 2, b), rng.integers(0, s, b),
+                    rng.integers(1, q + 1, b), rng.integers(0, 2, c),
+                    rng.integers(0, s, c), rng.integers(1, q + 1, c))
+
+        def wrong_of(x, dec):
+            want = np.concatenate([np.asarray(v).reshape(-1)
+                                   for v in pm.match_clear(*x)])
+            got = np.concatenate([np.asarray(d).reshape(-1) for d in dec])
+            if got.shape != want.shape:
+                fail(f"outputs of shape {got.shape}, want {want.shape}")
+            return int(np.count_nonzero(got != want)), want.size
+        return pm.compile, draw, wrong_of
+
+    ham = tm.HammingDistance(*HAMMING)
+
+    def ham_wrong(x, dec):
+        want = int(ham.distance_clear(*x))
+        return int(int(np.asarray(dec[0])) != want), 1
+
+    out = {}
+    for name, sizes in (("prime_match_10", PRIME_MATCH_10),
+                        ("prime_match_5", PRIME_MATCH_5)):
+        out[name] = serve_multi(name, *prime_match(sizes))
+    out["hamming_xor"] = serve_multi(
+        "hamming_xor", lambda: ham.compile(via="xor"),
+        lambda: tuple(rng.integers(0, 1 << HAMMING[1], HAMMING[0])
+                      for _ in range(2)), ham_wrong)
     return out
 
 
@@ -3342,13 +3759,15 @@ def main() -> None:
     direct = direct_lookups(rng, client, ksk, bsk, params)
     compiled = compile_phase(rng)
     models = models_phase(rng)
+    multi = multi_phase(rng)
     kinds = kinds_phase(rng)
     keyed = wop_keyed_checks(rng, clock, mix)
     wop = wop_phase(rng)
-    # the models and wop phases' own launches of the kernels that their
-    # lookups ran
+    # the models, multi and wop phases' own launches of the kernels that
+    # their lookups ran
     model_launches = {}
-    for rec in list(models.values()) + [wop["pir_32"]]:
+    for rec in list(models.values()) + list(multi.values()) \
+            + [wop["pir_32"]]:
         for k, v in rec["launches"].items():
             model_launches[k] = model_launches.get(k, 0) + v
 
@@ -3463,7 +3882,7 @@ def main() -> None:
                    "banded_modes_walls_s": modes, "latency": latency,
                    "serve_mlp": mlp, "direct_lookups": direct,
                    "compiled": compiled, "models": models,
-                   "kinds": kinds, "wop": wop, "wop_kernels": keyed,
+                   "multi": multi, "kinds": kinds, "wop": wop, "wop_kernels": keyed,
                    "detail": {"rotate_decompose": rec_a,
                               "external_product_accumulate": rec_b,
                               "banded_matmul": rec_bm,

@@ -10,10 +10,11 @@ one, ``utils/device.resolve_device``).
 
 The circuit packs its keyset for the device once and reuses the packed
 keys on every run (``Keys.evaluation_for`` caches them until the next
-keygen).  Simulation, ``run_async``, ``MultiKeys`` and the insecure key
-cache are not ported yet and raise ``NotImplementedError`` naming their
-ROADMAP queue 1 item; a multi-partition result compiles, and raises item 8
-when its client or server is first used.
+keygen).  A multi-partition circuit gets a ``MultiKeys``: full keysets for
+the partitions that run a PBS, secret-only ones for the others, and the
+conversion keys of its frontiers.  Simulation, ``run_async`` and the
+insecure key cache are not ported yet and raise ``NotImplementedError``
+naming their ROADMAP queue 1 item.
 """
 
 from __future__ import annotations
@@ -22,14 +23,11 @@ from typing import Optional
 
 from concrete_tpu_torch.compilation.client import Client
 from concrete_tpu_torch.compilation.executor import not_ported
-from concrete_tpu_torch.compilation.keys import Keys
+from concrete_tpu_torch.compilation.keys import Keys, MultiKeys
 from concrete_tpu_torch.compilation.server import Server
 from concrete_tpu_torch.compilation.specs import ClientSpecs
 from concrete_tpu_torch.representation import Graph
 from concrete_tpu_torch.utils.device import resolve_device
-
-
-_ITEM8 = "ROADMAP queue 1 item 8, multi-partition"
 
 
 class Circuit:
@@ -39,30 +37,38 @@ class Circuit:
         self.client_specs = specs
         self.configuration = configuration
         self.device = resolve_device(device)
-        self._client = self._server = None
-        if not specs.is_multi:
-            # the server refuses an unported node kind here, before any key
-            # is generated
-            self._client = Client(specs)
-            self._server = Server(graph, specs, device=self.device)
+        if specs.is_multi:
+            keys = MultiKeys(specs.partitions, specs.conversions or {},
+                             pbs_widths=self._pbs_widths())
+        else:
+            keys = Keys(specs.params)
+        self.client = Client(specs, keys)
+        # the server refuses an unported node kind here, before any key is
+        # generated
+        self.server = Server(graph, specs, device=self.device)
 
-    @property
-    def client(self) -> Client:
-        if self._client is None:
-            raise not_ported("serving a multi-partition circuit (MultiKeys)",
-                             _ITEM8)
-        return self._client
-
-    @property
-    def server(self) -> Server:
-        if self._server is None:
-            raise not_ported("serving a multi-partition circuit", _ITEM8)
-        return self._server
+    def _pbs_widths(self) -> frozenset:
+        """Partition ids that run a PBS (lookup input partitions): the
+        other partitions only encrypt and decrypt and get secret-only
+        keysets (a pure output partition can sit at N=2^14+, where a BSK
+        is GBs of dead weight)."""
+        from concrete_tpu_torch.compilation.widths import (
+            TLU_OPS, tlu_input_partition)
+        default = self.client_specs.message_bits
+        widths = set()
+        for node in self.graph.topological_order():
+            if node.name in TLU_OPS and any(
+                    p.output.is_encrypted
+                    for p in self.graph.ordered_preds_of(node)):
+                widths.add(tlu_input_partition(self.graph, node, default))
+        return frozenset(widths)
 
     # -- key management ----------------------------------------------------
 
     @property
-    def keys(self) -> Keys:
+    def keys(self):
+        """The client's ``Keys``, or ``MultiKeys`` for a multi-partition
+        circuit."""
         return self.client.keys
 
     def keygen(self, force: bool = False, seed: Optional[int] = None) -> None:
@@ -76,10 +82,16 @@ class Circuit:
     def _evaluation_keys(self):
         """The keyset packed for this circuit's device, BSK form and
         truncation, with the packed PFPKSK for a WoP circuit (as the JAX
-        package's mono ``_evaluation_keys``).  A WoP circuit packs the
+        package's ``_evaluation_keys``).  A WoP circuit packs the
         untruncated BSK: the truncation rule is sized for one
         message_bits-wide PBS, and the circuit bootstrap consumes the blind
-        rotate's noise at scale 2^(64 - cbs_level cbs_base_log)."""
+        rotate's noise at scale 2^(64 - cbs_level cbs_base_log).
+
+        Multi-partition: (ksk, bsk, pfpksk or None, fks), dicts keyed by
+        partition id (each partition's pack at its own norm2, a WoP
+        partition's untruncated) and by frontier (the conversion keys)."""
+        if self.client_specs.is_multi:
+            return self._multi_evaluation_keys()
         if not hasattr(self, "_norm2"):
             self._norm2 = self.graph.max_norm2()
         wp = self.client_specs.wop_params()
@@ -90,6 +102,29 @@ class Circuit:
             eval_keys = eval_keys + (self.keys.wop_evaluation(
                 wp, device=self.device),)
         return eval_keys
+
+    def _multi_evaluation_keys(self):
+        specs, mk = self.client_specs, self.keys
+        norm2 = specs.partition_norm2 or {}
+        wop_widths = specs.partition_wop_gadgets or {}
+        pbs_widths = self._pbs_widths()
+        ksk, bsk = {}, {}
+        for w in specs.partitions:
+            if w not in pbs_widths:
+                continue    # a secret-only partition: no PBS ever runs
+            if w in wop_widths:
+                k, b = mk.keys_for(w).evaluation_for(None,
+                                                     device=self.device)
+            else:
+                k, b = mk.evaluation_for_width(w, norm2=norm2.get(w, 1),
+                                               device=self.device)
+            ksk[w], bsk[w] = k, b
+        pfpksk = {w: mk.wop_evaluation_for(w, specs.wop_params(w),
+                                           device=self.device)
+                  for w in wop_widths}
+        fks = {key: mk.conversion_key(*key, device=self.device)
+               for key in (specs.conversions or {})}
+        return ksk, bsk, pfpksk or None, fks
 
     def run(self, *args):
         if self.client_specs.wop_params() is not None:

@@ -1,9 +1,11 @@
 """Client: keygen, encrypt, decrypt — host-side numpy.
 
-Counterpart of ``concrete_tpu/compilation/client.py`` for mono-keyset
-circuits: the same encoding, the same ChaCha20 randomness and the same u64
-ciphertext arrays (*shape, n_big + 1), so either package's client can talk
-to either package's server.
+Counterpart of ``concrete_tpu/compilation/client.py``: the same encoding,
+the same ChaCha20 randomness and the same u64 ciphertext arrays (*shape,
+n_big + 1), so either package's client can talk to either package's
+server.  A multi-partition circuit's inputs encrypt under their input
+partition's big key and its outputs decrypt under their output
+partition's (``MultiKeys``).
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Optional
 
 import numpy as np
 
-from concrete_tpu_torch.compilation.keys import Keys
+from concrete_tpu_torch.compilation.keys import Keys, MultiKeys
 from concrete_tpu_torch.compilation.specs import ClientSpecs
 from concrete_tpu_torch.core import keygen as kg
 from concrete_tpu_torch.core import refimpl as ref
@@ -20,13 +22,14 @@ from concrete_tpu_torch.dtypes import Integer
 
 
 class Client:
-    def __init__(self, specs: ClientSpecs, keys: Optional[Keys] = None):
-        if specs.is_multi:
-            raise NotImplementedError(
-                "multi-partition circuits are not ported yet "
-                "(ROADMAP queue 1 item 8)")
+    def __init__(self, specs: ClientSpecs, keys=None):
+        """`keys`: a ``Keys`` (mono) or ``MultiKeys``; by default a new
+        keyset for the specs (every partition's full keys if multi)."""
         self.specs = specs
-        self.keys = keys if keys is not None else Keys(specs.params)
+        if keys is None:
+            keys = MultiKeys(specs.partitions, specs.conversions or {}) \
+                if specs.is_multi else Keys(specs.params)
+        self.keys = keys
 
     def keygen(self, force: bool = False, seed: Optional[int] = None) -> None:
         if force or not self.keys.are_generated:
@@ -35,8 +38,13 @@ class Client:
     @property
     def evaluation_keys(self):
         """Public key material for the server: serializable, secret-free;
-        with the PFPKSK a WoP circuit needs (generated at first use)."""
+        with the PFPKSK a WoP circuit needs (generated at first use).  A
+        multi-partition keyset is refused, as in the JAX package."""
+        from concrete_tpu_torch.compilation.evaluation_keys import \
+            EvaluationKeys
         self.keygen()
+        if isinstance(self.keys, MultiKeys):
+            return EvaluationKeys.from_keys(self.keys)
         wp = self.specs.wop_params()
         if wp is not None:
             self.keys.wop_keys(wp)
@@ -60,11 +68,20 @@ class Client:
             if not spec.is_encrypted:
                 out.append(np.asarray(arg))
                 continue
-            # fresh inputs encrypt under the big key at the GLWE noise
+            sk, std = self._secret_for(self.specs.input_partition(pos))
             enc = ref.encode(arr, self.specs.input_width(pos))
-            out.append(kg.encrypt_lwe_batch(rng, self.keys.secret.lwe_big,
-                                            enc, self.specs.params.glwe_std))
+            out.append(kg.encrypt_lwe_batch(rng, sk, enc, std))
         return tuple(out) if len(out) != 1 else out[0]
+
+    def _secret_for(self, width: int):
+        """(big LWE secret key, encryption std) of a partition id (mono:
+        the single keyset).  Fresh inputs encrypt under the BIG key, whose
+        curve-minimal noise is glwe_std: the small key's much larger
+        lwe_std would drown levelled circuits in fresh noise."""
+        if isinstance(self.keys, MultiKeys):
+            return (self.keys.secret_for(width).lwe_big,
+                    self.specs.params_for_width(width).glwe_std)
+        return self.keys.secret.lwe_big, self.specs.params.glwe_std
 
     def _validate(self, arr, spec, pos):
         dtype = spec.dtype
@@ -87,8 +104,8 @@ class Client:
         out = []
         for pos, res in enumerate(results):
             spec = self.specs.outputs[pos]
-            phase = ref.lwe_decrypt(self.keys.secret.lwe_big,
-                                    np.asarray(res))
+            sk, _ = self._secret_for(self.specs.output_partition(pos))
+            phase = ref.lwe_decrypt(sk, np.asarray(res))
             signed = isinstance(spec.dtype, Integer) and spec.dtype.is_signed
             val = ref.decode(phase, self.specs.output_width(pos),
                              signed=signed)

@@ -33,6 +33,13 @@ class EvaluationKeys:
 
     @classmethod
     def from_keys(cls, keys) -> "EvaluationKeys":
+        """The public material of a generated mono ``Keys``."""
+        from concrete_tpu_torch.compilation.keys import MultiKeys
+        if isinstance(keys, MultiKeys):
+            raise NotImplementedError(
+                "EvaluationKeys covers mono keysets; multi-partition "
+                "deployments currently ship Circuit._evaluation_keys "
+                "(per-partition packed keys) directly")
         return cls(params=keys.params, bsk=np.asarray(keys.server.bsk),
                    ksk=np.asarray(keys.server.ksk),
                    pfpksk=dict(keys._pfpksk))

@@ -1,9 +1,9 @@
 """Graph executor: runs a computation graph on torch ciphertext tensors.
 
-Counterpart of ``concrete_tpu/compilation/executor.py`` for mono-keyset
-circuits.  The graph is interpreted node by node (PyTorch runs eagerly;
-there is no jit to build): levelled ops are int64 tensor ops (mod 2^64),
-and a table lookup flattens its whole tensor into one ``pbs_batch``.
+Counterpart of ``concrete_tpu/compilation/executor.py``.  The graph is
+interpreted node by node (PyTorch runs eagerly; there is no jit to build):
+levelled ops are int64 tensor ops (mod 2^64), and a table lookup flattens
+its whole tensor into one ``pbs_batch``.
 
 Ciphertext layout: an encrypted integer tensor of shape S is an int64
 tensor of shape (*S, n_big + 1), LWE dimension last.
@@ -14,9 +14,13 @@ than the native LUT (``tlu``, ``univariate``, ``multivariate``) runs one
 one bit extraction and chunked circuit bootstrap across the sibling output
 residues of one ``fhe.crt_tlu`` and runs a vertical packing per residue;
 ``extract_bits`` (``fhe.bits``) runs the lsb cascade
-``core.kernels_wop.extract_bits_to``.  Multi-partition circuits are
-refused by ``Server`` and ``Client`` (ROADMAP queue 1 item 8).  The JAX
-package's own refusals stay: encrypted x encrypted multiply and matmul
+``core.kernels_wop.extract_bits_to``.  A multi-partition circuit
+(``ClientSpecs.partitions``) runs each lookup in its input class's
+partition, with that partition's parameters, keys and WoP gadgets, and a
+big->big conversion keyswitch (``core.kernels.keyswitch``, a limb GEMM)
+moves each lookup output that crosses a frontier into its class's
+partition, as the JAX package's multi mode does.  The JAX package's own
+refusals stay: encrypted x encrypted multiply and matmul
 (the transforms lower them before they get here), a clear ``matmul``
 operand above 2-D, and a WoP lookup in a circuit compiled without WoP
 gadgets.
@@ -290,22 +294,63 @@ def _torch_index(index: tuple) -> tuple:
     return tuple(int(i) if isinstance(i, np.integer) else i for i in index)
 
 
+@dataclasses.dataclass
+class RunKeys:
+    """The packed keys of one run.  Mono: one (LimbKSK, BSK) pair and the
+    packed PFPKSK.  Multi: dicts keyed by partition id (the PFPKSKs of the
+    WoP partitions, or None) and the packed conversion keys by frontier
+    (src, dst)."""
+    ksk: object
+    bsk: object
+    pfpksk: object = None
+    fks: dict = None
+
+    def pair(self, pid: int):
+        if isinstance(self.ksk, dict):
+            return self.ksk[pid], self.bsk[pid]
+        return self.ksk, self.bsk
+
+    def packing(self, pid: int):
+        if isinstance(self.pfpksk, dict):
+            return self.pfpksk.get(pid)
+        return self.pfpksk
+
+
 class GraphExecutor:
-    """Node-by-node evaluation of a mono-keyset graph on torch tensors."""
+    """Node-by-node evaluation of a graph on torch tensors.
+
+    Mono mode: one keyset (`params`) serves every PBS.  Multi mode (specs
+    with partitions, compilation/multi.py): each PBS runs in its *input*
+    class's partition (the class's partition id keys the parameters), and
+    a big->big conversion keyswitch moves a crossing output into its
+    class's partition: the reference's TFHECircuitSolutionParametrization
+    change-partition lowering shape."""
 
     def __init__(self, graph: Graph, params: CryptoParams, p: int,
-                 wop_params=None):
+                 wop_params=None, specs=None):
         from concrete_tpu_torch.compilation.widths import (encoding_width,
+                                                           partition_of,
                                                            tlu_fused_lsbs)
         self.graph = graph
         self.params = params
         self.p = p
-        self.wop_params = wop_params
         self.width_of = lambda node: encoding_width(node, p)
+        # partition id of a node's value: its width under the PRECISION
+        # cut, synthetic under PRECISION_AND_NORM2 (widths.partition_of)
+        self.part_of = lambda node: partition_of(node, p)
+        self.partitions = dict(specs.partitions) \
+            if specs is not None and specs.is_multi else None
+        self.conversions = dict(specs.conversions or {}) \
+            if self.partitions else {}
+        self.wop_params_by_width: dict[int, object] = {}
+        if self.partitions and specs.partition_wop_gadgets:
+            self.wop_params_by_width = {
+                w: specs.wop_params(w) for w in specs.partition_wop_gadgets}
+            wop_params = None
+        self.wop_params = wop_params
         self.tlu_specs: dict[int, TluSpec] = {}
         self.multivariate_specs: dict[int, MultivariateSpec] = {}
         self.wop_specs: dict[int, WopTluSpec] = {}
-        max_native = min(8, params.polynomial_size.bit_length() - 2)
         for node in graph.topological_order():
             if not node.output.is_encrypted \
                     or node.operation != Operation.Generic:
@@ -316,19 +361,22 @@ class GraphExecutor:
             preds = graph.ordered_preds_of(node)
             if name in ("tlu", "univariate"):
                 p_in = self.width_of(preds[0]) if preds else p
+                pid_in = self.lookup_partition(node)
                 lsbs = tlu_fused_lsbs(graph, node)
-                if max(p_in - lsbs, 1) > max_native:
-                    self._require_wop(node)
+                if max(p_in - lsbs, 1) > self.max_native_bits(pid_in):
+                    self._require_wop(node, pid_in)
                     self.wop_specs[node.uid] = _materialize_wop_table(
                         node, p_in, self.width_of(node), lsbs=lsbs)
                 else:
                     self.tlu_specs[node.uid] = _materialize_table(
-                        node, p_in, self.width_of(node), params, lsbs=lsbs)
+                        node, p_in, self.width_of(node),
+                        self.params_for_width(pid_in), lsbs=lsbs)
             elif name == "multivariate":
                 enc = [q for q in preds if q.output.is_encrypted]
                 p_in = max((self.width_of(q) for q in enc), default=p)
-                if p_in > max_native:
-                    self._require_wop(node)
+                pid_in = self.lookup_partition(node)
+                if p_in > self.max_native_bits(pid_in):
+                    self._require_wop(node, pid_in)
                     mins, _, offsets = packed_layout(graph, node)
                     self.wop_specs[node.uid] = WopTluSpec(
                         node_uid=node.uid,
@@ -338,35 +386,67 @@ class GraphExecutor:
                         offsets=offsets)
                 else:
                     self.multivariate_specs[node.uid] = \
-                        _materialize_multivariate(graph, node, p_in,
-                                                  self.width_of(node), params)
+                        _materialize_multivariate(
+                            graph, node, p_in, self.width_of(node),
+                            self.params_for_width(pid_in))
             elif name == "crt_tlu":
                 enc = [q for q in preds if q.output.is_encrypted]
-                self._require_wop(node)
+                self._require_wop(node, self.lookup_partition(node))
                 self.wop_specs[node.uid] = _materialize_crt_tlu(
                     node, self.width_of(node),
                     tuple(self.width_of(q) for q in enc))
             elif name == "dynamic_tlu":
-                self._check_dynamic_tlu(preds, max_native)
+                self._check_dynamic_tlu(
+                    preds, self.max_native_bits(self.lookup_partition(node)))
             elif name not in _KINDS:
                 raise NotImplementedError(
                     f"operation '{name}' is not lowered yet")
 
-    def _require_wop(self, node: Node) -> None:
-        if self.wop_params is None:
+    def params_for_width(self, width: int) -> CryptoParams:
+        """Parameters of a partition id (= the encoding width unless the
+        norm2 cut assigned synthetic ids; see widths.partition_of)."""
+        if self.partitions and width in self.partitions:
+            return self.partitions[width]
+        return self.params
+
+    def max_native_bits(self, pid: int) -> int:
+        """Widest TLU one blind rotate serves in partition `pid`."""
+        n = self.params_for_width(pid).polynomial_size
+        return min(8, n.bit_length() - 2)
+
+    def wop_params_for(self, width: int):
+        if self.partitions:
+            return self.wop_params_by_width.get(width)
+        return self.wop_params
+
+    def lookup_partition(self, node: Node) -> int:
+        """The partition a lookup node's PBS runs in: its (first)
+        encrypted operand's, the table index of a dynamic lookup."""
+        preds = self.graph.ordered_preds_of(node)
+        if node.name in ("tlu", "univariate"):
+            return self.part_of(preds[0]) if preds else self.p
+        if node.name == "dynamic_tlu":
+            return self.part_of(preds[1])
+        enc = [q for q in preds if q.output.is_encrypted]
+        return self.part_of(enc[0]) if enc else self.p
+
+    def _require_wop(self, node: Node, pid: int) -> None:
+        if self.wop_params_for(pid) is None:
             raise ValueError(
                 f"node '{node.name}' needs a WoP-PBS lowering "
                 "(input wider than the native LUT) but the circuit was "
                 "compiled without WoP gadget parameters")
 
     def wop_lookups(self) -> list:
-        """(nb_bits, elements) of every WoP lookup: what
-        ``core.kernels_wop.check_wop_memory`` models."""
+        """(WopParams, nb_bits, elements) of every WoP lookup, with its
+        partition's gadgets: what ``core.kernels_wop.check_wop_memory``
+        models."""
         out = []
         for node in self.graph.graph.nodes:
             spec = self.wop_specs.get(node.uid)
             if spec is not None:
-                out.append((spec.nb_bits,
+                out.append((self.wop_params_for(self.lookup_partition(node)),
+                            spec.nb_bits,
                             max(int(np.prod(node.output.shape)), 1)))
         return out
 
@@ -399,11 +479,14 @@ class GraphExecutor:
         enc = np.array(ref.encode(np.asarray(value), width), order="C")
         return torch.from_numpy(enc.view(np.int64)).to(device)
 
-    def _trivial(self, value, width: int, device) -> torch.Tensor:
-        """Trivial LWE encryption of clear values (mask zeros)."""
+    def _trivial(self, value, width: int, device,
+                 pid: int = None) -> torch.Tensor:
+        """Trivial LWE encryption of clear values (mask zeros), sized for
+        partition `pid` (default: the `width`-bit partition)."""
         enc = self._encode_clear(value, width, device)
-        out = torch.zeros(enc.shape + (self.params.n_big + 1,),
-                          dtype=torch.int64, device=device)
+        n_big = self.params_for_width(width if pid is None else pid).n_big
+        out = torch.zeros(enc.shape + (n_big + 1,), dtype=torch.int64,
+                          device=device)
         out[..., -1] = enc
         return out
 
@@ -501,34 +584,53 @@ class GraphExecutor:
         return rows[torch.from_numpy(sel.reshape(-1)).to(x.device)].reshape(
             x.shape)
 
-    def _lookup(self, ct, ksk, bsk, lut_poly, message_bits: int,
-                signed: bool) -> torch.Tensor:
-        """One pbs_batch over every element of `ct`."""
+    def _lookup(self, ct, keys: RunKeys, pid: int, lut_poly,
+                message_bits: int, signed: bool) -> torch.Tensor:
+        """One pbs_batch over every element of `ct`, in partition `pid`."""
+        ksk, bsk = keys.pair(pid)
         flat = ct.reshape(-1, ct.shape[-1]).contiguous()
-        res = kn.pbs_batch(flat, ksk, bsk, lut_poly, self.params,
-                           message_bits, signed=signed)
+        res = kn.pbs_batch(flat, ksk, bsk, lut_poly,
+                           self.params_for_width(pid), message_bits,
+                           signed=signed)
         return res.reshape(ct.shape[:-1] + (res.shape[-1],))
+
+    def _cross(self, out, keys: RunKeys, w_in: int,
+               w_out: int) -> torch.Tensor:
+        """Move a fresh lookup output across a partition frontier: the
+        big->big conversion keyswitch of (w_in, w_out), where there is
+        one."""
+        if self.partitions is None or w_in == w_out \
+                or (w_in, w_out) not in (keys.fks or {}):
+            return out
+        flat = out.reshape(-1, out.shape[-1]).contiguous()
+        conv = kn.keyswitch(flat, keys.fks[(w_in, w_out)])
+        return conv.reshape(out.shape[:-1] + (conv.shape[-1],))
 
     # -- the evaluation ----------------------------------------------------
 
-    def _run_wop(self, ct, spec: WopTluSpec, table, ksk, bsk,
-                 pfpksk) -> torch.Tensor:
-        """One wop_pbs_batch over every element of `ct`."""
+    def _run_wop(self, ct, spec: WopTluSpec, table, keys: RunKeys,
+                 pid: int) -> torch.Tensor:
+        """One wop_pbs_batch over every element of `ct`, in partition
+        `pid`."""
         from concrete_tpu_torch.core import kernels_wop as kw
+        ksk, bsk = keys.pair(pid)
         flat = ct.reshape(-1, ct.shape[-1]).contiguous()
         out = kw.wop_pbs_batch(flat, table, spec.nb_bits, spec.delta_log,
-                               spec.out_bits, ksk, bsk, pfpksk,
-                               self.wop_params)
+                               spec.out_bits, ksk, bsk, keys.packing(pid),
+                               self.wop_params_for(pid))
         return out.reshape(ct.shape[:-1] + (out.shape[-1],))
 
-    def _run_crt_tlu(self, node, preds, args, ksk, bsk, wop) -> torch.Tensor:
-        """One output residue of an ``fhe.crt_tlu``.  The first residue
-        run on a set of residue inputs extracts their bits and runs the
-        chunked circuit bootstrap once for every output residue on those
-        inputs (its siblings), each chunk's GGSWs serving all their
-        vertical packings; the run's cache keeps the residues."""
+    def _run_crt_tlu(self, node, preds, args, keys: RunKeys, pid: int,
+                     wop) -> torch.Tensor:
+        """One output residue of an ``fhe.crt_tlu``, in partition `pid`.
+        The first residue run on a set of residue inputs extracts their
+        bits and runs the chunked circuit bootstrap once for every output
+        residue on those inputs (its siblings), each chunk's GGSWs serving
+        all their vertical packings; the run's cache keeps the residues."""
         from concrete_tpu_torch.core import kernels_wop as kw
-        wop_tables, pfpksk, crt_cache = wop
+        wop_tables, crt_cache = wop
+        ksk, bsk = keys.pair(pid)
+        wp = self.wop_params_for(pid)
         if node.uid not in crt_cache:
             spec = self.wop_specs[node.uid]
             cache_key = tuple(pr.uid for pr in preds)
@@ -544,21 +646,24 @@ class GraphExecutor:
                 # index bits per block were clamped to that width
                 chunks.append(kw.extract_bits_batch(
                     flat, spec.block_bits[j], 63 - spec.block_widths[j],
-                    ksk, bsk, self.wop_params.base))
+                    ksk, bsk, wp.base))
             outs = kw._cbs_vp_chunked(
                 torch.cat(chunks, dim=1),
                 [kw.lut_torus(wop_tables[n.uid],
                               self.wop_specs[n.uid].out_bits,
                               args[0].device) for n in siblings],
-                ksk, bsk, pfpksk, self.wop_params)
+                ksk, bsk, keys.packing(pid), wp)
             crt_cache.update(zip((n.uid for n in siblings), outs))
         out = crt_cache[node.uid]
         return out.reshape(args[0].shape[:-1] + (out.shape[-1],))
 
-    def _run_extract_bits(self, node, preds, ct, ksk, bsk) -> torch.Tensor:
+    def _run_extract_bits(self, node, preds, ct, keys: RunKeys,
+                          pid: int) -> torch.Tensor:
         """``fhe.bits``: the lsb cascade (``extract_bits_to``), requested
-        bit j re-encoded at weight 2^j of the output width and summed."""
+        bit j re-encoded at weight 2^j of the output width and summed, in
+        partition `pid`."""
         from concrete_tpu_torch.core import kernels_wop as kw
+        ksk, bsk = keys.pair(pid)
         positions = node.properties["kwargs"]["positions"]
         enc = [q for q in preds if q.output.is_encrypted]
         p_in = self.width_of(enc[0])
@@ -568,28 +673,35 @@ class GraphExecutor:
         bits_out = kw.extract_bits_to(
             flat, tuple(positions[j] for j in order),
             tuple(63 - p_out + j for j in order), 63 - p_in, ksk, bsk,
-            self.params)
+            self.params_for_width(pid))
         out = bits_out.sum(dim=1)
         return out.reshape(ct.shape[:-1] + (out.shape[-1],))
 
-    def run(self, enc_inputs: dict, ksk: kn.LimbKSK, bsk,
-            lut_polys: dict, wop_tables: dict = None,
-            pfpksk=None) -> tuple:
-        """Evaluate the graph.  enc_inputs maps input position -> int64
-        ciphertext tensor (or a clear numpy array for clear inputs);
-        lut_polys maps lookup node uid -> (N,) or (rows, N) int64 LUT
-        polynomial; wop_tables maps a WoP lookup's uid -> its raw int64
-        table on the device, served with the packed PFPKSK `pfpksk`.
-        Clear outputs come back as trivial ciphertexts."""
+    def run(self, enc_inputs: dict, ksk, bsk, lut_polys: dict,
+            wop_tables: dict = None, pfpksk=None, fks: dict = None,
+            device=None) -> tuple:
+        """Evaluate the graph on `device` (default: the keys').  enc_inputs
+        maps input position -> int64 ciphertext tensor (or a clear numpy
+        array for clear inputs); lut_polys maps lookup node uid -> (N,) or
+        (rows, N) int64 LUT polynomial; wop_tables maps a WoP lookup's uid
+        -> its raw int64 table on the device, served with the packed
+        PFPKSK `pfpksk`.  Clear outputs come back as trivial ciphertexts.
+
+        Mono: ksk/bsk are one packed key pair (pfpksk one packed PFPKSK).
+        Multi-partition: ksk/bsk/pfpksk are dicts keyed by partition id
+        and `fks` maps (src, dst) -> packed conversion LimbKSK."""
         from concrete_tpu_torch.compilation.widths import \
             output_encoding_width
         graph = self.graph
         values: dict[Node, object] = {}
         runtime: set[Node] = set()     # clear values from clear inputs
-        device = ksk.device
+        keys = RunKeys(ksk, bsk, pfpksk, fks)
+        if device is None:
+            device = (next(iter(ksk.values())) if isinstance(ksk, dict)
+                      else ksk).device
         input_pos = {n: q for q, n in graph.input_nodes.items()}
         # the crt_tlu residues computed with their siblings
-        wop = (wop_tables or {}, pfpksk, {})
+        wop = (wop_tables or {}, {})
         for node in graph.topological_order():
             name = node.name
             if node.operation == Operation.Input:
@@ -603,7 +715,7 @@ class GraphExecutor:
             if name == "encrypted_constant":
                 values[node] = self._trivial(
                     node.properties["kwargs"]["value"], self.width_of(node),
-                    device)
+                    device, pid=self.part_of(node))
                 continue
             preds = graph.ordered_preds_of(node)
             args = [values[pr] for pr in preds]
@@ -620,7 +732,7 @@ class GraphExecutor:
                 values[node] = node(*args)
                 continue
             values[node] = self._run_node(node, preds, args, enc_flags,
-                                          ksk, bsk, lut_polys, device, wop)
+                                          keys, lut_polys, device, wop)
         outs = []
         for out_node in graph.ordered_outputs:
             v = values[out_node]
@@ -632,27 +744,63 @@ class GraphExecutor:
             outs.append(v)
         return tuple(outs)
 
-    def _run_node(self, node, preds, args, enc_flags, ksk, bsk, lut_polys,
-                  device, wop) -> torch.Tensor:
+    def _run_lookup(self, node, preds, args, keys: RunKeys, pid: int,
+                    lut_polys, device, wop) -> torch.Tensor:
+        """A lookup node's output in its input partition `pid`: a WoP-PBS
+        (a crt_tlu residue, a wide tlu or multivariate), the lsb cascade of
+        ``fhe.bits``, or one pbs_batch over its elements."""
+        name = node.name
+        wop_tables, _ = wop
+        if name == "crt_tlu":
+            return self._run_crt_tlu(node, preds, args, keys, pid, wop)
+        if name == "extract_bits":
+            return self._run_extract_bits(node, preds, args[0], keys, pid)
+        if name == "dynamic_tlu":
+            # the table is a runtime clear tensor: build the accumulator
+            # polynomial here, then the same batched PBS as a static TLU
+            table_vals, ct = args
+            w_in = self.width_of(preds[1])
+            signed = isinstance(preds[1].output.dtype, Integer) \
+                and preds[1].output.dtype.is_signed
+            lut_poly = kn.encode_expand_lut(
+                torch.from_numpy(np.asarray(table_vals, dtype=np.int64))
+                .to(device), self.params_for_width(pid).polynomial_size,
+                w_in, self.width_of(node), signed=signed)
+            return self._lookup(ct, keys, pid, lut_poly, w_in, signed)
+        spec = self.wop_specs.get(node.uid)
+        ct = args[0]
+        if name == "multivariate":
+            spec = spec or self.multivariate_specs[node.uid]
+            ct, bias = None, 0
+            for arg, mn, off in zip(args, spec.mins, spec.offsets):
+                term = arg * (1 << off)
+                ct = term if ct is None else ct + term
+                bias += mn << off
+            width = spec.nb_bits if node.uid in self.wop_specs \
+                else spec.message_bits
+            ct[..., -1] -= self._encode_clear(bias, width, device)
+        if node.uid in self.wop_specs:
+            return self._run_wop(ct, spec, wop_tables[node.uid], keys, pid)
+        if name == "multivariate":
+            return self._lookup(ct, keys, pid, lut_polys[node.uid],
+                                spec.message_bits, False)
+        spec = self.tlu_specs[node.uid]
+        return self._lookup(ct, keys, pid, lut_polys[node.uid],
+                            spec.message_bits, spec.signed_input)
+
+    def _run_node(self, node, preds, args, enc_flags, keys: RunKeys,
+                  lut_polys, device, wop) -> torch.Tensor:
         name = node.name
         kw = node.properties.get("kwargs", {})
-        wop_tables, pfpksk, _ = wop
-        if node.uid in self.wop_specs:
-            spec = self.wop_specs[node.uid]
-            if name == "crt_tlu":
-                return self._run_crt_tlu(node, preds, args, ksk, bsk, wop)
-            ct = args[0]
-            if name == "multivariate":
-                ct, bias = None, 0
-                for arg, mn, off in zip(args, spec.mins, spec.offsets):
-                    term = arg * (1 << off)
-                    ct = term if ct is None else ct + term
-                    bias += mn << off
-                ct[..., -1] -= self._encode_clear(bias, spec.nb_bits, device)
-            return self._run_wop(ct, spec, wop_tables[node.uid], ksk, bsk,
-                                 pfpksk)
-        if name == "extract_bits":
-            return self._run_extract_bits(node, preds, args[0], ksk, bsk)
+        wop_tables, _ = wop
+        if name in ("tlu", "univariate", "multivariate", "dynamic_tlu",
+                    "crt_tlu", "extract_bits"):
+            # every lookup kind runs in its input's partition, and its
+            # output crosses into its own class's partition
+            pid = self.lookup_partition(node)
+            out = self._run_lookup(node, preds, args, keys, pid, lut_polys,
+                                   device, wop)
+            return self._cross(out, keys, pid, self.part_of(node))
         if name in ("add", "subtract"):
             a, b = args
             ea, eb = enc_flags
@@ -693,33 +841,6 @@ class GraphExecutor:
                     axis if isinstance(axis, tuple) else (axis,)))
             # torch reads an empty dim tuple as "every dim"
             return ct.sum(dim=axes) if axes else ct
-        if name in ("tlu", "univariate"):
-            spec = self.tlu_specs[node.uid]
-            return self._lookup(args[0], ksk, bsk, lut_polys[node.uid],
-                                spec.message_bits, spec.signed_input)
-        if name == "dynamic_tlu":
-            # the table is a runtime clear tensor: build the accumulator
-            # polynomial here, then the same batched PBS as a static TLU
-            table_vals, ct = args
-            w_in = self.width_of(preds[1])
-            signed = isinstance(preds[1].output.dtype, Integer) \
-                and preds[1].output.dtype.is_signed
-            lut_poly = kn.encode_expand_lut(
-                torch.from_numpy(np.asarray(table_vals, dtype=np.int64))
-                .to(device), self.params.polynomial_size, w_in,
-                self.width_of(node), signed=signed)
-            return self._lookup(ct, ksk, bsk, lut_poly, w_in, signed)
-        if name == "multivariate":
-            spec = self.multivariate_specs[node.uid]
-            packed, bias = None, 0
-            for ct, mn, off in zip(args, spec.mins, spec.offsets):
-                term = ct * (1 << off)
-                packed = term if packed is None else packed + term
-                bias += mn << off
-            packed[..., -1] -= self._encode_clear(bias, spec.message_bits,
-                                                  device)
-            return self._lookup(packed, ksk, bsk, lut_polys[node.uid],
-                                spec.message_bits, False)
         if name == "conv":
             out = self._conv(args[0], kw)
             if kw.get("bias") is not None:
@@ -746,7 +867,8 @@ class GraphExecutor:
             # stack scalar ciphertexts into one tensor; clear entries are
             # trivially encrypted first
             w = self.width_of(node)
-            cts = [a if flag else self._trivial(a, w, device)
+            cts = [a if flag else self._trivial(a, w, device,
+                                                pid=self.part_of(node))
                    for a, flag in zip(args, enc_flags)]
             return torch.stack(cts).reshape(
                 tuple(node.output.shape) + (cts[0].shape[-1],))
@@ -776,9 +898,9 @@ class GraphExecutor:
             x, v = args
             w = self.width_of(node)
             if not enc_flags[0]:
-                x = self._trivial(x, w, device)
+                x = self._trivial(x, w, device, pid=self.part_of(node))
             if not enc_flags[1]:
-                v = self._trivial(v, w, device)
+                v = self._trivial(v, w, device, pid=self.part_of(node))
             return self._assign(x, kw["index"], v)
         if name == "reshape":
             ct = args[0]

@@ -1,15 +1,18 @@
 """Key management: generation, save/load, packing for the device.
 
-Counterpart of ``concrete_tpu/compilation/keys.py`` ``Keys``: the same
-ChaCha20 keygen (same seed, same keys), the same data-only npz format, and
-the same BSK truncation.  Packing puts the key material on a torch device
-in the form the JAX package would pick: int8 limb planes for the banded
-blind rotate or per-prime NTT spectra for the fused CRT-NTT one.
+Counterpart of ``concrete_tpu/compilation/keys.py`` ``Keys`` and
+``MultiKeys``: the same ChaCha20 keygen (same seed, same keys, secret-only
+keysets included), the same data-only npz format, and the same BSK
+truncation.  Packing puts the key material on a torch device in the form
+the JAX package would pick: int8 limb planes for the banded blind rotate
+or per-prime NTT spectra for the fused CRT-NTT one.  The insecure key
+cache is ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 from typing import Optional
 
@@ -71,12 +74,27 @@ class Keys:
     def are_generated(self) -> bool:
         return self._secret is not None
 
-    def generate(self, seed: Optional[int] = None) -> None:
+    def generate(self, seed: Optional[int] = None,
+                 secret_only: bool = False) -> None:
         """All key material from the ChaCha20 CSPRNG, seeded from
-        os.urandom by default and deterministically from `seed`."""
+        os.urandom by default and deterministically from `seed`.
+
+        `secret_only` skips the evaluation keys (BSK/KSK): a partition
+        that runs no PBS only ever encrypts and decrypts, and a BSK at its
+        parameters can be GBs.  Its secret keys are the first draws of the
+        same stream, so they equal a full keyset's from the same seed."""
+        from concrete_tpu_torch.core.refimpl import sample_binary_key
         from concrete_tpu_torch.utils.csprng import SecureGenerator
-        self._secret, self._server = kg.keygen(SecureGenerator(seed),
-                                               self.params)
+        rng = SecureGenerator(seed)
+        if secret_only:
+            p = self.params
+            sk_small = sample_binary_key(rng, (p.n_small,))
+            gsk = sample_binary_key(rng, (p.glwe_dimension,
+                                          p.polynomial_size))
+            self._secret = SecretKeys(lwe_small=sk_small, glwe=gsk)
+            self._server = None
+        else:
+            self._secret, self._server = kg.keygen(rng, self.params)
         self._packed = {}
         self._pfpksk = {}
         self._packed_pfpksk = {}
@@ -90,7 +108,9 @@ class Keys:
     def server(self) -> ServerKeys:
         self._require()
         if self._server is None:
-            raise RuntimeError("this keyset has no evaluation keys")
+            raise RuntimeError(
+                "this keyset was generated secret-only (a PBS-less "
+                "partition); it has no evaluation keys")
         return self._server
 
     @property
@@ -183,3 +203,157 @@ class Keys:
     def load(self, path: str) -> None:
         with np.load(path, allow_pickle=False) as z:
             self._from_npz(z)
+
+
+class MultiKeys:
+    """Keysets for a multi-partition circuit: one ``Keys`` per partition id
+    plus the big->big conversion keyswitch keys of the partition frontiers
+    (the JAX package's ``MultiKeys``, after the reference optimizer's
+    keys_spec.rs CircuitKeys).  Saved as one npz covering every partition
+    and conversion, in the JAX package's format."""
+
+    def __init__(self, partitions: dict, conversions: dict,
+                 cache_directory: Optional[str] = None, pbs_widths=None):
+        """partitions: id -> CryptoParams; conversions: (src, dst) ->
+        (level, base_log); pbs_widths: the partitions that run a PBS (None
+        = all), the others get secret-only keysets."""
+        if cache_directory is not None:
+            raise NotImplementedError(
+                "the insecure key cache is not ported yet (ROADMAP queue 1 "
+                "item 6, the key cache)")
+        self.partitions = dict(partitions)
+        self.conversions = dict(conversions)
+        self.pbs_widths = frozenset(pbs_widths) \
+            if pbs_widths is not None else None
+        self._keys: dict[int, Keys] = {
+            w: Keys(p) for w, p in self.partitions.items()}
+        self._fks: dict[tuple, np.ndarray] = {}
+        self._packed_fks: dict = {}
+
+    def _needs_eval(self, w: int) -> bool:
+        return self.pbs_widths is None or w in self.pbs_widths
+
+    @property
+    def are_generated(self) -> bool:
+        return all(k.are_generated for k in self._keys.values()) \
+            and set(self._fks) == set(self.conversions)
+
+    def generate(self, seed: Optional[int] = None) -> None:
+        """Each partition's keyset from its own seed (seed + 7919 w, so
+        that partitions of equal parameters never share secrets), then the
+        conversion keys in order from one stream seeded seed + 13: src's
+        big key to dst's big key at dst's GLWE noise."""
+        from concrete_tpu_torch.utils.csprng import SecureGenerator
+        for w, keys in self._keys.items():
+            keys.generate(None if seed is None else seed + 7919 * w,
+                          secret_only=not self._needs_eval(w))
+        self._fks = {}
+        self._packed_fks = {}
+        rng = SecureGenerator(None if seed is None else seed + 13)
+        for (s, d), (lvl, base) in self.conversions.items():
+            self._fks[(s, d)] = kg.make_ksk(
+                rng, self._keys[s].secret.lwe_big,
+                self._keys[d].secret.lwe_big, base, lvl,
+                self.partitions[d].glwe_std)
+
+    # -- accessors ---------------------------------------------------------
+
+    def keys_for(self, width: int) -> Keys:
+        return self._keys[width]
+
+    def secret_for(self, width: int):
+        return self._keys[width].secret
+
+    def evaluation_for_width(self, width: int, norm2: float = 1,
+                             device=None):
+        """Packed (LimbKSK, LimbBSK or FusedBSK) of one partition id, its
+        BSK truncated at the partition's own message width (a norm2-cut id
+        carries the width in its low byte)."""
+        from concrete_tpu_torch.compilation.widths import part_width
+        return self._keys[width].evaluation_for(part_width(width),
+                                                norm2=norm2, device=device)
+
+    def conversion_key(self, src: int, dst: int, device=None) -> kn.LimbKSK:
+        """The packed big->big conversion keyswitch key of a frontier, on
+        `device` (CUDA by default): uploaded as u64 and split into int8
+        limb planes there (``kernels_wop.split_u64_limbs``, bit for bit the
+        host's ``limbs.u64_to_balanced_i8``), at the frontier's own
+        gadget."""
+        import torch
+        from concrete_tpu_torch.core.kernels_wop import split_u64_limbs
+        device = resolve_device(device)
+        key = (src, dst, str(device))
+        if key not in self._packed_fks:
+            lvl, base = self.conversions[(src, dst)]
+            u64 = torch.from_numpy(np.ascontiguousarray(
+                self._fks[(src, dst)], dtype=np.uint64).view(np.int64))
+            self._packed_fks[key] = kn.LimbKSK(
+                planes=split_u64_limbs(u64.to(device)), base_log=base,
+                levels=lvl)
+        return self._packed_fks[key]
+
+    def wop_evaluation_for(self, width: int, wop_params, device=None):
+        return self._keys[width].wop_evaluation(wop_params, device=device)
+
+    # -- serialization (the JAX package's npz format) -----------------------
+
+    def _to_npz_dict(self) -> dict:
+        header = {"version": Keys._FORMAT_VERSION,
+                  "partitions": sorted(self.partitions),
+                  "conversions": [[s, d, l, b] for (s, d), (l, b)
+                                  in sorted(self.conversions.items())]}
+        out = {"multi_header": np.frombuffer(
+            json.dumps(header).encode(), dtype=np.uint8)}
+        for w, keys in self._keys.items():
+            for name, arr in keys._to_npz_dict().items():
+                out[f"p{w}__{name}"] = arr
+        for (s, d), arr in self._fks.items():
+            out[f"fks_{s}_{d}"] = arr
+        return out
+
+    def _from_npz(self, z) -> None:
+        header = json.loads(bytes(np.asarray(z["multi_header"])).decode())
+        if header.get("version", 0) > Keys._FORMAT_VERSION:
+            raise ValueError("key file format is newer than this library")
+        for w, keys in self._keys.items():
+            keys._from_npz(_Prefixed(z, f"p{w}__"))
+        self._fks = {}
+        self._packed_fks = {}
+        for name in z.files:
+            if name.startswith("fks_"):
+                _, s, d = name.split("_")
+                self._fks[(int(s), int(d))] = np.asarray(z[name])
+
+    def save(self, path: str) -> None:
+        with open(path, "wb") as f:
+            np.savez(f, **self._to_npz_dict())
+
+    def load(self, path: str) -> None:
+        with np.load(path, allow_pickle=False) as z:
+            self._from_npz(z)
+
+    def serialize(self) -> bytes:
+        buf = io.BytesIO()
+        np.savez(buf, **self._to_npz_dict())
+        return buf.getvalue()
+
+    @classmethod
+    def deserialize_with(cls, blob: bytes, partitions: dict,
+                         conversions: dict) -> "MultiKeys":
+        keys = cls(partitions, conversions)
+        with np.load(io.BytesIO(blob), allow_pickle=False) as z:
+            keys._from_npz(z)
+        return keys
+
+
+class _Prefixed:
+    """One partition's entries of a multi-keyset npz, under their mono
+    names."""
+
+    def __init__(self, z, prefix: str):
+        self.z, self.prefix = z, prefix
+        self.files = [n[len(prefix):] for n in z.files
+                      if n.startswith(prefix)]
+
+    def __getitem__(self, name):
+        return self.z[self.prefix + name]

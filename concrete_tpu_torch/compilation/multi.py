@@ -4,10 +4,11 @@ A copy of the planner of ``concrete_tpu/compilation/multi.py``.  The
 default ``Configuration()`` selects parameters with the MULTI strategy, so
 every compile runs it: for a circuit whose cheapest grouping is mono it
 returns None, and the compiler's mono search then chooses the JAX
-package's parameters.  Serving a multi-partition result (``MultiKeys``,
-the conversion keyswitch of ``core/partitions.py``) is ROADMAP queue 1
-item 8, and so is serving a WoP partition, whose gadgets the planner
-chooses here (``optimizer.v0.choose_wop_gadgets``).
+package's parameters.  A multi-partition result is served by
+``MultiKeys`` and the executor's multi mode, a WoP partition with the
+gadgets the planner chooses here (``optimizer.v0.choose_wop_gadgets``).
+Beyond the copy, ``decision_failures`` reads the noise model at every
+decision point of a compiled circuit under its compiled parameters.
 
 The reference optimizer's PRECISION cut (concrete-optimizer/src/optimization/
 dag/multi_parameters/partitionning.rs): circuit values are grouped into
@@ -515,3 +516,81 @@ def plan_partitions(graph: Graph, p_error: float = 6.3e-5,
                 pid = partition_of(node, default)
                 node.properties["partition"] = group.get(pid, pid)
     return plan
+
+
+def decision_failures(graph: Graph, specs) -> list:
+    """The noise model's failure probability at every decision point of a
+    compiled multi-partition circuit, under its compiled parameters.
+
+    Returns one dict per lookup node ("kind": its name) and per encrypted
+    output ("kind": "decode"): "pid" (the partition the decision is made
+    in), "bits" (the decision's width), "elements" (decisions a request)
+    and "p" (each one's failure probability).  A lookup's decision is its
+    input pattern (p_eff, in_sq, lut_sq) under its input partition's
+    parameters (optimizer.v0.pattern_variance); where its output crosses a
+    frontier, "p_crossing" is the worst of the decisions downstream of the
+    crossing as ``_solve_plan``'s exact check computes them: the source
+    blind rotate and the conversion keyswitch at the compiled gadget,
+    scaled by norm2^2, plus the destination's KS+MS before a lookup.  An
+    output's decode pays no KS+MS (noise-only pattern)."""
+    from concrete_tpu_torch.optimizer.v0 import (p_error_of_variance,
+                                                 pattern_variance)
+    pairs, bpairs = graph.variance_pairs()
+    manp = {n: max(c[0] + c[1], 1) for n, c in pairs.items()}
+    boundary = {n: max(c[0] + c[1], 1) for n, c in bpairs.items()}
+    default = graph.max_bit_width
+    params, conv = specs.partitions, specs.conversions or {}
+    out = []
+    for node in graph.topological_order():
+        if node.name not in TLU_OPS or not any(
+                p.output.is_encrypted for p in graph.ordered_preds_of(node)):
+            continue
+        pid = tlu_input_partition(graph, node, default)
+        dst = partition_of(node, default)
+        p_eff = tlu_effective_input_width(graph, node, default)
+        in_c, lut_c = bpairs.get(node, (0, 1))
+        weight = max(int(np.prod(node.output.shape)), 1)
+        if node.name == "extract_bits":
+            pos = node.properties["kwargs"]["positions"]
+            weight *= max(int(q) for q in pos) + len(pos)
+        rec = {"kind": node.name, "uid": node.uid, "pid": pid, "dst": dst,
+               "bits": p_eff, "elements": weight,
+               "p": p_error_of_variance(p_eff, pattern_variance(
+                   params[pid], (p_eff, in_c, lut_c))),
+               "p_crossing": 0.0}
+        if dst != pid and (pid, dst) in conv:
+            v_src, _, _ = _partition_noise(params[pid])
+            _, v_ks_d, v_ms_d = _partition_noise(params[dst])
+            lvl, base = conv[(pid, dst)]
+            v_fks = pp.variance_keyswitch(params[pid].n_big, base, lvl,
+                                          params[dst].glwe_std ** 2)
+            tlu_cons, dec_cons = decision_constraints_split(
+                graph, node, default, (manp, boundary))
+            for (w, n2), ks_ms in [(c, v_ks_d + v_ms_d) for c in tlu_cons] \
+                    + [(c, 0.0) for c in dec_cons]:
+                rec["p_crossing"] = max(rec["p_crossing"], p_error_of_variance(
+                    w, (v_src + v_fks) * float(n2) ** 2 + ks_ms))
+        out.append(rec)
+    for node in graph.ordered_outputs:
+        if not node.output.is_encrypted:
+            continue
+        pid = partition_of(node, default)
+        w = encoding_width(node, default)
+        in_c, lut_c = pairs.get(node, (0, 1))
+        if (in_c, lut_c) == (0, 0):
+            in_c = 1
+        out.append({"kind": "decode", "uid": node.uid, "pid": pid,
+                    "dst": pid, "bits": w,
+                    "elements": max(int(np.prod(node.output.shape)), 1),
+                    "p": p_error_of_variance(w, pattern_variance(
+                        params[pid], (w, in_c, lut_c),
+                        ks_ms_weight=4.0 ** -w)),
+                    "p_crossing": 0.0})
+    return out
+
+
+def expected_failures(records: list) -> float:
+    """Expected failing decisions a request: every decision's elements
+    times its worse probability (a crossing's downstream decisions counted
+    once more at the source, so an upper bound)."""
+    return sum(r["elements"] * (r["p"] + r["p_crossing"]) for r in records)

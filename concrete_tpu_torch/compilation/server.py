@@ -4,9 +4,11 @@ Counterpart of ``concrete_tpu/compilation/server.py``.  ``Server.save``
 writes the JAX package's data-only deployment archive (``client.specs.json``,
 ``graph.json``, ``graph_arrays.npz``; no pickle) byte for byte, and
 ``Server.load`` reads either package's archives and validates the graph
-before building the executor.  Entry points run on the card unless the
-caller asks for the CPU: ``device=None`` means CUDA, and raises if CUDA is
-unavailable.
+before building the executor.  A multi-partition circuit runs on
+per-partition keys and the conversion keys of its frontiers (the JAX
+package's 4-tuple of evaluation keys).  Entry points run on the card unless
+the caller asks for the CPU: ``device=None`` means CUDA, and raises if CUDA
+is unavailable.
 """
 
 from __future__ import annotations
@@ -25,15 +27,12 @@ from concrete_tpu_torch.utils.device import resolve_device
 class Server:
     def __init__(self, graph: Graph, specs: ClientSpecs, device=None):
         self.device = resolve_device(device)
-        if specs.is_multi:
-            raise NotImplementedError(
-                "multi-partition circuits are not ported yet "
-                "(ROADMAP queue 1 item 8)")
         self.graph = graph
         self.client_specs = specs
         self._executor = GraphExecutor(graph, specs.params,
                                        specs.message_bits,
-                                       wop_params=specs.wop_params())
+                                       wop_params=specs.wop_params(),
+                                       specs=specs)
         specs_by_uid = {**self._executor.tlu_specs,
                         **self._executor.multivariate_specs}
         self._lut_polys = {
@@ -48,12 +47,12 @@ class Server:
     def check_wop_memory(self, free_bytes: int = None) -> list:
         """Refuse, before any key is generated or packed, a circuit whose
         largest WoP lookup (one chunk of its circuit bootstrap with the
-        packed PFPKSK) does not fit this server's device
-        (``core.kernels_wop.check_wop_memory``); returns the estimates."""
+        packed PFPKSK, at its partition's gadgets) does not fit this
+        server's device (``core.kernels_wop.check_wop_memory``); returns
+        the estimates."""
         from concrete_tpu_torch.core import kernels_wop as kw
-        wp = self._executor.wop_params
         return [kw.check_wop_memory(wp, nb, size, self.device, free_bytes)
-                for nb, size in self._executor.wop_lookups()]
+                for wp, nb, size in self._executor.wop_lookups()]
 
     def run(self, *args, evaluation_keys) -> tuple:
         """Run the circuit; returns the output ciphertexts as u64 arrays
@@ -63,10 +62,18 @@ class Server:
         evaluation_keys: the client's ``EvaluationKeys`` (packed here with
         this circuit's BSK form and truncation; a WoP circuit packs the
         untruncated BSK and its PFPKSK) or an already packed (LimbKSK,
-        LimbBSK or FusedBSK[, LimbPFPKSK]) tuple on this server's
-        device."""
+        LimbBSK or FusedBSK[, LimbPFPKSK]) tuple on this server's device.
+        A multi-partition circuit takes (ksk_by_partition,
+        bsk_by_partition, pfpksk_by_partition or None, fks_by_frontier),
+        which ``Circuit._evaluation_keys`` builds from ``MultiKeys``."""
         from concrete_tpu_torch.compilation.evaluation_keys import \
             EvaluationKeys
+        multi = self.client_specs.is_multi
+        if isinstance(evaluation_keys, EvaluationKeys) and multi:
+            raise ValueError(
+                "a multi-partition circuit runs on per-partition keys: pass "
+                "the (ksk, bsk, pfpksk, fks) dicts of "
+                "Circuit._evaluation_keys")
         if isinstance(evaluation_keys, EvaluationKeys):
             wp = self.client_specs.wop_params()
             if wp is not None:
@@ -75,17 +82,23 @@ class Server:
                 None if wp is not None else self.client_specs.message_bits,
                 norm2=self.graph.max_norm2(), device=self.device,
                 wop_params=wp)
-        if len(evaluation_keys) not in (2, 3):
-            raise NotImplementedError(
-                "only (LimbKSK, BSK[, LimbPFPKSK]) evaluation keys are "
-                "ported; multi-partition keys are ROADMAP queue 1 item 8")
+        if len(evaluation_keys) not in ((4,) if multi else (2, 3)):
+            raise ValueError(
+                "evaluation keys are (ksk_by_partition, bsk_by_partition, "
+                "pfpksk_by_partition or None, fks_by_frontier) for a "
+                "multi-partition circuit, else (LimbKSK, BSK[, "
+                "LimbPFPKSK])")
         ksk, bsk, *rest = evaluation_keys
         pfpksk = rest[0] if rest else None
+        fks = rest[1] if multi else None
         if self._executor.wop_specs and pfpksk is None:
             raise ValueError(
                 "circuit contains WoP-PBS table lookups; pass the packed "
                 "PFPKSK as evaluation_keys[2] (Keys.wop_evaluation)")
-        for k in (ksk, bsk) + tuple(rest):
+        every = (list(ksk.values()) + list(bsk.values())
+                 + list((pfpksk or {}).values()) + list(fks.values())) \
+            if multi else [ksk, bsk] + rest
+        for k in every:
             if k.device != self.device:
                 raise ValueError(f"evaluation keys are on {k.device}, the "
                                  f"server runs on {self.device}")
@@ -99,7 +112,8 @@ class Server:
             for pos, (arg, spec) in enumerate(zip(args,
                                                   self.client_specs.inputs))}
         outs = self._executor.run(enc_inputs, ksk, bsk, self._lut_polys,
-                                  self._wop_tables, pfpksk)
+                                  self._wop_tables, pfpksk, fks=fks,
+                                  device=self.device)
         return tuple(o.cpu().numpy().view(np.uint64) for o in outs)
 
     # -- deployment (reference server.py:245-378) --------------------------
@@ -190,17 +204,24 @@ class Server:
         package's cost model, ``optimizer/v0.py``): one keyswitch and one
         blind rotate per element of every encrypted lookup, dynamic and
         multivariate ones included; a WoP lookup at ``cost_wop_macs``, a
-        bit extraction at its sign PBS count."""
-        from concrete_tpu_torch.optimizer.v0 import (cost_ks_macs,
+        bit extraction at its sign PBS count.  A multi-partition circuit
+        costs each lookup at its input partition's parameters, plus a
+        conversion keyswitch (``cost_fks_macs``) per crossing element."""
+        from concrete_tpu_torch.compilation.widths import \
+            tlu_input_partition
+        from concrete_tpu_torch.optimizer.v0 import (cost_fks_macs,
+                                                     cost_ks_macs,
                                                      cost_pbs_macs,
                                                      cost_wop_macs)
         ex = self._executor
-        p = self.client_specs.params
-        atomic = (cost_pbs_macs(p.n_small, p.glwe_dimension,
-                                p.polynomial_size, p.pbs_level,
-                                p.pbs_base_log)
-                  + cost_ks_macs(p.n_big, p.n_small, p.ks_level,
-                                 p.ks_base_log))
+        default = self.client_specs.message_bits
+
+        def atomic_cost(p):
+            return (cost_pbs_macs(p.n_small, p.glwe_dimension,
+                                  p.polynomial_size, p.pbs_level,
+                                  p.pbs_base_log)
+                    + cost_ks_macs(p.n_big, p.n_small, p.ks_level,
+                                   p.ks_base_log))
         total = 0.0
         for n in self.graph.graph.nodes:
             if n.name not in ("tlu", "univariate", "multivariate",
@@ -208,19 +229,27 @@ class Server:
                     or not n.output.is_encrypted:
                 continue
             size = max(int(np.prod(n.output.shape)), 1)
+            w_in = tlu_input_partition(self.graph, n, default)
+            p = ex.params_for_width(w_in)
             if n.name == "extract_bits":
                 # lsb cascade: cleans + per-requested-bit sign-PBS
                 positions = n.properties["kwargs"]["positions"]
                 n_pbs = max(int(b) for b in positions) + len(positions)
-                total += size * n_pbs * atomic
+                total += size * n_pbs * atomic_cost(p)
                 continue
-            spec, wp = ex.wop_specs.get(n.uid), ex.wop_params
+            spec = ex.wop_specs.get(n.uid)
+            wp = ex.wop_params_for(w_in)
             if spec is not None and wp is not None:
                 total += size * cost_wop_macs(
                     p, spec.nb_bits, wp.cbs_level, wp.pfks_level,
                     wp.cbs_base_log, wp.pfks_base_log)
             else:
-                total += size * atomic
+                total += size * atomic_cost(p)
+            w_out = ex.part_of(n)
+            if (w_in, w_out) in ex.conversions:
+                lvl, base = ex.conversions[(w_in, w_out)]
+                total += size * cost_fks_macs(
+                    p.n_big, ex.params_for_width(w_out).n_big, lvl, base)
         return total
 
     def programmable_bootstrap_count(self) -> int:

@@ -71,9 +71,15 @@ class ClientSpecs:
         wide TLU's input class."""
         from concrete_tpu_torch.core.wop import WopParams
         if self.partitions and self.partition_wop_gadgets:
-            raise NotImplementedError(
-                "WoP-PBS gadgets per partition are not ported yet (ROADMAP "
-                "queue 1 item 8, multi-partition)")
+            if width is None:
+                width = max(self.partition_wop_gadgets)
+            g = self.partition_wop_gadgets.get(width)
+            if g is None:
+                return None
+            cbs_l, cbs_b, pfks_l, pfks_b = g
+            return WopParams(base=self.partitions[width], cbs_level=cbs_l,
+                             cbs_base_log=cbs_b, pfks_level=pfks_l,
+                             pfks_base_log=pfks_b)
         if self.wop_gadgets is None:
             return None
         cbs_l, cbs_b, pfks_l, pfks_b = self.wop_gadgets

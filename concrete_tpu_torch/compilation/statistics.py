@@ -1,8 +1,8 @@
 """Primitive crypto-op statistics extracted from the lowered graph.
 
-A copy of ``concrete_tpu/compilation/statistics.py`` for the port's mono
-executor (no partition frontiers yet), the analog of
-the reference's ExtractStatistics pass
+A copy of ``concrete_tpu/compilation/statistics.py`` for the port's
+executor (the frontier keyswitches of multi-partition circuits included),
+the analog of the reference's ExtractStatistics pass
 (compiler/lib/Dialect/TFHE/Analysis/ExtractStatistics.cpp: counts of
 PBS / KEY_SWITCH / WOP_PBS / PACKING_KEY_SWITCH / CLEAR_ADDITION /
 ENCRYPTED_ADDITION / CLEAR_MULTIPLICATION / ENCRYPTED_NEGATION per
@@ -177,6 +177,16 @@ def collect(graph, executor, default_width: int) -> list[Record]:
             emit(PBS, node, per * n_steps, w_in)
             emit(ENCRYPTED_ADDITION, node,
                  per * max(len(positions) - 1, 0), w_in)
+
+        # partition-frontier conversion keyswitch (multi only)
+        if getattr(executor, "partitions", None) is not None and preds:
+            preds_enc = [q for q in preds if enc(q)]
+            if name in ("tlu", "univariate", "multivariate",
+                        "extract_bits") and preds_enc:
+                part = getattr(executor, "part_of", width_of)
+                pid_in = max(part(q) for q in preds_enc)
+                if pid_in != part(node):
+                    emit(KEY_SWITCH, node, size, width_of(node))
 
     return records
 

@@ -1,7 +1,7 @@
 """Model circuits over ``concrete_tpu_torch`` (counterparts of
-``concrete_tpu/models``; ``PrimeMatch`` compiles multi-partition and waits
-for ROADMAP queue 1 item 8, ``Sha1`` needs ``fhe.module``, the rest of
-item 6)."""
+``concrete_tpu/models``; ``PrimeMatch`` and ``HammingDistance(via="xor")``
+compile to multi-partition circuits, served like the rest; ``Sha1`` needs
+``fhe.module``, the rest of ROADMAP queue 1 item 6)."""
 
 from concrete_tpu_torch.models.mlp import QuantizedMLP
 from concrete_tpu_torch.models.game_of_life import GameOfLife
@@ -9,7 +9,8 @@ from concrete_tpu_torch.models.levenshtein import LevenshteinDistance
 from concrete_tpu_torch.models.kvdb import StaticKeyValueDatabase
 from concrete_tpu_torch.models.xor_distance import HammingDistance
 from concrete_tpu_torch.models.pir import PrivateInformationRetrieval
+from concrete_tpu_torch.models.prime_match import PrimeMatch
 
 __all__ = ["QuantizedMLP", "GameOfLife", "LevenshteinDistance",
            "StaticKeyValueDatabase", "HammingDistance",
-           "PrivateInformationRetrieval"]
+           "PrivateInformationRetrieval", "PrimeMatch"]

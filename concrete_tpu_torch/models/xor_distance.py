@@ -13,7 +13,8 @@ reference's variants:
 
 Either way the whole vector runs as one batched PBS.  At the default
 ``Configuration()`` the "xor" lowering compiles to a multi-partition
-circuit, which the port serves once ROADMAP queue 1 item 8 lands.
+circuit: the xor lookups in one partition, the popcount in another, a
+conversion keyswitch between them.
 
 Counterpart of ``concrete_tpu/models/xor_distance.py``: the same traced function, so
 both packages compile it to the same circuit; ``compile`` also takes the

@@ -338,8 +338,11 @@ def _mixed(pkg):
 
 def test_multi_partition_result_matches_reference_and_is_not_served():
     """The planner keeps this circuit multi in both packages, with the same
-    partition parameters and conversion keyswitches; the port then refuses
-    to serve it (ROADMAP queue 1 item 8), and not before."""
+    partition parameters and conversion keyswitches.  (The name is from
+    before the port served such circuits: its circuit now holds a
+    MultiKeys client and a multi-mode server on those partitions, which
+    tests/test_torch_multi.py runs against the JAX package.)"""
+    from concrete_tpu_torch.compilation.keys import MultiKeys
     specs = []
     for pkg in (fhe, tfhe):
         f, inputset = _mixed(pkg)
@@ -348,10 +351,10 @@ def test_multi_partition_result_matches_reference_and_is_not_served():
         specs.append(c.client_specs)
     jspecs, tspecs = specs
     assert tspecs.is_multi and tspecs.serialize() == jspecs.serialize()
-    for use in (lambda: c.keygen(seed=1), lambda: c.encrypt(1, 2),
-                lambda: c.server, lambda: c.run(None, None)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            use()
+    assert isinstance(c.keys, MultiKeys) and not c.keys.are_generated
+    assert set(c.keys.partitions) == set(tspecs.partitions)
+    assert c.server._executor.partitions == tspecs.partitions
+    assert c.server._executor.conversions == tspecs.conversions
 
 
 # -- (e) bit parity of the compiled circuits at TINY parameters ---------------

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Run some phases of ``chip_smoke.py`` alone on one NVIDIA GPU.
 
-    python3 tools/smoke_phases.py [models] [kinds] [fused] [wop]
+    python3 tools/smoke_phases.py [models] [multi] [kinds] [fused] [wop]
 
 Builds the port's kernels from ``concrete_tpu_torch/csrc``, then runs the
 named phases of the smoke (``models``: the five model circuits and the
-2-key database against the CPU; ``kinds``: the node-kinds circuits;
+2-key database against the CPU; ``multi``: PrimeMatch at two sizes and
+HammingDistance with via="xor", multi-partition circuits; ``kinds``: the
+node-kinds circuits;
 ``fused``: the CRT-NTT blind rotate at B <= 4 in one launch at the models'
 shapes, with its variant builds; ``wop``: the WoP vertical packing's
 kernel entries and PrivateInformationRetrieval at 32 rows served, 64
@@ -49,7 +51,8 @@ def wop_phase(rng):
             "phase": cs.wop_phase(rng)}
 
 
-PHASES = {"models": cs.models_phase, "kinds": cs.kinds_phase,
+PHASES = {"models": cs.models_phase, "multi": cs.multi_phase,
+          "kinds": cs.kinds_phase,
           "fused": fused_phase, "wop": wop_phase}
 DEFAULT = ("models", "kinds")
 
