@@ -53,8 +53,9 @@
    (``torch.profiler``: device-busy ms, kernels run, launch calls); the
    B = 1 and 4 outputs equal, bit for bit, to the three-kernel step loop
    on the card (kernel 1, kernel 9's latency form and the recombine once a
-   step, counted as a path of its own) and to ``pbs_batch`` on CPU copies
-   of the keys and ciphertexts (every kernel's plain version);
+   step, counted as a path of its own), the B = 1 one also to
+   ``pbs_batch`` on CPU copies of the keys and ciphertexts (every kernel's
+   plain version);
 4. holds each kernel of the CRT-NTT blind rotate bit-exact against its
    plain PyTorch version on the card, over a few blind-rotate steps at the
    shapes the N=4096 QuantizedMLP archive gives them (256 ciphertexts,
@@ -118,7 +119,7 @@
    loop and on the CPU; and quickstart's
    ``add`` on the card, no port kernel launched;
 8. the models phase: five of the JAX package's model circuits compiled by
-   the port at the default ``Configuration()`` — GameOfLife(16, 16),
+   the port at the default ``Configuration()`` — GameOfLife(8, 8),
    LevenshteinDistance(8, 8, 2), StaticKeyValueDatabase over 16 keys,
    HammingDistance(32 words of 4 bits, "packed") and
    PrivateInformationRetrieval over 16 x 16 4-bit values — each
@@ -127,7 +128,7 @@
    ciphertexts must equal those of ``Server.load`` on the model's own
    saved archive, and whose launches must be those of the blind-rotate
    form each lookup node takes (printed: persistent kernel (GameOfLife's
-   256 lookups, one launch each), step loop, banded scan, fused
+   64 lookups, one launch each), step loop, banded scan, fused
    persistent kernel (one launch of ``blind_rotate_fused_latency`` a
    lookup node run: Levenshtein's and both databases') or fused loop);
    one request traced (device busy, idle share, launches); every kernel
@@ -158,7 +159,25 @@
    decryptions against ``PrimeMatch.match_clear`` and
    ``HammingDistance.distance_clear`` beside the noise model's expected
    failing decisions (``compilation.multi.decision_failures``);
-10. the node-kinds phase: five small circuits holding every node kind the
+10. the module phase: fhe.module compiled by the port at the default
+   ``Configuration()`` and served on the card, its composition cases (a
+   chain of two functions over ciphertexts, one function run five times on
+   its own output, a ``NotComposable`` and a ``Wired`` module; the chain
+   once more from a module compiled with ``compress_input_ciphertexts``,
+   its keyset loaded from the insecure key cache), decryptions held to the
+   clear function, each function's launches those of its lookup nodes'
+   forms; then ``Sha1`` at ``Configuration(p_error=1e-8)``: compile, keygen
+   and one pack per norm2 timed, ``hexdigest(b"abc", mode="run")`` (80
+   rounds, 5,355 B=1 lookups in one launch each of the fused persistent
+   kernel, 80 B=32 lookups on the CRT-NTT loop) held to hashlib (where the
+   rule's truncated keys give another digest, the same ciphertexts served
+   on the exact keys and that digest held, the rule's wrong bits per word
+   printed beside the noise model's expected failing decisions), each
+   function's calls and ms a call, one ``round_add`` call traced with its
+   argument uploads' share, the kernel calls of one ``choose`` call and of
+   the first two lookup nodes of one ``round_add`` call held to their
+   plain versions;
+11. the node-kinds phase: five small circuits holding every node kind the
    models do not (the levelled and shape kinds, runtime clear inputs and
    clear outputs, per-element, multivariate, dynamic and control lookups,
    rounding, conv, maxpool, fancy indices, assign, trace), run through
@@ -167,20 +186,20 @@
    decides in both packages, counted apart), every kernel call held to
    its plain version on the same inputs; then fhe.bits, fhe.crt_tlu and a
    10-bit lookup (WoP-PBS at N=256), also held to the CPU's plain path;
-11. the wop phase: kernel 3's keyed entry (a key per ciphertext) and
+12. the wop phase: kernel 3's keyed entry (a key per ciphertext) and
    kernel 2's pack entry at the vertical packing's shapes against their
    plain versions, timed; PrivateInformationRetrieval over 32 rows of 16
    (a 9-bit WoP row fetch at N=4096) served as the models are, with its
    PFPKSK generated, split and uploaded and its launches by kernel; PIR
    over 64 rows compiled, its PFPKSK's size printed, not served;
-12. prints one JSON line per the kernels run (each one's launches
-   include those of the models, multi and wop phases' requests), then
-   the result line.
+13. prints one JSON line per the kernels run (each one's launches
+   include those of the models, multi, module and wop phases' requests),
+   then the result line.
 
 Any failed phase exits non-zero before the result line.  Without CUDA, or
 next to no checkout of the port, it exits non-zero at once.
-``tools/smoke_phases.py`` runs the models, multi, node-kinds and wop
-phases alone.
+``tools/smoke_phases.py`` runs the models, multi, module, node-kinds and
+wop phases alone.
 """
 
 from __future__ import annotations
@@ -219,7 +238,7 @@ FUSED_KERNELS = ("rotate_decompose_digits", "crt_external_product",
 LATENCY_KERNELS = ("rotate_decompose_digits", "banded_matmul_latency",
                    "recombine_accumulate")
 FUSED_LATENCY = "blind_rotate_fused_latency"
-#: GameOfLife(16, 16)'s B=1 lookups as the port compiles them at the
+#: GameOfLife's B=1 lookups (any size) as the port compiles them at the
 #: default Configuration(): N=2048, k+1 = 2, l = 2, base 2^7, 5 kept key
 #: limbs (3 truncated), 758 steps; the persistent kernel's plan takes it
 #: with a key ring of one slot
@@ -249,7 +268,10 @@ FUSED_LATENCY_VARIANTS = {"no key rows": "ABLATE_NO_KEY",
                           "no Garner": "ABLATE_NO_GARNER"}
 #: the models phase: two requests of each model, at the sizes below
 MODEL_REQUESTS = 2
-GOL_SIZE = (16, 16)
+GOL_SIZE = (8, 8)       # N=2048's one-slot key ring, 64 B=1 lookups
+#                         (16 x 16 before: cut for the smoke's time)
+LATENCY_CPU_BATCHES = (1,)   # B=4 on the CPU's plain kernels took 34 s; its
+#                              output stays held to the step loop's
 LEVENSHTEIN = (8, 8, 2)                 # lengths and alphabet bits
 # the model's default inputset of 12 string pairs leaves most 8 x 8 pairs'
 # values out of its bounds (ROADMAP queue 3); 256 pairs give the same
@@ -270,6 +292,10 @@ PRIME_MATCH_5 = (5, 5, 4, 7)            # largest quantity (both multi)
 PIR_SHAPE = (16, 16)
 PIR_WOP_SHAPE = (32, 16)
 PIR_COMPILED_SHAPE = (64, 16)
+MODULE_LOOP = 5                         # inc run on its own output
+SHA1_MESSAGE = b"abc"
+SHA1_P_ERROR = 1e-8                     # tests/test_models.py's digest
+SHA1_PROBES = 4                         # carry-chain calls a key form
 KEYED = "crt_external_product_keyed"
 LOOKUP_KINDS = ("tlu", "univariate", "multivariate", "dynamic_tlu")
 # Operations bounds of the CRT-NTT kernels.  The NTT kernels (2, 3) are
@@ -849,9 +875,9 @@ def latency_lookups(rng):
     the three-kernel step loop on the card (the route of the shapes the
     persistent kernel's rule refuses, driven here through the same
     pbs_batch with the rule refusing every shape, its launches counted as
-    their own path) and against the same pbs_batch on CPU copies of the
-    keys and ciphertexts (the plain versions of every kernel), bit for
-    bit."""
+    their own path) and, at B in LATENCY_CPU_BATCHES, against the same
+    pbs_batch on CPU copies of the keys and ciphertexts (the plain versions
+    of every kernel), bit for bit."""
     import numpy as np
     import torch
     from concrete_tpu_torch import params as pp
@@ -934,14 +960,16 @@ def latency_lookups(rng):
     ksk_cpu, bsk_cpu = cpu_keys(ksk, bsk)
     cpu_s = {}
     for batch, (_, _, ct, out) in checked.items():
+        if batch not in LATENCY_CPU_BATCHES:
+            continue
         t0 = time.perf_counter()
         want = kn.pbs_batch(ct.cpu(), ksk_cpu, bsk_cpu, lut.cpu(), params, 4)
         cpu_s[batch] = time.perf_counter() - t0
         if not torch.equal(out.cpu(), want):
             fail(f"the B={batch} latency lookup's output differs from the "
                  f"plain path's on the CPU")
-    print(f"latency outputs at B=1 and B=4 equal the plain path's on the "
-          f"CPU, bit for bit ({cpu_s} s)", flush=True)
+    print(f"latency outputs at B={list(cpu_s)} equal the plain path's on "
+          f"the CPU, bit for bit ({cpu_s} s)", flush=True)
     return {"setup_s": setup_s, "truncate_limbs": trunc, "checked_s":
             {b: r[0] for b, r in checked.items()}, "b1_walls_s": walls,
             "per_lookup": timed[0][1], "launches": launches,
@@ -1568,7 +1596,8 @@ def kernel_wrappers() -> dict:
 class same_inputs:
     """Within the block, the first call of each kernel wrapper at each
     signature (its tensors' shapes and dtypes, its other arguments), and
-    the CAPTURE_NTH-th, keep copies of their arguments.  check() runs each
+    the CAPTURE_NTH-th (or the calls numbered in `nth`), keep copies of
+    their arguments.  check() runs each
     kept call through the wrapper and through its plain version, each on
     fresh copies (some kernels write in place), and fails unless every
     output is equal bit for bit: the kernels held to their plain versions
@@ -1576,8 +1605,9 @@ class same_inputs:
 
     CAPTURE_NTH = 100
 
-    def __init__(self, label: str):
+    def __init__(self, label: str, nth: tuple = (1, CAPTURE_NTH)):
         self.label, self.kept, self.calls = label, {}, {}
+        self.nth = nth
 
     @staticmethod
     def _copy(args):
@@ -1604,7 +1634,7 @@ class same_inputs:
                     if isinstance(a, torch.Tensor) else repr(a)
                     for a in args) + tuple(sorted(kwargs.items()))
                 n = self.calls[sig] = self.calls.get(sig, 0) + 1
-                if n in (1, self.CAPTURE_NTH):
+                if n in self.nth:
                     self.kept.setdefault(sig, []).append(
                         (self._copy(args), kwargs))
                 return _fn(*args, **kwargs)
@@ -2322,6 +2352,510 @@ def multi_phase(rng):
         lambda: tuple(rng.integers(0, 1 << HAMMING[1], HAMMING[0])
                       for _ in range(2)), ham_wrong)
     return out
+
+
+def composition_modules(tfhe):
+    """The composition cases of tests/test_composition.py:26-75 and
+    tests/test_api_surface.py:185, and a Wired module, written again with
+    the port: {name: (module compiler, inputsets, request, arguments)}; a
+    request maps the compiled module and one argument to (decryptions,
+    clear values)."""
+    def table(f):
+        return tfhe.LookupTable([f(v) for v in range(8)])
+
+    @tfhe.module()
+    class Counter:
+        @tfhe.function({"x": "encrypted"})
+        def double(x):
+            return table(lambda v: (2 * v) % 8)[x]
+
+        @tfhe.function({"x": "encrypted"})
+        def increment(x):
+            return table(lambda v: (v + 1) % 8)[x]
+
+    @tfhe.module()
+    class Inc:
+        @tfhe.function({"x": "encrypted"})
+        def inc(x):
+            return table(lambda v: (v + 1) % 8)[x]
+
+    @tfhe.module()
+    class Isolated:
+        composition = tfhe.NotComposable()
+
+        @tfhe.function({"x": "encrypted"})
+        def small(x):
+            return x + 1
+
+        @tfhe.function({"x": "encrypted"})
+        def big(x):
+            return (x + 1) % 32
+
+    @tfhe.module()
+    class WiredPair:
+        composition = tfhe.Wired([tfhe.Wire(tfhe.Output("double", 0),
+                                            tfhe.Input("inc", 0))])
+
+        @tfhe.function({"x": "encrypted"})
+        def double(x):
+            return table(lambda v: (2 * v) % 8)[x]
+
+        @tfhe.function({"x": "encrypted"})
+        def inc(x):
+            return table(lambda v: (v + 1) % 8)[x]
+
+        @tfhe.function({"x": "encrypted"})
+        def small(x):
+            return x + 1
+
+    def chain(first, second, clear):
+        def request(m, x):
+            f, g = getattr(m, first), getattr(m, second)
+            out = g.run(f.run(f.encrypt(x)))     # ciphertext to ciphertext
+            return [int(g.decrypt(out))], [clear(x)]
+        return request
+
+    def loop(m, x):
+        ct = m.inc.encrypt(x)
+        for _ in range(MODULE_LOOP):
+            ct = m.inc.run(ct)
+        return [int(m.inc.decrypt(ct))], [(x + MODULE_LOOP) % 8]
+
+    def isolated(m, x):
+        return [int(m.small.encrypt_run_decrypt(x % 2)),
+                int(m.big.encrypt_run_decrypt(x))], [x % 2 + 1, (x + 1) % 32]
+
+    def wired(m, x):
+        got, want = chain("double", "inc", lambda v: (2 * v + 1) % 8)(m, x)
+        return got + [int(m.small.encrypt_run_decrypt(x % 2))], \
+            want + [x % 2 + 1]
+
+    eight = list(range(8))
+    return {
+        "counter": (Counter, {"double": eight, "increment": eight},
+                    chain("double", "increment",
+                          lambda v: (2 * v + 1) % 8), eight),
+        "inc_loop": (Inc, {"inc": eight}, loop, [0, 3, 6]),
+        "not_composable": (Isolated, {"small": range(2), "big": range(31)},
+                           isolated, [0, 17, 30]),
+        "wired": (WiredPair, {"double": eight, "inc": eight,
+                              "small": range(2)}, wired, [1, 2, 5]),
+    }
+
+
+def per_call_launches(forms: dict) -> dict:
+    """The launches of one call of a function whose lookup nodes take
+    `forms` (lookup_forms)."""
+    out = {}
+    for *_, launches in forms.values():
+        for k, v in launches.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def served_calls(m, requests):
+    """Run `requests` (callables of the module) on module `m`: (their
+    results, the calls of each function, the seconds, the launches)."""
+    from concrete_tpu_torch.ops import _build
+    calls = {f: 0 for f in m.function_names}
+    for f in m.function_names:
+        fn = getattr(m, f)
+
+        def counted(*args, _run=fn.run, _f=f):
+            calls[_f] += 1
+            return _run(*args)
+        fn.run = counted
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    results = [request(m) for request in requests]
+    wall = time.perf_counter() - t0
+    for f in m.function_names:
+        del getattr(m, f).run
+    counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+              if v - before.get(k, 0)}
+    return results, calls, wall, counts
+
+
+def serve_composition(rng):
+    """Part (a) of the module phase: each composition module compiled by
+    the port at the default Configuration() and served on the card, every
+    function's launches those of its lookup nodes' forms, decryptions held
+    to the clear function; the counter's chain once more from a module
+    compiled with compress_input_ciphertexts=True (its keyset loaded from
+    the insecure key cache the first one wrote)."""
+    import tempfile
+    import numpy as np
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch.core.compression import SeededLweCiphertext
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as cache:
+        cached = tfhe.Configuration(use_insecure_key_cache=True,
+                                    insecure_key_cache_location=cache)
+        modules = composition_modules(tfhe)
+        for name, (compiler, inputsets, request, xs) in modules.items():
+            t0 = time.perf_counter()
+            m = compiler.compile(inputsets, cached)
+            compile_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            m.keygen(seed=SEED)
+            keygen_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            evs = {f: getattr(m, f)._evaluation_keys()
+                   for f in m.function_names}
+            pack_s = time.perf_counter() - t0
+            forms = {f: lookup_forms(getattr(m, f), evs[f][1])
+                     for f in m.function_names}
+            results, calls, wall, counts = served_calls(
+                m, [lambda m, x=x: request(m, x) for x in xs])
+            got = [v for g, _ in results for v in g]
+            want = [v for _, w in results for v in w]
+            expect = {}
+            for f, c in calls.items():
+                for k, v in per_call_launches(forms[f]).items():
+                    expect[k] = expect.get(k, 0) + c * v
+            if counts != expect:
+                fail(f"module {name}: its calls launched {counts}, their "
+                     f"lookup nodes' forms give {expect}")
+            wrong = int(np.count_nonzero(np.asarray(got) != np.asarray(want)))
+            if wrong > max(2, 1e-3 * len(want)):
+                fail(f"module {name}: {wrong} wrong decryptions of "
+                     f"{len(want)}")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            p = getattr(m, m.function_names[0]).client_specs.params
+            by_form = sorted({f"{f}: {kind} B={b}: {form}"
+                              for f in forms for kind, b, form, _ in
+                              forms[f].values()})
+            out[name] = {"params": str(p), "compile_s": compile_s,
+                         "keygen_s": keygen_s, "pack_s": pack_s,
+                         "calls": calls, "wall_s": wall, "wrong": wrong,
+                         "values": len(want), "launches": counts,
+                         "forms": by_form,
+                         "bsk": sorted({key_form(ev[1])
+                                        for ev in evs.values()})}
+            print(f"module {name}: n_small={p.n_small} "
+                  f"N={p.polynomial_size} l={p.pbs_level} base "
+                  f"2^{p.pbs_base_log}, {out[name]['bsk']}; compile "
+                  f"{compile_s:.3f} s, keygen {keygen_s:.2f} s, pack "
+                  f"{pack_s:.3f} s; calls {calls} in {wall:.3f} s; lookup "
+                  f"nodes {by_form}; launches {counts}; wrong {wrong} of "
+                  f"{len(want)}", flush=True)
+            if name == "counter":
+                plain_m = m
+        # the chain from a module compiled with compress_input_ciphertexts
+        compiler, inputsets, request, _ = modules["counter"]
+        m = compiler.compile(inputsets, cached.fork(
+            compress_input_ciphertexts=True))
+        t0 = time.perf_counter()
+        m.keygen(seed=SEED)
+        keygen_s = time.perf_counter() - t0
+        files = len(os.listdir(cache))
+    if not all(np.array_equal(a, b) for a, b in zip(
+            (m.keys.secret.lwe_big, m.keys.server.bsk),
+            (plain_m.keys.secret.lwe_big, plain_m.keys.server.bsk))):
+        fail("the compressed counter's keyset is not the cached one")
+    ct = m.double.encrypt(3)
+    if not isinstance(ct, SeededLweCiphertext):
+        fail("compress_input_ciphertexts=True encrypted no seeded input")
+    full = plain_m.double.encrypt(3)
+    (res,), _, wall, counts = served_calls(
+        m, [lambda m: m.increment.run(m.double.run(ct))])
+    got, want = int(m.increment.decrypt(res)), (2 * 3 + 1) % 8
+    if got != want:
+        fail(f"the compressed chain decrypted {got}, want {want}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    out["counter_compressed"] = {
+        "keygen_from_cache_s": keygen_s, "wall_s": wall,
+        "input_bytes": ct.size_bytes, "uncompressed_bytes": full.nbytes,
+        "launches": counts, "wrong": int(got != want), "values": 1}
+    print(f"module counter, compress_input_ciphertexts=True: keyset loaded "
+          f"from the insecure key cache ({files} files for the five "
+          f"modules) in {keygen_s:.3f} s; input {ct.size_bytes} bytes "
+          f"against {full.nbytes} uncompressed; chain {wall:.3f} s, "
+          f"decrypted {got} (want {want}); launches {counts}", flush=True)
+    out["launches"] = launches
+    return out
+
+
+def mono_decision_failures(fn) -> float:
+    """The noise model's expected failing decisions of one call of a mono
+    module function (compilation.multi.decision_failures, every partition
+    the function's parameters)."""
+    import collections
+    from types import SimpleNamespace
+    from concrete_tpu_torch.compilation.multi import (decision_failures,
+                                                      expected_failures)
+    p = fn.client_specs.params
+    specs = SimpleNamespace(
+        partitions=collections.defaultdict(lambda: p), conversions={})
+    return expected_failures(decision_failures(fn.graph, specs))
+
+
+def serve_sha1(rng):
+    """Part (b) of the module phase: Sha1 at Configuration(p_error=1e-8)
+    compiled by the port, keyed and packed (one pack per norm2), then
+    hexdigest(SHA1_MESSAGE, mode="run") on the card held to hashlib; where
+    it differs on a truncated fused key, the same ciphertexts served again
+    on the exact keys, whose digest is held.  Each function's calls, ms a
+    call and launches (those of its lookup nodes' forms); one round_add
+    call traced; the kernel calls of one choose call and of the first two
+    lookup nodes of one round_add call held to their plain versions; the
+    carry chains call by call on both key forms (sha1_probes)."""
+    import hashlib
+    from types import SimpleNamespace
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch.compilation import server as srv
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.models import Sha1
+    from concrete_tpu_torch.models.sha1 import split32
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.ops import fused_ntt as fnt
+    start = time.perf_counter()
+    sha = Sha1()
+    t0 = time.perf_counter()
+    m = sha.compile(tfhe.Configuration(p_error=SHA1_P_ERROR))
+    compile_s = time.perf_counter() - t0
+    names = m.function_names
+    fns = {f: getattr(m, f) for f in names}
+    p = fns["round_add"].client_specs.params
+    t0 = time.perf_counter()
+    m.keygen(seed=SEED)
+    keygen_s = time.perf_counter() - t0
+    packs, evs = {}, {}
+    with timed_calls({"ksk_split_and_upload_s": (kn, "pack_ksk"),
+                      "fused_bsk_s": (fnt, "pack_bsk_fused"),
+                      "banded_bsk_s": (kn, "pack_bsk")}) as pack_parts:
+        t_all = time.perf_counter()
+        for f in sorted(names, key=lambda f: fns[f].graph.max_norm2()):
+            norm2 = round(fns[f].graph.max_norm2(), 4)
+            t0 = time.perf_counter()
+            evs[f] = fns[f]._evaluation_keys()
+            packs.setdefault(norm2, 0.0)
+            packs[norm2] += time.perf_counter() - t0
+        pack_s = time.perf_counter() - t_all
+    forms = {f: lookup_forms(fns[f], evs[f][1]) for f in names}
+    per_call = {f: per_call_launches(forms[f]) for f in names}
+    keys_by_norm2 = {round(fns[f].graph.max_norm2(), 4): key_form(evs[f][1])
+                     for f in names}
+    print(f"module sha1: n_small={p.n_small} k={p.glwe_dimension} "
+          f"N={p.polynomial_size} l={p.pbs_level} base 2^{p.pbs_base_log} "
+          f"ks ({p.ks_level}, 2^{p.ks_base_log}); compile {compile_s:.3f} s, "
+          f"keygen {keygen_s:.2f} s, pack {pack_s:.3f} s (per norm2 "
+          f"{ {k: round(v, 3) for k, v in packs.items()} }, parts "
+          f"{ {k: round(v, 3) for k, v in pack_parts.seconds.items()} }); "
+          f"keys per norm2 {keys_by_norm2}", flush=True)
+
+    # the digest on the packing rule's keys; every encryption recorded,
+    # so that the exact keys can serve the same ciphertexts
+    calls = {f: 0 for f in names}
+    seconds = {f: 0.0 for f in names}
+    saved = {f: fns[f].run for f in names}
+    for f in names:
+        def timed(*args, _run=saved[f], _f=f):
+            t0 = time.perf_counter()
+            res = _run(*args)
+            seconds[_f] += time.perf_counter() - t0
+            calls[_f] += 1
+            return res
+        fns[f].run = timed
+    encrypt = fns["rotate30"].encrypt
+    recorded = []
+
+    def recording(*args):
+        ct = encrypt(*args)
+        recorded.append(ct)
+        return ct
+    fns["rotate30"].encrypt = recording
+    want = hashlib.sha1(SHA1_MESSAGE).hexdigest()
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    got = sha.hexdigest(SHA1_MESSAGE, mode="run")
+    digest_s = time.perf_counter() - t0
+    counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+              if v - before.get(k, 0)}
+    for f in names:
+        del fns[f].run
+    expect = {}
+    for f, c in calls.items():
+        for k, v in per_call[f].items():
+            expect[k] = expect.get(k, 0) + c * v
+    if counts != expect:
+        fail(f"sha1: the digest launched {counts}, its functions' lookup "
+             f"nodes' forms give {expect}")
+    lookups = sum(calls[f] * fns[f].programmable_bootstrap_count
+                  for f in names)
+    model = {f: calls[f] * mono_decision_failures(fns[f]) for f in names}
+    wrong_bits = [bin(int(got[8 * i:8 * i + 8], 16)
+                      ^ int(want[8 * i:8 * i + 8], 16)).count("1")
+                  for i in range(5)]
+    rec_fns = {f: {"calls": calls[f],
+                   "lookups_per_call": fns[f].programmable_bootstrap_count,
+                   "norm2": fns[f].graph.max_norm2(),
+                   "bsk": key_form(evs[f][1]),
+                   "forms": sorted({f"{kind} B={b}: {form}" for kind, b,
+                                    form, _ in forms[f].values()}),
+                   "ms_per_call": 1e3 * seconds[f] / max(calls[f], 1),
+                   "launches_per_call": per_call[f]} for f in names}
+    for f in names:
+        r = rec_fns[f]
+        print(f"  sha1 {f}: {r['calls']} calls, {r['lookups_per_call']} "
+              f"lookups a call, norm2 {r['norm2']:.3f}, {r['bsk']}, "
+              f"{r['forms']}, {r['ms_per_call']:.3f} ms a call, launches a "
+              f"call {r['launches_per_call']}", flush=True)
+    print(f"module sha1: hexdigest({SHA1_MESSAGE!r}) on the rule's keys "
+          f"{got} in {digest_s:.3f} s ({lookups} lookups; hashlib {want}); "
+          f"wrong bits per word {wrong_bits}; the noise model's expected "
+          f"failing decisions a digest {sum(model.values()):.3e}; launches "
+          f"{counts}", flush=True)
+    exact = None
+    exact_evs = {f: exact_keys(SimpleNamespace(
+        keys=fns[f].client.keys, client_specs=fns[f].client_specs,
+        device=fns[f].device), evs[f]) for f in names}
+    if got != want:
+        if not any(e is not None for e in exact_evs.values()):
+            fail(f"sha1: the digest {got} differs from hashlib's {want} on "
+                 f"exact keys")
+        replay = iter(recorded)
+        fns["rotate30"].encrypt = lambda *args: next(replay)
+        swapped = [f for f in names if exact_evs[f] is not None]
+        for f in swapped:
+            fns[f]._evaluation_keys = lambda _e=exact_evs[f]: _e
+        t0 = time.perf_counter()
+        exact_got = sha.hexdigest(SHA1_MESSAGE, mode="run")
+        exact_s = time.perf_counter() - t0
+        for f in swapped:
+            del fns[f]._evaluation_keys
+        exact = {"digest": exact_got, "wall_s": exact_s,
+                 "bsk": {f: key_form(e[1]) for f, e in exact_evs.items()
+                         if e is not None}}
+        print(f"module sha1: the same ciphertexts on the exact keys "
+              f"({exact['bsk']}): {exact_got} in {exact_s:.3f} s", flush=True)
+        if exact_got != want:
+            fail(f"sha1: the exact keys' digest {exact_got} differs from "
+                 f"hashlib's {want}")
+    del fns["rotate30"].encrypt
+
+    # the carry chains call by call on random words, on the rule's keys and
+    # on the exact keys: wrong output bits against the clear sum
+    probes = sha1_probes(rng, fns, exact_evs)
+
+    # one round_add call traced, its argument uploads timed
+    words = [fns["rotate30"].encrypt(split32(int(v)))
+             for v in rng.integers(0, 1 << 32, 5)]
+    with timed_calls({"upload_s": (srv, "to_torus")}) as uploads:
+        (traced_out, rows, kernels, launch_calls) = profile_run(
+            lambda: timed_wall(lambda: fns["round_add"].run(*words)),
+            host_ops=False)
+    traced_wall, _ = traced_out
+    busy = sum(ms for *_, ms in rows)
+    h2d = sum(ms for k, _, ms in rows if "HtoD" in k)
+    traced = {"wall_s": traced_wall, "device_busy_ms": busy,
+              "idle_share": 1 - busy / (traced_wall * 1e3),
+              "device_kernels": kernels, "launch_calls": launch_calls,
+              "upload_host_s": uploads.seconds.get("upload_s", 0.0),
+              "upload_share": uploads.seconds.get("upload_s", 0.0)
+              / traced_wall, "htod_device_ms": h2d,
+              "by_kernel": [{"name": k, "count": c, "device_ms": ms}
+                            for k, c, ms in rows[:12]]}
+    print(f"module sha1: one traced round_add call: wall "
+          f"{traced_wall * 1e3:.1f} ms, device busy {busy:.2f} ms, idle "
+          f"share {traced['idle_share']:.3f}, kernels run {kernels}, launch "
+          f"calls {launch_calls}; its argument uploads "
+          f"{traced['upload_host_s'] * 1e3:.3f} ms on the host clock (share "
+          f"{traced['upload_share']:.5f}), HtoD copies {h2d:.3f} ms on the "
+          f"device", flush=True)
+    for k, c, ms in rows[:6]:
+        print(f"  {ms:9.3f} ms {c:6d}x  {k[:90]}", flush=True)
+
+    # the kernel calls of one choose call and of the first two lookup
+    # nodes of one round_add call, held to their plain versions
+    checks = same_inputs("sha1 choose")
+    with checks:
+        fns["choose"].run(*words[:3])
+    held = checks.check()
+    checks = same_inputs("sha1 round_add", nth=(1, 2))
+    with checks:
+        fns["round_add"].run(*words)
+    for name, rec in checks.check().items():
+        held[f"round_add {name}"] = rec
+    print(f"module sha1: kernel calls held to their plain versions: "
+          f"{ {k: (v['calls'], v['signatures']) for k, v in held.items()} }",
+          flush=True)
+    return {"params": str(p), "compile_s": compile_s, "keygen_s": keygen_s,
+            "pack_s": pack_s, "pack_per_norm2_s": packs,
+            "pack_parts_s": pack_parts.seconds,
+            "keys_per_norm2": keys_by_norm2, "digest": got, "hashlib": want,
+            "digest_s": digest_s, "lookups": lookups,
+            "wrong_bits_per_word": wrong_bits,
+            "model_expected_failures": model, "exact": exact,
+            "probes": probes,
+            "functions": rec_fns, "launches": counts, "traced": traced,
+            "checked_on_served_inputs": held,
+            "phase_s": time.perf_counter() - start}
+
+
+def sha1_probes(rng, fns, exact_evs) -> dict:
+    """SHA1_PROBES calls of round_add (a carry chain of 63 lookups, add2's
+    too) on random words, on the packing rule's keys and, where the rule
+    truncates, on the exact keys (the same ciphertexts): {"round_add":
+    {"rule"|"exact": wrong output bits of each call against the clear sum
+    mod 2^32}}."""
+    from concrete_tpu_torch.models.sha1 import split32, unsplit32
+
+    def rotl5(v):
+        return ((v << 5) | (v >> 27)) & 0xFFFFFFFF
+
+    clear = {"round_add": lambda a, f, e, w, k:
+             (rotl5(a) + f + e + w + k) % (1 << 32)}
+    out = {}
+    for name, fn in clear.items():
+        f = fns[name]
+        arity = len(f.client_specs.inputs)
+        words = [[int(v) for v in rng.integers(0, 1 << 32, arity)]
+                 for _ in range(SHA1_PROBES)]
+        cts = [[fns["rotate30"].encrypt(split32(v)) for v in ws]
+               for ws in words]
+        rec = {}
+        for label, ev in (("rule", None), ("exact", exact_evs[name])):
+            if label == "exact" and ev is None:
+                continue
+            if ev is not None:
+                f._evaluation_keys = lambda _e=ev: _e
+            rec[label] = [bin(unsplit32(f.decrypt(f.run(*ct)))
+                              ^ fn(*ws)).count("1")
+                          for ws, ct in zip(words, cts)]
+            if ev is not None:
+                del f._evaluation_keys
+        out[name] = rec
+    print(f"module sha1: wrong output bits a call against the clear sum, "
+          f"{SHA1_PROBES} calls on random words each, rule keys then exact: "
+          f"{out}", flush=True)
+    return out
+
+
+def timed_wall(fn):
+    """(seconds, result) of fn() on the host clock; fn returns host
+    arrays, so the card is synchronised."""
+    t0 = time.perf_counter()
+    res = fn()
+    return time.perf_counter() - t0, res
+
+
+def module_phase(rng):
+    """fhe.module on the card: the composition cases (serve_composition),
+    then Sha1 over encrypted words (serve_sha1)."""
+    start = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    comp = serve_composition(rng)
+    sha = serve_sha1(rng)
+    launches = dict(comp.pop("launches"))
+    for k, v in sha["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"module phase: {time.perf_counter() - start:.1f} s; launches "
+          f"{launches}", flush=True)
+    return {"composition": comp, "sha1": sha, "launches": launches,
+            "phase_s": time.perf_counter() - start}
 
 
 def kind_circuits(tfhe, rng):
@@ -3472,7 +4006,11 @@ def main() -> None:
     from concrete_tpu_torch.utils.csprng import BUILD_DIR
     os.makedirs(BUILD_DIR, exist_ok=True)
     var_dir = tempfile.mkdtemp(dir=BUILD_DIR)
-    t0 = time.perf_counter()
+    t_main = t0 = time.perf_counter()
+    marks = {}              # seconds since the start at each phase's end
+
+    def mark(label):
+        marks[label] = round(time.perf_counter() - t_main, 1)
     _build.library()
     per_source = {k: round(v, 1)
                   for k, v in _build.BUILD_INFO["source_seconds"].items()}
@@ -3645,6 +4183,7 @@ def main() -> None:
     if est_s > 700:
         fail(f"the kernels are too slow to serve {REQUESTS} requests within "
              f"the smoke's time limit (estimate {est_s:.0f} s)")
+    mark("kernel checks")
     run = serve(rng)
     # ... and in "pallas" mode, n_small steps of kernels A, 9 and the
     # recombine; then one blind rotate in each of the five modes (the
@@ -3661,6 +4200,7 @@ def main() -> None:
     server = run.pop("state")[0]
     modes = check_modes(rng, run.pop("bsk"), server.client_specs.params)
     latency = latency_lookups(rng)
+    mark("serve and latency")
 
     # the CRT-NTT path: its kernels at the MLP archive's shapes (256
     # ciphertexts x (k+1)=2 rows, N=4096, l=2, base 2^8, its 3 primes,
@@ -3744,6 +4284,7 @@ def main() -> None:
     # the CRT-NTT blind rotate at B <= 4 in one launch, at the models'
     # shapes
     rec_fl = fused_latency_phase(rng, clock, mix, *fl_builds())
+    mark("CRT-NTT checks")
 
     step_ms = sum(rec_f[name]["ms"] for name in FUSED_KERNELS)
     est_s = (REQUESTS + 2 * DIRECT_LOOKUPS / 256) * 822 * step_ms / 1e3
@@ -3757,17 +4298,25 @@ def main() -> None:
     if tuple(bsk.primes) != tuple(primes):
         fail(f"the archive's primes {bsk.primes} are not the checked ones")
     direct = direct_lookups(rng, client, ksk, bsk, params)
+    mark("MLP and direct lookups")
     compiled = compile_phase(rng)
+    mark("compile")
     models = models_phase(rng)
+    mark("models")
     multi = multi_phase(rng)
+    mark("multi")
+    module = module_phase(rng)
+    mark("module")
     kinds = kinds_phase(rng)
+    mark("kinds")
     keyed = wop_keyed_checks(rng, clock, mix)
     wop = wop_phase(rng)
-    # the models, multi and wop phases' own launches of the kernels that
-    # their lookups ran
+    mark("wop")
+    # the models, multi, module and wop phases' own launches of the kernels
+    # that their lookups ran
     model_launches = {}
     for rec in list(models.values()) + list(multi.values()) \
-            + [wop["pir_32"]]:
+            + [module, wop["pir_32"]]:
         for k, v in rec["launches"].items():
             model_launches[k] = model_launches.get(k, 0) + v
 
@@ -3882,7 +4431,8 @@ def main() -> None:
                    "banded_modes_walls_s": modes, "latency": latency,
                    "serve_mlp": mlp, "direct_lookups": direct,
                    "compiled": compiled, "models": models,
-                   "multi": multi, "kinds": kinds, "wop": wop, "wop_kernels": keyed,
+                   "multi": multi, "module": module, "kinds": kinds,
+                   "wop": wop, "wop_kernels": keyed,
                    "detail": {"rotate_decompose": rec_a,
                               "external_product_accumulate": rec_b,
                               "banded_matmul": rec_bm,
@@ -3902,6 +4452,7 @@ def main() -> None:
                               "ntt_forward_pack": rec_pack,
                               "ntt_forward": rec_ntt, "ntt_inverse": rec_inv,
                               **rec_f, FUSED_LATENCY: rec_fl},
+                   "phase_end_s": marks,
                    "ptxas": ptxas_summary(_build.BUILD_INFO["log"]),
                    "build_s": _build.BUILD_INFO["seconds"],
                    "build_source_s": _build.BUILD_INFO["source_seconds"]},
@@ -3938,6 +4489,8 @@ def main() -> None:
           f"{rec_s8[4]['ms']:.4f} ms, step loop "
           f"{rec_s8[1]['step_loop_ms']:.4f} / "
           f"{rec_s8[4]['step_loop_ms']:.4f} ms; card {card_line}",
+          flush=True)
+    print(f"seconds since the start at each phase's end: {marks}",
           flush=True)
     print(f"card: {card()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

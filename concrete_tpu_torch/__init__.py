@@ -12,6 +12,11 @@ package's spelling:
     circuit = add.compile([(2, 3), (0, 0), (7, 7)])
     assert circuit.encrypt_run_decrypt(2, 6) == 8
 
+Modules (``@fhe.module()`` with ``@fhe.function`` methods) compile
+functions that share one keyset, so that one function's output ciphertext
+feeds another's input without decryption, under a composition policy
+(``AllComposable``, ``NotComposable``, ``Wired``).
+
 Compiling (trace, transforms, the multi-partition planner and the ``v0``
 parameter search) is host code and chooses the JAX package's graph,
 parameters and ``ClientSpecs``; ``Server.save`` writes its archives and
@@ -43,7 +48,15 @@ import sys as _sys
 from concrete_tpu_torch.version import __version__
 from concrete_tpu_torch.compilation import (Circuit, Client, Compiler,
                                             Configuration, EvaluationKeys,
-                                            Keys, Server, circuit, compiler)
+                                            Keys, Server, circuit, compiler,
+                                            function, module)
+from concrete_tpu_torch.compilation import FheFunction as Function
+from concrete_tpu_torch.compilation import FheModule as Module
+from concrete_tpu_torch.compilation.artifacts import (
+    DebugArtifacts, FunctionDebugArtifacts, ModuleDebugArtifacts)
+from concrete_tpu_torch.compilation.composition import (
+    AllComposable, AllInputs, AllOutputs, CompositionPolicy, Input,
+    NotComposable, Output, Wire, Wired)
 from concrete_tpu_torch.compilation.configuration import (
     ApproximateRoundingConfig, BitwiseStrategy, ComparisonStrategy,
     Exactness, KeysetRestriction, MinMaxStrategy, MultiParameterStrategy,
@@ -102,6 +115,10 @@ __all__ = [
     "__version__",
     "Circuit", "Client", "Compiler", "Configuration", "EvaluationKeys",
     "Keys", "Server", "circuit", "compiler",
+    "Function", "Module", "function", "module",
+    "CompositionPolicy", "AllComposable", "NotComposable", "Wired", "Wire",
+    "Input", "Output", "AllInputs", "AllOutputs",
+    "DebugArtifacts", "FunctionDebugArtifacts", "ModuleDebugArtifacts",
     "ApproximateRoundingConfig", "BitwiseStrategy", "ComparisonStrategy",
     "Exactness", "KeysetRestriction", "MinMaxStrategy",
     "MultiParameterStrategy", "MultivariateStrategy",

@@ -5,6 +5,11 @@ from concrete_tpu_torch.compilation.client import Client
 from concrete_tpu_torch.compilation.evaluation_keys import EvaluationKeys
 from concrete_tpu_torch.compilation.keys import Keys
 from concrete_tpu_torch.compilation.server import Server
+from concrete_tpu_torch.compilation.module import (FheFunction, FheModule,
+                                                   ModuleCompiler, function,
+                                                   module)
 
 __all__ = ["Circuit", "Client", "Compiler", "Configuration",
-           "EvaluationKeys", "Keys", "Server", "circuit", "compiler"]
+           "EvaluationKeys", "Keys", "Server", "circuit", "compiler",
+           "FheFunction", "FheModule", "ModuleCompiler", "function",
+           "module"]

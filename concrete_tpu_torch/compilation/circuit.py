@@ -12,9 +12,11 @@ The circuit packs its keyset for the device once and reuses the packed
 keys on every run (``Keys.evaluation_for`` caches them until the next
 keygen).  A multi-partition circuit gets a ``MultiKeys``: full keysets for
 the partitions that run a PBS, secret-only ones for the others, and the
-conversion keys of its frontiers.  Simulation, ``run_async`` and the
-insecure key cache are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP queue 1 item.
+conversion keys of its frontiers.  The configuration's insecure key
+cache holds the keyset (``Keys``/``MultiKeys``), and
+``compress_input_ciphertexts`` makes ``encrypt`` seeded.  Simulation and
+``run_async`` are not ported yet and raise ``NotImplementedError`` naming
+their ROADMAP queue 1 item.
 """
 
 from __future__ import annotations
@@ -37,11 +39,15 @@ class Circuit:
         self.client_specs = specs
         self.configuration = configuration
         self.device = resolve_device(device)
+        cache = None
+        if configuration is not None and configuration.use_insecure_key_cache:
+            cache = configuration.insecure_key_cache_location
         if specs.is_multi:
             keys = MultiKeys(specs.partitions, specs.conversions or {},
+                             cache_directory=cache,
                              pbs_widths=self._pbs_widths())
         else:
-            keys = Keys(specs.params)
+            keys = Keys(specs.params, cache_directory=cache)
         self.client = Client(specs, keys)
         # the server refuses an unported node kind here, before any key is
         # generated
@@ -77,7 +83,11 @@ class Circuit:
     # -- the full pipeline -------------------------------------------------
 
     def encrypt(self, *args):
-        return self.client.encrypt(*args)
+        """The client's encryption; seeded (``SeededLweCiphertext``) under
+        ``Configuration.compress_input_ciphertexts``."""
+        compress = bool(self.configuration is not None and
+                        self.configuration.compress_input_ciphertexts)
+        return self.client.encrypt(*args, compress=compress)
 
     def _evaluation_keys(self):
         """The keyset packed for this circuit's device, BSK form and

@@ -10,12 +10,14 @@ partition's (``MultiKeys``).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 
 from concrete_tpu_torch.compilation.keys import Keys, MultiKeys
 from concrete_tpu_torch.compilation.specs import ClientSpecs
+from concrete_tpu_torch.core import compression as cz
 from concrete_tpu_torch.core import keygen as kg
 from concrete_tpu_torch.core import refimpl as ref
 from concrete_tpu_torch.dtypes import Integer
@@ -50,9 +52,11 @@ class Client:
             self.keys.wop_keys(wp)
         return self.keys.evaluation_keys
 
-    def encrypt(self, *args):
+    def encrypt(self, *args, compress: bool = False):
         """Encrypt positional arguments (clear args pass through) into u64
-        LWE arrays of shape (*value_shape, n_big + 1)."""
+        LWE arrays of shape (*value_shape, n_big + 1), or with `compress`
+        into ``SeededLweCiphertext`` (bodies and a seed from os.urandom;
+        the masks grow back from the seed, ``core/compression.py``)."""
         self.keygen()
         if len(args) != len(self.specs.inputs):
             raise ValueError(
@@ -70,7 +74,11 @@ class Client:
                 continue
             sk, std = self._secret_for(self.specs.input_partition(pos))
             enc = ref.encode(arr, self.specs.input_width(pos))
-            out.append(kg.encrypt_lwe_batch(rng, sk, enc, std))
+            if compress:
+                out.append(cz.encrypt_seeded(rng, sk, enc, std,
+                                             seed=os.urandom(32)))
+            else:
+                out.append(kg.encrypt_lwe_batch(rng, sk, enc, std))
         return tuple(out) if len(out) != 1 else out[0]
 
     def _secret_for(self, width: int):

@@ -13,8 +13,8 @@ search, so one function compiles to the JAX package's graph, widths,
 resulting ``Circuit`` runs on ``device`` (None means CUDA).  Table
 lookups above the native width compile to WoP-PBS, with the JAX package's
 gadget search (``optimizer.v0.choose_wop_gadgets``) or
-``forced_wop_parameters``.  Debug artifacts (ROADMAP queue 1 item 6) raise
-``NotImplementedError``.
+``forced_wop_parameters``.  ``artifacts`` (a ``DebugArtifacts``) gets the
+JAX package's graph, bounds, parameters and statistics files.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ import numpy as np
 
 from concrete_tpu_torch.compilation.circuit import Circuit
 from concrete_tpu_torch.compilation.configuration import Configuration
-from concrete_tpu_torch.compilation.executor import not_ported
 from concrete_tpu_torch.compilation.specs import ClientSpecs
 from concrete_tpu_torch.optimizer import optimize_v0_multi
 from concrete_tpu_torch.tracing import Tracer
@@ -40,8 +39,6 @@ class Compiler:
 
     def compile(self, inputset, configuration: Optional[Configuration] = None,
                 artifacts=None, device=None, **kwargs) -> Circuit:
-        if artifacts is not None:
-            raise not_ported("debug artifacts")
         config = configuration or self.configuration
         if kwargs:
             config = config.fork(**kwargs)
@@ -317,6 +314,12 @@ class Compiler:
                   f"params: n={params.n_small} k={params.glwe_dimension} "
                   f"N={params.polynomial_size}, "
                   f"pbs_count: {circuit.programmable_bootstrap_count}")
+        if artifacts is not None:
+            artifacts.add_graph(graph.name, graph)
+            artifacts.add_bounds(graph)
+            artifacts.add_parameters(params)
+            artifacts.add_statistics(circuit)
+            artifacts.export()
         return circuit
 
     # tracing without compiling (reference Compiler.trace)

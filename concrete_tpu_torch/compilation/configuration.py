@@ -13,8 +13,8 @@ same parameters in both packages.  Four classes of fields:
   auto_parallelize) and the fields the JAX package accepts and never reads
   (device_batch_size, mesh_shape and others, documented per field).
 - **not ported yet**: setting one raises ``NotImplementedError`` naming its
-  ROADMAP queue 1 item (``_NOT_PORTED``): simulation, the dataflow
-  scheduler, the insecure key cache, seeded compression.
+  ROADMAP queue 1 item (``_NOT_PORTED``): simulation and the dataflow
+  scheduler.
 - **unsupported**: use_gpu raises, as in the JAX package; the port's
   device comes from the ``device`` argument of ``compile`` / ``Circuit``.
 
@@ -124,10 +124,6 @@ _NOT_PORTED = {
     "simulate_encrypt_run_decrypt": "item 5, simulation/",
     "detect_overflow_in_simulation": "item 5, simulation/",
     "auto_schedule_run": "item 5, the dataflow scheduler",
-    "use_insecure_key_cache": "item 6, the key cache",
-    "insecure_key_cache_location": "item 6, the key cache",
-    "compress_input_ciphertexts": "item 6, seeded compression",
-    "compress_evaluation_keys": "item 6, seeded compression",
 }
 
 
@@ -154,7 +150,8 @@ class Configuration:
     enable_unsafe_features: bool = False
     use_insecure_key_cache: bool = False
     insecure_key_cache_location: Optional[str] = None
-    compress_evaluation_keys: bool = False
+    compress_evaluation_keys: bool = False    # accepted, unused (as in the
+    #                                           JAX package)
     compress_input_ciphertexts: bool = False
     security_level: Union[int, SecurityLevel] = SecurityLevel.SECURITY_128_BITS
 

@@ -46,7 +46,6 @@ from concrete_tpu_torch.dtypes import Integer
 from concrete_tpu_torch.params import CryptoParams
 from concrete_tpu_torch.representation import Graph, Node, Operation
 
-_ITEM6 = "ROADMAP queue 1 item 6, the execution layer"
 _KINDS = (
     "tlu", "univariate", "multivariate", "dynamic_tlu", "crt_tlu",
     "extract_bits",
@@ -56,7 +55,7 @@ _KINDS = (
     "assign", "reshape", "encrypted_constant")
 
 
-def not_ported(what: str, item: str = _ITEM6) -> NotImplementedError:
+def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet ({item})")
 
 

@@ -5,15 +5,22 @@ Counterpart of ``concrete_tpu/compilation/keys.py`` ``Keys`` and
 keysets included), the same data-only npz format, and the same BSK
 truncation.  Packing puts the key material on a torch device in the form
 the JAX package would pick: int8 limb planes for the banded blind rotate
-or per-prime NTT spectra for the fused CRT-NTT one.  The insecure key
-cache is ROADMAP queue 1 item 6.
+or per-prime NTT spectra for the fused CRT-NTT one.
+
+The insecure key cache (``cache_directory``) is the JAX package's: one npz
+of PLAINTEXT SECRET KEYS per keyset, named by the sha256 of the same
+``repr`` of (parameters, seed[, secret_only]), so a file that either
+package writes loads in the other.  A keyset from an injected GLWE key is
+never cached.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import io
 import json
+import os
 from typing import Optional
 
 import numpy as np
@@ -51,8 +58,12 @@ class Keys:
 
     _FORMAT_VERSION = 1
 
-    def __init__(self, params: CryptoParams):
+    def __init__(self, params: CryptoParams,
+                 cache_directory: Optional[str] = None):
         self.params = params
+        self.cache_directory = cache_directory
+        self._seed = None
+        self._foreign_key = False
         self._secret: Optional[SecretKeys] = None
         self._server: Optional[ServerKeys] = None
         # WoP packing keys (u64), one per (pfks_level, pfks_base_log)
@@ -75,29 +86,54 @@ class Keys:
         return self._secret is not None
 
     def generate(self, seed: Optional[int] = None,
+                 glwe_key: Optional[np.ndarray] = None,
                  secret_only: bool = False) -> None:
         """All key material from the ChaCha20 CSPRNG, seeded from
-        os.urandom by default and deterministically from `seed`.
+        os.urandom by default and deterministically from `seed`; with a
+        cache directory, loaded from its file where one exists, else
+        generated and saved there.
 
-        `secret_only` skips the evaluation keys (BSK/KSK): a partition
-        that runs no PBS only ever encrypts and decrypts, and a BSK at its
-        parameters can be GBs.  Its secret keys are the first draws of the
-        same stream, so they equal a full keyset's from the same seed."""
+        `glwe_key` injects an externally shared big secret key; such a
+        keyset is never cached.  `secret_only` skips the evaluation keys
+        (BSK/KSK): a partition that runs no PBS only ever encrypts and
+        decrypts, and a BSK at its parameters can be GBs.  Its secret keys
+        are the first draws of the same stream, so they equal a full
+        keyset's from the same seed."""
         from concrete_tpu_torch.core.refimpl import sample_binary_key
         from concrete_tpu_torch.utils.csprng import SecureGenerator
+        self._seed = seed
+        self._foreign_key = glwe_key is not None
+        if self.cache_directory is not None and glwe_key is None:
+            path = self._cache_path(seed, secret_only)
+            if os.path.exists(path):
+                self.load(path)
+                return
         rng = SecureGenerator(seed)
         if secret_only:
             p = self.params
             sk_small = sample_binary_key(rng, (p.n_small,))
             gsk = sample_binary_key(rng, (p.glwe_dimension,
-                                          p.polynomial_size))
+                                          p.polynomial_size)) \
+                if glwe_key is None else np.asarray(
+                    glwe_key, dtype=np.uint64).reshape(
+                        p.glwe_dimension, p.polynomial_size)
             self._secret = SecretKeys(lwe_small=sk_small, glwe=gsk)
             self._server = None
         else:
-            self._secret, self._server = kg.keygen(rng, self.params)
+            self._secret, self._server = kg.keygen(rng, self.params,
+                                                   glwe_key=glwe_key)
         self._packed = {}
         self._pfpksk = {}
         self._packed_pfpksk = {}
+        if self.cache_directory is not None and glwe_key is None:
+            os.makedirs(self.cache_directory, exist_ok=True)
+            self.save(self._cache_path(seed, secret_only))
+
+    def _cache_path(self, seed, secret_only: bool = False) -> str:
+        """The cache file of a keyset: the JAX package's name for it."""
+        h = hashlib.sha256(
+            repr((self.params, seed, secret_only)).encode()).hexdigest()[:24]
+        return os.path.join(self.cache_directory, f"keys_{h}.npz")
 
     @property
     def secret(self) -> SecretKeys:
@@ -143,6 +179,12 @@ class Keys:
         if key not in self._pfpksk:
             self._pfpksk[key] = wop.pfpksk_gen(
                 SecureGenerator(), self._secret, wop_params).pfpksk
+            if self.cache_directory is not None and not self._foreign_key:
+                # refresh the cached keyset so that the PFPKSK is not
+                # generated again (never one from an injected key)
+                path = self._cache_path(self._seed)
+                if os.path.exists(path):
+                    self.save(path)
         return self._pfpksk[key]
 
     def wop_evaluation(self, wop_params, device=None):
@@ -216,13 +258,11 @@ class MultiKeys:
                  cache_directory: Optional[str] = None, pbs_widths=None):
         """partitions: id -> CryptoParams; conversions: (src, dst) ->
         (level, base_log); pbs_widths: the partitions that run a PBS (None
-        = all), the others get secret-only keysets."""
-        if cache_directory is not None:
-            raise NotImplementedError(
-                "the insecure key cache is not ported yet (ROADMAP queue 1 "
-                "item 6, the key cache)")
+        = all), the others get secret-only keysets; cache_directory: the
+        insecure key cache, one file for every partition and conversion."""
         self.partitions = dict(partitions)
         self.conversions = dict(conversions)
+        self.cache_directory = cache_directory
         self.pbs_widths = frozenset(pbs_widths) \
             if pbs_widths is not None else None
         self._keys: dict[int, Keys] = {
@@ -242,8 +282,15 @@ class MultiKeys:
         """Each partition's keyset from its own seed (seed + 7919 w, so
         that partitions of equal parameters never share secrets), then the
         conversion keys in order from one stream seeded seed + 13: src's
-        big key to dst's big key at dst's GLWE noise."""
+        big key to dst's big key at dst's GLWE noise.  With a cache
+        directory, loaded from its file where one exists, else saved
+        there."""
         from concrete_tpu_torch.utils.csprng import SecureGenerator
+        if self.cache_directory is not None:
+            path = self._cache_path(seed)
+            if os.path.exists(path):
+                self.load(path)
+                return
         for w, keys in self._keys.items():
             keys.generate(None if seed is None else seed + 7919 * w,
                           secret_only=not self._needs_eval(w))
@@ -255,6 +302,18 @@ class MultiKeys:
                 rng, self._keys[s].secret.lwe_big,
                 self._keys[d].secret.lwe_big, base, lvl,
                 self.partitions[d].glwe_std)
+        if self.cache_directory is not None:
+            os.makedirs(self.cache_directory, exist_ok=True)
+            self.save(self._cache_path(seed))
+
+    def _cache_path(self, seed) -> str:
+        """The cache file of the keysets: the JAX package's name for it."""
+        h = hashlib.sha256(repr((sorted(self.pbs_widths)
+                                  if self.pbs_widths is not None else None,
+                                  sorted(self.partitions.items()),
+                                  sorted(self.conversions.items()),
+                                  seed)).encode()).hexdigest()[:24]
+        return os.path.join(self.cache_directory, f"multikeys_{h}.npz")
 
     # -- accessors ---------------------------------------------------------
 

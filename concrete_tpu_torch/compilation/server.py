@@ -20,6 +20,7 @@ import torch
 
 from concrete_tpu_torch.compilation.executor import GraphExecutor, to_torus
 from concrete_tpu_torch.compilation.specs import ClientSpecs
+from concrete_tpu_torch.core.compression import SeededLweCiphertext, decompress
 from concrete_tpu_torch.representation import Graph
 from concrete_tpu_torch.utils.device import resolve_device
 
@@ -57,7 +58,9 @@ class Server:
     def run(self, *args, evaluation_keys) -> tuple:
         """Run the circuit; returns the output ciphertexts as u64 arrays
         (a clear output as a trivial ciphertext).  Clear arguments are
-        numpy arrays, Python integers or CPU tensors.
+        numpy arrays, Python integers or CPU tensors; an encrypted one a
+        u64 array or a ``SeededLweCiphertext``, decompressed here on the
+        host before the upload.
 
         evaluation_keys: the client's ``EvaluationKeys`` (packed here with
         this circuit's BSK form and truncation; a WoP circuit packs the
@@ -105,6 +108,9 @@ class Server:
         if len(args) != len(self.client_specs.inputs):
             raise ValueError(f"expected {len(self.client_specs.inputs)} "
                              f"argument(s), got {len(args)}")
+        # a seeded (compressed) argument grows its masks back on the host
+        args = [decompress(a) if isinstance(a, SeededLweCiphertext) else a
+                for a in args]
         enc_inputs = {
             pos: to_torus(arg, self.device) if spec.is_encrypted
             else (arg.numpy() if isinstance(arg, torch.Tensor)

@@ -1,8 +1,7 @@
 """Key generation for real-size parameters — host-only numpy.
 
-A copy of ``concrete_tpu/core/keygen.py`` without ``keygen_seeded`` (seeded
-key compression is not ported yet): the same seed gives the same keys in
-both packages.
+A copy of ``concrete_tpu/core/keygen.py``: the same seed gives the same
+keys in both packages, the seeded keyset of ``keygen_seeded`` included.
 
 Functionally identical to refimpl.keygen (which stays the oracle for tiny
 parameters) but vectorized: the GLWE body polynomials  sum_r A_r (*) S_r  are
@@ -126,6 +125,63 @@ def keygen(rng: np.random.Generator, params: CryptoParams,
     ksk = make_ksk(rng, sk.lwe_big, sk_small, params.ks_base_log,
                    params.ks_level, params.lwe_std)
     return sk, ServerKeys(bsk=bsk, ksk=ksk)
+
+
+def keygen_seeded(rng_noise, params: CryptoParams, seed: bytes = None):
+    """Seeded keygen: evaluation-key masks come from a ChaCha20 stream so the
+    server keyset ships as seed + bodies (reference seeded keygen,
+    concrete-cpu c_api `concrete_cpu_init_seeded_*`).
+
+    Returns (SecretKeys, SeededServerKeys); rng_noise supplies secret keys
+    and gaussian noise only.
+    """
+    import os
+
+    from concrete_tpu_torch.core.compression import SeededServerKeys
+    from concrete_tpu_torch.utils.csprng import ChaCha20Stream
+
+    if seed is None:
+        seed = os.urandom(32)
+    sk_small = sample_binary_key(rng_noise, (params.n_small,))
+    gsk = sample_binary_key(rng_noise,
+                            (params.glwe_dimension, params.polynomial_size))
+    sk = SecretKeys(lwe_small=sk_small, glwe=gsk)
+
+    k, n = gsk.shape
+    l = params.pbs_level
+    n_small = params.n_small
+    stream = ChaCha20Stream(seed=seed)
+
+    # BSK bodies: same message layout as make_bsk, masks from the stream
+    msgs = np.zeros((n_small, l, k + 1, n), dtype=np.uint64)
+    for j in range(l):
+        g = np.uint64(1) << np.uint64(64 - (j + 1) * params.pbs_base_log)
+        for r in range(k):
+            msgs[:, j, r, :] = ((-(sk_small[:, None].astype(np.int64))
+                                 * gsk[r].astype(np.int64)).astype(np.uint64)
+                                * g)
+        msgs[:, j, k, 0] = sk_small * g
+    rows = n_small * l * (k + 1)
+    a = stream.random_u64((n_small, l, k + 1, k, n)).reshape(rows, k, n)
+    e = sample_torus_gaussian(rng_noise, params.glwe_std, (rows, n))
+    bodies = (_negacyclic_dot_with_key(a, gsk) + msgs.reshape(rows, n) + e)
+    bsk_bodies = bodies.reshape(n_small, l, k + 1, n)
+
+    # KSK bodies
+    n_big = params.n_big
+    ks_l = params.ks_level
+    g = (np.uint64(1) << (np.uint64(64) - np.uint64(params.ks_base_log)
+                          * np.arange(1, ks_l + 1, dtype=np.uint64)))
+    ks_msgs = sk.lwe_big[:, None] * g[None, :]
+    ks_a = stream.random_u64((n_big, ks_l, n_small))
+    ks_e = sample_torus_gaussian(rng_noise, params.lwe_std, (n_big, ks_l))
+    ksk_bodies = ((ks_a * sk_small).sum(axis=-1, dtype=np.uint64)
+                  + ks_msgs + ks_e)
+
+    return sk, SeededServerKeys(
+        seed=seed, bsk_bodies=bsk_bodies, ksk_bodies=ksk_bodies,
+        n_small=n_small, glwe_dimension=k, polynomial_size=n,
+        pbs_level=l, ks_level=ks_l)
 
 
 def encrypt_lwe_batch(rng: np.random.Generator, sk_flat: np.ndarray,

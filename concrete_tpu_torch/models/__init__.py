@@ -1,7 +1,7 @@
 """Model circuits over ``concrete_tpu_torch`` (counterparts of
 ``concrete_tpu/models``; ``PrimeMatch`` and ``HammingDistance(via="xor")``
-compile to multi-partition circuits, served like the rest; ``Sha1`` needs
-``fhe.module``, the rest of ROADMAP queue 1 item 6)."""
+compile to multi-partition circuits, served like the rest; ``Sha1`` is an
+``fhe.module`` of six composed functions)."""
 
 from concrete_tpu_torch.models.mlp import QuantizedMLP
 from concrete_tpu_torch.models.game_of_life import GameOfLife
@@ -10,7 +10,8 @@ from concrete_tpu_torch.models.kvdb import StaticKeyValueDatabase
 from concrete_tpu_torch.models.xor_distance import HammingDistance
 from concrete_tpu_torch.models.pir import PrivateInformationRetrieval
 from concrete_tpu_torch.models.prime_match import PrimeMatch
+from concrete_tpu_torch.models.sha1 import Sha1
 
 __all__ = ["QuantizedMLP", "GameOfLife", "LevenshteinDistance",
            "StaticKeyValueDatabase", "HammingDistance",
-           "PrivateInformationRetrieval", "PrimeMatch"]
+           "PrivateInformationRetrieval", "PrimeMatch", "Sha1"]

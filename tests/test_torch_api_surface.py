@@ -11,17 +11,8 @@ import pytest
 import concrete_tpu as fhe
 import concrete_tpu_torch as tfhe
 
-_COMPOSITION = "item 5, compilation/composition.py"
 NOT_PORTED = {
-    **dict.fromkeys(("AllComposable", "AllInputs", "AllOutputs",
-                     "CompositionPolicy", "Input", "NotComposable", "Output",
-                     "Wire", "Wired"), _COMPOSITION),
     "DataflowScheduler": "item 5, compilation/scheduler.py",
-    **dict.fromkeys(("DebugArtifacts", "FunctionDebugArtifacts",
-                     "ModuleDebugArtifacts"),
-                    "item 6, compilation/artifacts.py"),
-    **dict.fromkeys(("Function", "Module", "function", "module"),
-                    "item 6, compilation/module.py"),
     "tfhers": "item 9, the TFHE-rs bridge",
 }
 

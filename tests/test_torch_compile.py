@@ -412,10 +412,10 @@ def test_compiled_circuit_run_matches_reference(name, params):
     ("forced_wop_parameters", "item 7")])
 def test_unported_configuration_raises(field, item):
     value = (1, 2, 3, 4) if field == "forced_wop_parameters" else True
-    if item == "item 7":
-        # WoP-PBS is ported: the forced gadgets are taken as they are
-        assert tfhe.Configuration(**{field: value}).forced_wop_parameters \
-            == value
+    if item in ("item 6", "item 7"):
+        # WoP-PBS (item 7), the key cache and seeded compression (item 6)
+        # are ported: the fields are taken as they are
+        assert getattr(tfhe.Configuration(**{field: value}), field) == value
     else:
         with pytest.raises(NotImplementedError, match=item):
             tfhe.Configuration(**{field: value})
@@ -432,8 +432,15 @@ def test_unported_features_raise():
         tc.simulate(1, 2)
     with pytest.raises(NotImplementedError, match="item 5"):
         tc.run_async(1, 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _compile(tfhe, "quickstart", artifacts=object())
+    # debug artifacts (item 6) are ported: compile hands them its stages
+    seen = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            return lambda *args: seen.append(name)
+    _compile(tfhe, "quickstart", artifacts=Recorder())
+    assert seen == ["add_graph", "add_bounds", "add_parameters",
+                    "add_statistics", "export"]
     # a 9-bit lookup (ROADMAP item 7, WoP-PBS) now compiles, to the JAX
     # package's parameters and WoP gadgets
     def nine_bits(pkg):

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Run some phases of ``chip_smoke.py`` alone on one NVIDIA GPU.
 
-    python3 tools/smoke_phases.py [models] [multi] [kinds] [fused] [wop]
+    python3 tools/smoke_phases.py [models] [multi] [module] [kinds] [fused]
+                                  [wop]
 
 Builds the port's kernels from ``concrete_tpu_torch/csrc``, then runs the
 named phases of the smoke (``models``: the five model circuits and the
 2-key database against the CPU; ``multi``: PrimeMatch at two sizes and
-HammingDistance with via="xor", multi-partition circuits; ``kinds``: the
-node-kinds circuits;
+HammingDistance with via="xor", multi-partition circuits; ``module``:
+fhe.module's composition cases and Sha1 over encrypted words, a whole
+digest of b"abc" held to hashlib; ``kinds``: the node-kinds circuits;
 ``fused``: the CRT-NTT blind rotate at B <= 4 in one launch at the models'
 shapes, with its variant builds; ``wop``: the WoP vertical packing's
 kernel entries and PrivateInformationRetrieval at 32 rows served, 64
@@ -52,7 +54,7 @@ def wop_phase(rng):
 
 
 PHASES = {"models": cs.models_phase, "multi": cs.multi_phase,
-          "kinds": cs.kinds_phase,
+          "module": cs.module_phase, "kinds": cs.kinds_phase,
           "fused": fused_phase, "wop": wop_phase}
 DEFAULT = ("models", "kinds")
 
