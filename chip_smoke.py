@@ -88,8 +88,8 @@
    per request): ``Server.load`` on CUDA, ``Client.keygen`` from a seed,
    the key pack on the device (one launch of kernel 2's pack entry, its
    FusedBSK then held equal to the one the plain version builds, and the
-   pack timed again part by part: the KSK's host limb split and upload,
-   the BSK's upload, the pack kernel), three requests
+   pack timed again part by part: the KSK's upload and limb split on the
+   card, the BSK's upload, the pack kernel), three requests
    whose decryptions must equal the graph's clear evaluation, every
    blind-rotate step counted through the digit, external-product and
    Garner kernels;
@@ -176,7 +176,8 @@
    function's calls and ms a call, one ``round_add`` call traced with its
    argument uploads' share, the kernel calls of one ``choose`` call and of
    the first two lookup nodes of one ``round_add`` call held to their
-   plain versions;
+   plain versions; and ``hexdigest(b"abc")`` in the default
+   simulate mode (the host simulation, no keys) held to hashlib;
 11. the node-kinds phase: five small circuits holding every node kind the
    models do not (the levelled and shape kinds, runtime clear inputs and
    clear outputs, per-element, multivariate, dynamic and control lookups,
@@ -192,14 +193,34 @@
    (a 9-bit WoP row fetch at N=4096) served as the models are, with its
    PFPKSK generated, split and uploaded and its launches by kernel; PIR
    over 64 rows compiled, its PFPKSK's size printed, not served;
-13. prints one JSON line per the kernels run (each one's launches
-   include those of the models, multi, module and wop phases' requests),
-   then the result line.
+13. the bigint phase: ``bench.py``'s BASELINE config 4 (``radix_add`` of
+   16-bit integers as 4 x 4-bit limbs, B = 512 a request) and one circuit
+   of ``radix_mul`` (mod 2^16), ``radix_lt`` and ``radix_eq`` of 16-bit
+   integers as 8 x 2-bit limbs at B = 4 (multi-partition), compiled at the
+   default ``Configuration()`` and served as the models and the multi
+   circuits are, decryptions held to the clear integers;
+14. the tfhers phase: a TFHE-rs ``FheUint8`` (4 blocks of 2 + 2 bits) over
+   32 values, encrypted on the host under a shared key of TFHE-rs's big
+   dimension (4096) at its noise, serialized as tfhe-rs bincode, imported
+   (the conversion keyswitch on the card), run through
+   ``from_native(table[to_native(blocks)])`` with an 8-bit table, exported
+   as bincode (the keyswitch back), parsed and decrypted under the shared
+   key, held to the table;
+15. the scheduler phase: the composition counter chained through
+   ``run_async`` futures, and two ``Circuit.run_async`` calls at once on a
+   fresh circuit (their first calls: one key pack), each output held bit
+   for bit to sequential ``run`` calls;
+16. the cli phase: ``python -m concrete_tpu_torch compile``, ``inspect``,
+   ``keygen`` and ``run`` as subprocesses on a 4-bit lookup, on the
+   default device (the card), ``run``'s printed result held to the table;
+17. prints one JSON line per the kernels run (each one's launches
+   include those of the models, multi, module, wop, bigint, tfhers and
+   scheduler phases' requests), then the result line.
 
 Any failed phase exits non-zero before the result line.  Without CUDA, or
 next to no checkout of the port, it exits non-zero at once.
-``tools/smoke_phases.py`` runs the models, multi, module, node-kinds and
-wop phases alone.
+``tools/smoke_phases.py`` runs the models, multi, module, node-kinds,
+wop, bigint, tfhers, scheduler and cli phases alone.
 """
 
 from __future__ import annotations
@@ -296,6 +317,22 @@ MODULE_LOOP = 5                         # inc run on its own output
 SHA1_MESSAGE = b"abc"
 SHA1_P_ERROR = 1e-8                     # tests/test_models.py's digest
 SHA1_PROBES = 4                         # carry-chain calls a key form
+# bench.py's BASELINE config 4: radix_add of 16-bit integers as 4 x 4-bit
+# limbs, B = 512 a request (limb bits, limbs, batch)
+RADIX_ADD = (4, 4, 512)
+# radix_mul (mod 2^16), radix_lt and radix_eq of 16-bit integers as 8 x
+# 2-bit limbs in one circuit, B = 4; its inputset: 20 random batches
+RADIX_MUL = (2, 8, 4)
+RADIX_MUL_INPUTSET = 20
+# TFHE-rs's FheUint8 at PARAM_MESSAGE_2_CARRY_2: 32 values, their shared
+# secret key of TFHE-rs's big LWE dimension, an 8-bit table
+TFHERS_VALUES = 32
+TFHERS_KEY_DIM = 4096
+TFHERS_TABLE = [(37 * v + 11) % 256 for v in range(256)]
+SCHEDULER_CHAINS = 8                    # the counter's chains, one an input
+SCHEDULER_BATCH = 64                    # two concurrent run_async requests
+CLI_TABLE = [(5 * v + 3) % 16 for v in range(16)]
+CLI_ARG = 11
 KEYED = "crt_external_product_keyed"
 LOOKUP_KINDS = ("tlu", "univariate", "multivariate", "dynamic_tlu")
 # Operations bounds of the CRT-NTT kernels.  The NTT kernels (2, 3) are
@@ -2616,6 +2653,17 @@ def serve_sha1(rng):
     t0 = time.perf_counter()
     m = sha.compile(tfhe.Configuration(p_error=SHA1_P_ERROR))
     compile_s = time.perf_counter() - t0
+    # the default mode: the host simulation, no keys
+    want = hashlib.sha1(SHA1_MESSAGE).hexdigest()
+    t0 = time.perf_counter()
+    simulated = sha.hexdigest(SHA1_MESSAGE)
+    simulate_s = time.perf_counter() - t0
+    print(f"module sha1: hexdigest({SHA1_MESSAGE!r}) in the default "
+          f"simulate mode {simulated} in {simulate_s:.3f} s on the host "
+          f"(hashlib {want})", flush=True)
+    if simulated != want:
+        fail(f"sha1: the simulated digest {simulated} differs from "
+             f"hashlib's {want}")
     names = m.function_names
     fns = {f: getattr(m, f) for f in names}
     p = fns["round_add"].client_specs.params
@@ -2667,7 +2715,6 @@ def serve_sha1(rng):
         recorded.append(ct)
         return ct
     fns["rotate30"].encrypt = recording
-    want = hashlib.sha1(SHA1_MESSAGE).hexdigest()
     before = dict(_build.LAUNCHES)
     t0 = time.perf_counter()
     got = sha.hexdigest(SHA1_MESSAGE, mode="run")
@@ -2782,7 +2829,9 @@ def serve_sha1(rng):
     print(f"module sha1: kernel calls held to their plain versions: "
           f"{ {k: (v['calls'], v['signatures']) for k, v in held.items()} }",
           flush=True)
-    return {"params": str(p), "compile_s": compile_s, "keygen_s": keygen_s,
+    return {"params": str(p), "compile_s": compile_s,
+            "simulated_digest": simulated, "simulate_s": simulate_s,
+            "keygen_s": keygen_s,
             "pack_s": pack_s, "pack_per_norm2_s": packs,
             "pack_parts_s": pack_parts.seconds,
             "keys_per_norm2": keys_by_norm2, "digest": got, "hashlib": want,
@@ -2856,6 +2905,491 @@ def module_phase(rng):
           f"{launches}", flush=True)
     return {"composition": comp, "sha1": sha, "launches": launches,
             "phase_s": time.perf_counter() - start}
+
+
+def radix_limbs(values, limb_bits: int, n_limbs: int):
+    """Clear integers -> (len, n_limbs) radix limbs, LSB first."""
+    import numpy as np
+    from concrete_tpu_torch.extensions import bigint as bi
+    return np.array([bi.radix_decompose_clear(int(v), limb_bits, n_limbs)
+                     for v in values])
+
+
+def radix_values(limbs, limb_bits: int):
+    """Radix limbs, one array of a batch per limb (a circuit's outputs) or
+    a (batch, n_limbs) array, -> the integers."""
+    import numpy as np
+    from concrete_tpu_torch.extensions import bigint as bi
+    rows = np.stack([np.asarray(v).reshape(-1) for v in limbs], axis=-1) \
+        if isinstance(limbs, (tuple, list)) else np.asarray(limbs)
+    return np.array([bi.radix_recompose_clear(r, limb_bits) for r in rows])
+
+
+def bigint_phase(rng):
+    """Radix big integers on the card: bench.py's BASELINE config 4
+    (radix_add of 16-bit integers as 4 x 4-bit limbs, B = 512 a request),
+    served as the models are (serve_model), and one circuit of radix_mul
+    (mod 2^16), radix_lt and radix_eq of 16-bit integers as 8 x 2-bit
+    limbs at B = 4, served as its compile makes it (serve_multi for a
+    multi-partition circuit); decryptions held to the clear integers."""
+    import numpy as np
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch.extensions import bigint as bi
+    start = time.perf_counter()
+    out = {}
+    # the inputsets from a fixed seed: each compile is the same circuit
+    irng = np.random.default_rng(0)
+
+    w, nl, batch = RADIX_ADD
+    mod = 1 << (w * nl)
+
+    @tfhe.compiler({"a": "encrypted", "b": "encrypted"})
+    def radix16_add(a, b):
+        return bi.radix_add([a[..., i] for i in range(nl)],
+                            [b[..., i] for i in range(nl)], w)
+
+    # bench.py's inputset, and all limbs at their smallest and at their
+    # largest (the last limb's sum then takes a carry): requests of random
+    # integers stay within its bounds
+    top = np.full((batch, nl), (1 << w) - 1)
+    low = np.zeros((batch, nl), dtype=np.int64)
+    add_inputset = [(irng.integers(0, 1 << w, (batch, nl)),
+                     irng.integers(0, 1 << w, (batch, nl))), (top, top),
+                    (low, low)]
+
+    def add_draw():
+        return tuple(radix_limbs(rng.integers(0, mod, batch), w, nl)
+                     for _ in range(2))
+
+    def add_wrong(x, dec):
+        want = (radix_values(x[0], w) + radix_values(x[1], w)) % mod
+        return int(np.count_nonzero(radix_values(dec, w) != want)), batch
+
+    out["radix16_add"] = serve_model(
+        "radix16_add", lambda: radix16_add.compile(add_inputset),
+        add_draw, add_wrong)
+
+    w, nl, batch = RADIX_MUL
+    mod = 1 << (w * nl)
+
+    @tfhe.compiler({"a": "encrypted", "b": "encrypted"})
+    def radix16_mul_lt_eq(a, b):
+        a_l = [a[..., i] for i in range(nl)]
+        b_l = [b[..., i] for i in range(nl)]
+        return bi.radix_mul(a_l, b_l, w) + (bi.radix_lt(a_l, b_l, w),
+                                             bi.radix_eq(a_l, b_l, w))
+
+    top = np.full((batch, nl), (1 << w) - 1)
+    low = np.zeros((batch, nl), dtype=np.int64)
+    mul_inputset = [(irng.integers(0, 1 << w, (batch, nl)),
+                     irng.integers(0, 1 << w, (batch, nl)))
+                    for _ in range(RADIX_MUL_INPUTSET)] + [(top, top),
+                                                           (low, low)]
+
+    def mul_draw():
+        return tuple(radix_limbs(rng.integers(0, mod, batch), w, nl)
+                     for _ in range(2))
+
+    def mul_wrong(x, dec):
+        a, b = radix_values(x[0], w), radix_values(x[1], w)
+        got = (radix_values(dec[:nl], w), np.asarray(dec[nl]).reshape(-1),
+               np.asarray(dec[nl + 1]).reshape(-1))
+        want = (a * b % mod, (a < b).astype(np.int64),
+                (a == b).astype(np.int64))
+        return sum(int(np.count_nonzero(g != v))
+                   for g, v in zip(got, want)), 3 * batch
+
+    t0 = time.perf_counter()
+    circuit = radix16_mul_lt_eq.compile(mul_inputset)
+    compile_s = time.perf_counter() - t0
+    serve = serve_multi if circuit.client_specs.is_multi else serve_model
+    rec = serve("radix16_mul_lt_eq", lambda: circuit, mul_draw, mul_wrong)
+    rec["compile_s"] = compile_s
+    out["radix16_mul_lt_eq"] = rec
+    print(f"bigint radix16_mul_lt_eq: compile {compile_s:.3f} s "
+          f"({'multi' if circuit.client_specs.is_multi else 'mono'}, "
+          f"{circuit.programmable_bootstrap_count} lookups a request, "
+          f"{sum(1 for n in circuit.graph.topological_order() if n.name in LOOKUP_KINDS)} "
+          f"lookup nodes)", flush=True)
+    launches = {}
+    for r in out.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - start
+    print(f"bigint phase: {out['phase_s']:.1f} s; launches {launches}",
+          flush=True)
+    return out
+
+
+def tfhers_phase(rng):
+    """A TFHE-rs FheUint8 (tfhers.uint8_2_2(): 4 blocks of 2 + 2 bits)
+    round trip through the bridge on the card: TFHERS_VALUES values
+    encrypted on the host under a shared secret key of TFHE-rs's big
+    dimension at TFHE-rs's noise, serialized as tfhe-rs bincode, imported
+    (the conversion keyswitch on the card where the circuit's n_big is
+    another), from_native(table[to_native(blocks)]) through Circuit.run,
+    exported as tfhe-rs bincode (the keyswitch back), parsed and decrypted
+    under the shared key with the TFHE-rs encoding; the request's launches
+    held to its lookup nodes' forms, one request traced.  Decryptions are
+    held to the table on the packing rule's keys or, where the rule's key
+    is a truncated fused key or takes the acc32 mode (both too noisy,
+    ROADMAP queue 3), on the exact path (the untruncated key, int64
+    accumulators) over the same ciphertexts, the rule's count printed;
+    so are the wrong values at the inner stages (the imported blocks under
+    the circuit's key, the circuit's outputs through the client)."""
+    import numpy as np
+    import torch
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch import tfhers
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.core import kernels_wop as kw
+    from concrete_tpu_torch.core import keygen as kg
+    from concrete_tpu_torch.core import refimpl as ref
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.ops.fused_ntt import FusedBSK, acc32_eligible
+    from concrete_tpu_torch.tfhers import bincode
+    from concrete_tpu_torch.tfhers.serialization import radix_from_blocks
+    start = time.perf_counter()
+    t = tfhers.uint8_2_2()
+    table = tfhe.LookupTable(TFHERS_TABLE)
+
+    @tfhe.compiler({"blocks": "encrypted"})
+    def fheuint8_lookup(blocks):
+        return tfhers.from_native(table[tfhers.to_native(blocks, t)], t)
+
+    inputset = [np.array([t.encode_blocks(v % 256)
+                          for v in range(i, i + TFHERS_VALUES)])
+                for i in range(0, 256, TFHERS_VALUES)]
+    t0 = time.perf_counter()
+    circuit = fheuint8_lookup.compile(inputset)
+    compile_s = time.perf_counter() - t0
+    specs = circuit.client_specs
+    if specs.is_multi or circuit.device.type != "cuda":
+        fail("the FheUint8 circuit compiled multi-partition or off the card")
+    p = specs.params
+    t0 = time.perf_counter()
+    circuit.keygen(seed=SEED)
+    keygen_s = time.perf_counter() - t0
+    key = ref.sample_binary_key(rng, (TFHERS_KEY_DIM,))
+    bridge = tfhers.new_bridge(circuit, {0: t})
+    t0 = time.perf_counter()
+    with timed_calls({"generation_s": (kg, "make_ksk"),
+                      "card_split_s": (kw, "split_u64_limbs")}) as conv:
+        bridge.keygen_with_initial_keys({0: key})
+    conversion_s = time.perf_counter() - t0
+    cross = bridge._import_ksk is not None
+    if cross != (p.n_big != TFHERS_KEY_DIM):
+        fail(f"the bridge built conversion keys: {cross}, with the "
+             f"circuit's n_big {p.n_big} and the shared key's "
+             f"{TFHERS_KEY_DIM}")
+    t0 = time.perf_counter()
+    ev = circuit._evaluation_keys()
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    forms = lookup_forms(circuit, ev[1])
+    want_launches = per_call_launches(forms)
+
+    # the TFHE-rs side: block messages at the TFHE-rs delta under the
+    # shared key, each value serialized as a tfhe-rs FheUint8
+    values = rng.integers(0, 256, TFHERS_VALUES)
+    delta = np.uint64(1) << np.uint64(t.delta_log2)
+    blobs = []
+    for v in values:
+        blocks = np.array(t.encode_blocks(int(v)), dtype=np.uint64)
+        cts = kg.encrypt_lwe_batch(rng, key, blocks * delta,
+                                   t.params.glwe_noise_distribution_stdev)
+        blobs.append(bincode.serialize_fheuint(radix_from_blocks(cts, t),
+                                               t.bit_width))
+
+    def request(keys=None):
+        """Import, run (Circuit.run, or on `keys` through the server),
+        export: (walls, exported bytes, launches, imported, outputs)."""
+        with timed_calls({"keyswitch_s": (kn, "keyswitch")}) as ks_in:
+            t1 = time.perf_counter()
+            imported = np.stack([bridge.import_ciphertext(b, 0)
+                                 for b in blobs])
+            import_s = time.perf_counter() - t1
+        before = dict(_build.LAUNCHES)
+        t1 = time.perf_counter()
+        outs = circuit.run(imported) if keys is None else \
+            circuit.server.run(imported, evaluation_keys=keys)
+        run_s = time.perf_counter() - t1
+        counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                  if v - before.get(k, 0)}
+        if keys is None and counts != want_launches:
+            fail(f"the FheUint8 request launched {counts}, its lookup "
+                 f"nodes' forms give {want_launches}")
+        with timed_calls({"keyswitch_s": (kn, "keyswitch")}) as ks_out:
+            t1 = time.perf_counter()
+            exported = [bridge.export_ciphertext([o[i] for o in outs], 0, t,
+                                                 format="tfhers")
+                        for i in range(len(blobs))]
+            export_s = time.perf_counter() - t1
+        return {"import_s": import_s, "run_s": run_s, "export_s": export_s,
+                "import_keyswitch_s": ks_in.seconds.get("keyswitch_s", 0.0),
+                "export_keyswitch_s": ks_out.seconds.get("keyswitch_s", 0.0),
+                "imported_shape": list(imported.shape)}, exported, counts, \
+            imported, outs
+
+    def decrypt(exported):
+        got = []
+        for blob in exported:
+            radix = bincode.deserialize_fheuint(blob,
+                                                expected_width=t.bit_width)
+            span = t.msg_modulus * t.params.carry_modulus
+            msgs = [int((int(ref.lwe_decrypt(key, b)) + (1 << (t.delta_log2
+                                                              - 1)))
+                        >> t.delta_log2) % span for b in radix.blocks]
+            got.append(t.decode_blocks(msgs))
+        return np.array(got)
+
+    want = np.array(TFHERS_TABLE)[values]
+
+    def stage_wrong(imported, outs):
+        """Wrong values of the imported blocks decrypted under the
+        circuit's big key, and of the circuit's outputs through the
+        client."""
+        blocks = ref.decode(ref.lwe_decrypt(circuit.keys.secret.lwe_big,
+                                            imported), specs.input_width(0))
+        sent = np.array([t.encode_blocks(int(v)) for v in values])
+        dec = np.stack([np.asarray(d).reshape(-1)
+                        for d in circuit.decrypt(*outs)], axis=-1)
+        got = np.array([t.decode_blocks(list(r)) for r in dec])
+        return {"imported": int(np.count_nonzero((blocks != sent).any(-1))),
+                "circuit": int(np.count_nonzero(got != want))}
+
+    walls, exported, counts, imported, outs = request()
+    (traced_walls, traced_exported, traced_counts, _, _), rows, kernels, \
+        launch_calls = profile_run(request, host_ops=False)
+    launches = {k: counts.get(k, 0) + traced_counts.get(k, 0)
+                for k in {**counts, **traced_counts}}
+    wrong = [int(np.count_nonzero(decrypt(e) != want))
+             for e in (exported, traced_exported)]
+    stages = {"rule": stage_wrong(imported, outs)}
+    exact = None
+    if isinstance(ev[1], FusedBSK) and (ev[1].trunc_bits
+                                        or acc32_eligible(ev[1])):
+        exact_ev = (ev[0], exact_fused_key(circuit.keys.server.bsk, p,
+                                           circuit.device))
+        with int64_accumulators():
+            exact_walls, exact_exported, _, _, exact_outs = request(exact_ev)
+        exact = {"bsk": key_form(exact_ev[1]), "walls_s": exact_walls,
+                 "wrong": int(np.count_nonzero(decrypt(exact_exported)
+                                               != want))}
+        stages["exact"] = stage_wrong(imported, exact_outs)
+    held = sum(wrong) if exact is None else exact["wrong"]
+    allowed = max(2, 1e-3 * (len(values) if exact else 2 * len(values)))
+    print(f"tfhers FheUint8: {key_form(ev[1])}"
+          + (", acc32" if isinstance(ev[1], FusedBSK)
+             and acc32_eligible(ev[1]) else "")
+          + f"; wrong on the rule's path {wrong} of {len(values)} a request"
+          + ("" if exact is None else
+             f"; the same ciphertexts on the exact path ({exact['bsk']}, "
+             f"int64 accumulators): {exact['wrong']} of {len(values)}")
+          + f"; wrong at the inner stages {stages} (allowed {allowed})",
+          flush=True)
+    if held > allowed:
+        fail(f"FheUint8 round trip: {held} wrong of {len(values)}")
+    busy = sum(ms for *_, ms in rows)
+    traced_wall = sum(traced_walls[k] for k in ("import_s", "run_s",
+                                                "export_s"))
+    by_form = {}
+    for kind, b, form, _ in forms.values():
+        label = f"{kind} B={b}: {form}"
+        by_form[label] = by_form.get(label, 0) + 1
+    rec = {"params": str(p), "message_bits": specs.message_bits,
+           "input_widths": [specs.input_width(0)],
+           "output_widths": [specs.output_width(i)
+                             for i in range(len(specs.outputs))],
+           "bsk": key_form(ev[1]), "compile_s": compile_s,
+           "keygen_s": keygen_s, "pack_s": pack_s,
+           "conversion_keys": {
+               "s": conversion_s, "parts_s": conv.seconds,
+               "import": [bridge._import_ksk.levels,
+                          bridge._import_ksk.base_log],
+               "export": [bridge._export_ksk.levels,
+                          bridge._export_ksk.base_log]} if cross else None,
+           "lookups_per_request": circuit.programmable_bootstrap_count,
+           "forms": by_form, "request": walls, "path_wrong": wrong,
+           "wrong": held, "exact_path": exact, "stage_wrong": stages,
+           "values": len(values), "bytes_per_value": len(blobs[0]),
+           "launches": launches,
+           "traced": {"walls_s": traced_walls, "device_busy_ms": busy,
+                      "idle_share": 1 - busy / (traced_wall * 1e3),
+                      "device_kernels": kernels,
+                      "launch_calls": launch_calls,
+                      "by_kernel": [{"name": k, "count": c, "device_ms": ms}
+                                    for k, c, ms in rows[:12]]},
+           "phase_s": time.perf_counter() - start}
+    print(f"tfhers FheUint8: n_small={p.n_small} k={p.glwe_dimension} "
+          f"N={p.polynomial_size} l={p.pbs_level} base 2^{p.pbs_base_log} "
+          f"ks ({p.ks_level}, 2^{p.ks_base_log}), {specs.message_bits}-bit "
+          f"messages, input width {specs.input_width(0)}, block outputs at "
+          f"{rec['output_widths']} bits, {key_form(ev[1])}; compile "
+          f"{compile_s:.3f} s, keygen {keygen_s:.2f} s, pack {pack_s:.3f} s; "
+          f"shared key of {TFHERS_KEY_DIM}: conversion keys "
+          + (f"(levels, base_log) in {rec['conversion_keys']['import']}, "
+             f"out {rec['conversion_keys']['export']}, "
+             f"{conversion_s:.2f} s (host generation "
+             f"{conv.seconds.get('generation_s', 0):.2f} s, card split "
+             f"{conv.seconds.get('card_split_s', 0):.3f} s)"
+             if cross else "none (same dimension)")
+          + f"; {len(values)} values, {len(blobs[0])} bytes each in bincode;"
+          f" a request: import {walls['import_s'] * 1e3:.1f} ms (keyswitch "
+          f"{walls['import_keyswitch_s'] * 1e3:.2f} ms), Circuit.run "
+          f"{walls['run_s']:.4f} s, export {walls['export_s'] * 1e3:.1f} ms "
+          f"(keyswitch {walls['export_keyswitch_s'] * 1e3:.2f} ms); "
+          f"{rec['lookups_per_request']} lookups a request, nodes by form "
+          f"{by_form}; launches {launches}; wrong decryptions under the "
+          f"shared key {held} of {len(values)}"
+          + ("" if exact is None else " on the exact path")
+          + f" (allowed {allowed}); the traced request: device busy {busy:.2f} ms of "
+          f"{traced_wall * 1e3:.1f}, idle share "
+          f"{rec['traced']['idle_share']:.3f}, kernels run {kernels}, launch "
+          f"calls {launch_calls}; phase {rec['phase_s']:.1f} s", flush=True)
+    for k, c, ms in rows[:5]:
+        print(f"  {ms:9.3f} ms {c:6d}x  {k[:90]}", flush=True)
+    return rec
+
+
+def scheduler_phase(rng):
+    """The dataflow scheduler on the card: the composition counter module
+    (double, then increment) chained through run_async futures, one chain
+    an input, all submitted before any is read; then two run_async calls
+    at once on one fresh circuit, both first calls (one key pack, built
+    once); each output ciphertext equal bit for bit to sequential run
+    calls on the same ciphertexts; the walls of both."""
+    import numpy as np
+    import torch
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch.ops import _build
+    start = time.perf_counter()
+    compiler, inputsets, _, _ = composition_modules(tfhe)["counter"]
+    m = compiler.compile(inputsets)
+    m.keygen(seed=SEED)
+    xs = [int(v) for v in rng.integers(0, 8, SCHEDULER_CHAINS)]
+    cts = [m.double.encrypt(x) for x in xs]
+    m.increment.run(m.double.run(cts[0]))      # the packs, outside the walls
+    t0 = time.perf_counter()
+    sequential = [m.increment.run(m.double.run(ct)) for ct in cts]
+    sequential_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    futures = [m.increment.run_async(m.double.run_async(ct)) for ct in cts]
+    chained = [f.result(timeout=600) for f in futures]
+    chained_s = time.perf_counter() - t0
+    if any(not np.array_equal(a, b) for a, b in zip(chained, sequential)):
+        fail("scheduler: the run_async chains' outputs differ from the "
+             "sequential runs'")
+    wrong = sum(int(m.increment.decrypt(o)) != (2 * x + 1) % 8
+                for x, o in zip(xs, chained))
+    if wrong > 2:
+        fail(f"scheduler: {wrong} wrong of {len(xs)} chains")
+
+    table = tfhe.LookupTable(TABLE)
+
+    @tfhe.compiler({"x": "encrypted"})
+    def lookup(x):
+        return table[x]
+
+    circuit = lookup.compile([(np.arange(SCHEDULER_BATCH) + s) % 16
+                              for s in (0, 8)])
+    circuit.keygen(seed=SEED)
+    inputs = [rng.integers(0, 16, SCHEDULER_BATCH) for _ in range(2)]
+    encrypted = [circuit.encrypt(x) for x in inputs]
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    futures = [circuit.run_async(ct) for ct in encrypted]
+    together = [f.result(timeout=600) for f in futures]
+    together_s = time.perf_counter() - t0
+    counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+              if v - before.get(k, 0)}
+    packs = len(circuit.keys._packed)
+    if packs != 1:
+        fail(f"scheduler: two first calls at once left {packs} packs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    apart = [circuit.run(ct) for ct in encrypted]
+    apart_s = time.perf_counter() - t0
+    if any(not np.array_equal(a, b) for a, b in zip(together, apart)):
+        fail("scheduler: concurrent run_async outputs differ from "
+             "sequential runs'")
+    want = {k: 2 * v for k, v in per_call_launches(
+        lookup_forms(circuit, circuit._evaluation_keys()[1])).items()}
+    if counts != want:
+        fail(f"scheduler: the concurrent requests launched {counts}, their "
+             f"lookup nodes' forms give {want}")
+    wrong_lookups = sum(int(np.count_nonzero(
+        circuit.decrypt(o) != np.array(TABLE)[x]))
+        for x, o in zip(inputs, together))
+    if wrong_lookups > max(2, 1e-3 * 2 * SCHEDULER_BATCH):
+        fail(f"scheduler: {wrong_lookups} wrong lookups")
+    rec = {"chains": len(xs), "chains_sequential_s": sequential_s,
+           "chains_run_async_s": chained_s, "chains_wrong": wrong,
+           "concurrent_batch": SCHEDULER_BATCH,
+           "concurrent_first_calls_s": together_s,
+           "sequential_s": apart_s, "packs": packs, "launches": counts,
+           "wrong_lookups": wrong_lookups,
+           "phase_s": time.perf_counter() - start}
+    print(f"scheduler: {len(xs)} counter chains (double then increment, "
+          f"B=1 lookups): sequential {sequential_s:.3f} s, through "
+          f"run_async futures {chained_s:.3f} s, outputs equal bit for bit, "
+          f"wrong {wrong}; two run_async requests of {SCHEDULER_BATCH} "
+          f"lookups at once on a fresh circuit (their first calls, "
+          f"{packs} pack): {together_s:.3f} s, then the same two "
+          f"sequentially {apart_s:.3f} s, outputs equal bit for bit, "
+          f"wrong {wrong_lookups}; launches {counts}; phase "
+          f"{rec['phase_s']:.1f} s", flush=True)
+    return rec
+
+
+def cli_phase(rng):
+    """python -m concrete_tpu_torch compile | inspect | keygen | run as
+    subprocesses on a 4-bit lookup circuit, each on the default device
+    (the card); run's printed result held to the table."""
+    import subprocess
+    import tempfile
+    start = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [v for v in [env.get("PYTHONPATH")] if v])
+    rec = {"seconds": {}}
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "circuit.py"), "w") as f:
+            f.write("import concrete_tpu_torch as fhe\n"
+                    f"table = fhe.LookupTable({CLI_TABLE})\n\n\n"
+                    "@fhe.compiler({'x': 'encrypted'})\n"
+                    "def f(x):\n"
+                    "    return table[x]\n")
+        verbs = {
+            "compile": ["compile", "circuit.py", "--function", "f",
+                        "--inputset", "0:16", "--output", "server.zip"],
+            "inspect": ["inspect", "server.zip"],
+            "keygen": ["keygen", "server.zip", "--output", "keys.bin",
+                       "--seed", str(SEED)],
+            "run": ["run", "server.zip", "--keys", "keys.bin", "--args",
+                    str(CLI_ARG)]}
+        for verb, argv in verbs.items():
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "concrete_tpu_torch", *argv], cwd=d,
+                env=env, capture_output=True, text=True, timeout=600)
+            rec["seconds"][verb] = time.perf_counter() - t0
+            if proc.returncode:
+                fail(f"cli {verb} exited {proc.returncode}:\n"
+                     f"{proc.stdout}{proc.stderr}")
+            rec[verb] = proc.stdout.strip()
+    shown = json.loads(rec["inspect"])
+    if rec["run"] != str(CLI_TABLE[CLI_ARG]):
+        fail(f"cli run printed {rec['run']!r}, want {CLI_TABLE[CLI_ARG]}")
+    rec["params"] = shown["params"]
+    rec["phase_s"] = time.perf_counter() - start
+    print(f"cli: compile -> {rec['compile']!r}; inspect params "
+          f"{shown['params']}, {shown['pbs_count']} PBS; run --args "
+          f"{CLI_ARG} printed {rec['run']} (table: {CLI_TABLE[CLI_ARG]}); "
+          f"seconds a verb { {k: round(v, 2) for k, v in rec['seconds'].items()} }"
+          f"; phase {rec['phase_s']:.1f} s", flush=True)
+    return rec
 
 
 def kind_circuits(tfhe, rng):
@@ -3792,7 +4326,7 @@ def check_ntt_pack(rng, *, n_small, rows, n, primes, trunc_bits, clock=None,
 
 def pack_parts(ev, params, bsk):
     """The MLP key pack again, part by part on the host clock, each part
-    synchronised: pack_ksk (the KSK's host limb split and upload), the
+    synchronised: pack_ksk (the KSK's upload and limb split on the card), the
     BSK's upload, kernel 2's pack entry; and its FusedBSK held equal, in
     both arrays, to the one built by the plain version (the plain
     transform, host-side companions by integer division)."""
@@ -4312,11 +4846,19 @@ def main() -> None:
     keyed = wop_keyed_checks(rng, clock, mix)
     wop = wop_phase(rng)
     mark("wop")
-    # the models, multi, module and wop phases' own launches of the kernels
-    # that their lookups ran
+    bigint = bigint_phase(rng)
+    mark("bigint")
+    bridge = tfhers_phase(rng)
+    mark("tfhers")
+    scheduler = scheduler_phase(rng)
+    mark("scheduler")
+    cli = cli_phase(rng)
+    mark("cli")
+    # the models, multi, module, wop, bigint, tfhers and scheduler phases'
+    # own launches of the kernels that their lookups ran
     model_launches = {}
     for rec in list(models.values()) + list(multi.values()) \
-            + [module, wop["pir_32"]]:
+            + [module, wop["pir_32"], bigint, bridge, scheduler]:
         for k, v in rec["launches"].items():
             model_launches[k] = model_launches.get(k, 0) + v
 
@@ -4432,7 +4974,8 @@ def main() -> None:
                    "serve_mlp": mlp, "direct_lookups": direct,
                    "compiled": compiled, "models": models,
                    "multi": multi, "module": module, "kinds": kinds,
-                   "wop": wop, "wop_kernels": keyed,
+                   "wop": wop, "wop_kernels": keyed, "bigint": bigint,
+                   "tfhers": bridge, "scheduler": scheduler, "cli": cli,
                    "detail": {"rotate_decompose": rec_a,
                               "external_product_accumulate": rec_b,
                               "banded_matmul": rec_bm,

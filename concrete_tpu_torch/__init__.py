@@ -15,7 +15,11 @@ package's spelling:
 Modules (``@fhe.module()`` with ``@fhe.function`` methods) compile
 functions that share one keyset, so that one function's output ciphertext
 feeds another's input without decryption, under a composition policy
-(``AllComposable``, ``NotComposable``, ``Wired``).
+(``AllComposable``, ``NotComposable``, ``Wired``).  ``simulate`` runs a
+circuit's noise-accurate plaintext simulation on the host; ``run_async``
+and ``DataflowScheduler`` run calls as a dataflow graph on a thread pool;
+``tfhers`` imports and exports TFHE-rs radix ciphertexts; ``python -m
+concrete_tpu_torch`` is the command line (compile, inspect, keygen, run).
 
 Compiling (trace, transforms, the multi-partition planner and the ``v0``
 parameter search) is host code and chooses the JAX package's graph,
@@ -57,6 +61,7 @@ from concrete_tpu_torch.compilation.artifacts import (
 from concrete_tpu_torch.compilation.composition import (
     AllComposable, AllInputs, AllOutputs, CompositionPolicy, Input,
     NotComposable, Output, Wire, Wired)
+from concrete_tpu_torch.compilation.scheduler import DataflowScheduler
 from concrete_tpu_torch.compilation.configuration import (
     ApproximateRoundingConfig, BitwiseStrategy, ComparisonStrategy,
     Exactness, KeysetRestriction, MinMaxStrategy, MultiParameterStrategy,
@@ -79,6 +84,7 @@ from concrete_tpu_torch.params import CryptoParams
 from concrete_tpu_torch.representation import Graph, Node, Operation
 from concrete_tpu_torch.tracing import Tracer
 from concrete_tpu_torch.tracing import typing as _typing
+from concrete_tpu_torch import tfhers
 
 for _w in range(1, 65):
     setattr(_sys.modules[__name__], f"uint{_w}", getattr(_typing, f"uint{_w}"))
@@ -114,7 +120,7 @@ class GraphProcessor:
 __all__ = [
     "__version__",
     "Circuit", "Client", "Compiler", "Configuration", "EvaluationKeys",
-    "Keys", "Server", "circuit", "compiler",
+    "Keys", "Server", "circuit", "compiler", "DataflowScheduler",
     "Function", "Module", "function", "module",
     "CompositionPolicy", "AllComposable", "NotComposable", "Wired", "Wire",
     "Input", "Output", "AllInputs", "AllOutputs",
@@ -124,7 +130,7 @@ __all__ = [
     "MultiParameterStrategy", "MultivariateStrategy",
     "ParameterSelectionStrategy", "RangeRestriction", "SecurityLevel",
     "CryptoParams", "Float", "Integer", "Graph", "Node", "Operation",
-    "Tracer", "tensor", "f32", "f64",
+    "Tracer", "tensor", "tfhers", "f32", "f64",
     "AutoRounder", "AutoTruncator", "LookupTable", "hint", "multivariate",
     "round_bit_pattern", "tag", "truncate_bit_pattern", "univariate",
     "constant", "identity", "trace", "array", "inputset", "refresh", "zero",

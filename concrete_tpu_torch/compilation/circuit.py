@@ -14,9 +14,12 @@ keygen).  A multi-partition circuit gets a ``MultiKeys``: full keysets for
 the partitions that run a PBS, secret-only ones for the others, and the
 conversion keys of its frontiers.  The configuration's insecure key
 cache holds the keyset (``Keys``/``MultiKeys``), and
-``compress_input_ciphertexts`` makes ``encrypt`` seeded.  Simulation and
-``run_async`` are not ported yet and raise ``NotImplementedError`` naming
-their ROADMAP queue 1 item.
+``compress_input_ciphertexts`` makes ``encrypt`` seeded.
+
+``simulate`` runs the noise-accurate plaintext simulation on the host
+(``simulation/``, no keys); ``run_async`` hands the call to the dataflow
+scheduler (``compilation/scheduler.py``) and returns a Future, as ``run``
+does under ``Configuration.auto_schedule_run``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,6 @@ from __future__ import annotations
 from typing import Optional
 
 from concrete_tpu_torch.compilation.client import Client
-from concrete_tpu_torch.compilation.executor import not_ported
 from concrete_tpu_torch.compilation.keys import Keys, MultiKeys
 from concrete_tpu_torch.compilation.server import Server
 from concrete_tpu_torch.compilation.specs import ClientSpecs
@@ -137,6 +139,14 @@ class Circuit:
         return ksk, bsk, pfpksk or None, fks
 
     def run(self, *args):
+        if (self.configuration is not None
+                and self.configuration.auto_schedule_run):
+            # reference ExecutionRt auto_schedule_run: hand the call to the
+            # background pool and return a Future
+            return self.run_async(*args)
+        return self._run_sync(*args)
+
+    def _run_sync(self, *args):
         if self.client_specs.wop_params() is not None:
             # fail fast, before the PFPKSK is generated or packed
             self.server.check_wop_memory()
@@ -149,21 +159,47 @@ class Circuit:
         return self.client.decrypt(*results)
 
     def encrypt_run_decrypt(self, *args):
-        """The one-call convenience oracle (reference circuit.py)."""
+        """The one-call convenience oracle (reference circuit.py).
+
+        Under Configuration.simulate_encrypt_run_decrypt, or a
+        simulation-only configuration (fhe_simulation without
+        fhe_execution), the call runs the noise-accurate simulator instead
+        (reference configuration semantics)."""
+        cfg = self.configuration
+        if cfg is not None and (cfg.simulate_encrypt_run_decrypt
+                                or (cfg.fhe_simulation
+                                    and not cfg.fhe_execution)):
+            return self.simulate(*args)
         enc = self.encrypt(*args)
         if len(self.client_specs.inputs) == 1:
             enc = (enc,)
-        res = self.run(*enc)
+        res = self._run_sync(*enc)
         if len(self.client_specs.outputs) == 1:
             return self.decrypt(res)
         return self.decrypt(*res)
 
     def simulate(self, *args):
-        raise not_ported("simulation", "ROADMAP queue 1 item 5, simulation/")
+        """Noise-accurate plaintext simulation on the host (no keys, no
+        device)."""
+        from concrete_tpu_torch.simulation import simulate_graph
+        detect = bool(self.configuration is not None and
+                      self.configuration.detect_overflow_in_simulation)
+        return simulate_graph(self.graph, self.client_specs, *args,
+                              detect_overflow=detect)
 
     def run_async(self, *args):
-        raise not_ported("run_async",
-                         "ROADMAP queue 1 item 5, the dataflow scheduler")
+        """Run on the dataflow scheduler; returns a Future.  Arguments may
+        themselves be Futures of earlier run_async calls — composition
+        chains execute as a dependency graph without blocking the caller
+        (the RT-dialect / DFR analog, compilation/scheduler.py).  The
+        call's exception, if any, comes out of the Future's ``result()``.
+
+        Reference: ExecutionRt's auto_schedule_run thread pool
+        (compilation/module.py:32-66) + the RT dataflow runtime.
+        """
+        from concrete_tpu_torch.compilation.scheduler import \
+            default_scheduler
+        return default_scheduler().submit(self._run_sync, *args)
 
     # -- statistics (reference circuit.py:236-533) -------------------------
 

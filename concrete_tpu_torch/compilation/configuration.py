@@ -4,17 +4,15 @@ Counterpart of ``concrete_tpu/compilation/configuration.py``: every field,
 default, enum and the ``fork`` semantics of the JAX package (which mirrors
 the upstream Configuration, frontends/concrete-python/concrete/fhe/
 compilation/configuration.py:954), so that one configuration chooses the
-same parameters in both packages.  Four classes of fields:
+same parameters in both packages.  Three classes of fields:
 
 - **effective**: change compilation here (p_error, strategies,
-  single_precision, processors, restrictions, show_*...).
+  single_precision, processors, restrictions, simulate_encrypt_run_decrypt,
+  auto_schedule_run, show_*...).
 - **accepted and ignored**, as in the JAX package: the upstream toggles of
   hand-written parallelism (loop_parallelize, dataflow_parallelize,
   auto_parallelize) and the fields the JAX package accepts and never reads
   (device_batch_size, mesh_shape and others, documented per field).
-- **not ported yet**: setting one raises ``NotImplementedError`` naming its
-  ROADMAP queue 1 item (``_NOT_PORTED``): simulation and the dataflow
-  scheduler.
 - **unsupported**: use_gpu raises, as in the JAX package; the port's
   device comes from the ``device`` argument of ``compile`` / ``Circuit``.
 
@@ -117,16 +115,6 @@ class KeysetRestriction:
     params: object = None                     # a CryptoParams
 
 
-#: fields whose feature the port lacks -> the ROADMAP queue 1 item that
-#: ports it; setting one (to anything but False / None) raises
-_NOT_PORTED = {
-    "fhe_simulation": "item 5, simulation/",
-    "simulate_encrypt_run_decrypt": "item 5, simulation/",
-    "detect_overflow_in_simulation": "item 5, simulation/",
-    "auto_schedule_run": "item 5, the dataflow scheduler",
-}
-
-
 @dataclasses.dataclass
 class Configuration:
     # -- diagnostics / artifacts ------------------------------------------
@@ -176,7 +164,7 @@ class Configuration:
     dataflow_parallelize: bool = False
     auto_parallelize: bool = False
     use_gpu: bool = False            # unsupported: raises if True
-    auto_schedule_run: bool = False  # run() returns a Future: not ported
+    auto_schedule_run: bool = False  # run() returns a Future (thread pool)
 
     # -- strategy preferences (reference context.py catalog) --------------
     comparison_strategy_preference: list = dataclasses.field(
@@ -253,11 +241,6 @@ class Configuration:
             raise ValueError(
                 "use_gpu is not supported: the port runs on the card unless "
                 "asked for the CPU; pass device= to compile or Circuit")
-        for name, item in _NOT_PORTED.items():
-            if getattr(self, name) not in (False, None):
-                raise NotImplementedError(
-                    f"Configuration.{name} is not ported yet "
-                    f"(ROADMAP queue 1 {item})")
         if self.keyset_restriction is not None \
                 and self.keyset_restriction.params is not None \
                 and self.forced_parameters is None:

@@ -55,10 +55,6 @@ _KINDS = (
     "assign", "reshape", "encrypted_constant")
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({item})")
-
-
 @dataclasses.dataclass
 class TluSpec:
     """A materialized table lookup: expanded LUT polynomial + signedness."""

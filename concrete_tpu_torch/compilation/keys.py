@@ -12,6 +12,10 @@ of PLAINTEXT SECRET KEYS per keyset, named by the sha256 of the same
 ``repr`` of (parameters, seed[, secret_only]), so a file that either
 package writes loads in the other.  A keyset from an injected GLWE key is
 never cached.
+
+The device packs are built at first use and cached; one lock per keyset
+guards each cache, so that concurrent first calls (``Circuit.run_async``
+on the scheduler's threads) build one pack and share it.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import hashlib
 import io
 import json
 import os
+import threading
 from typing import Optional
 
 import numpy as np
@@ -70,6 +75,8 @@ class Keys:
         self._pfpksk: dict[tuple, np.ndarray] = {}
         self._packed: dict = {}
         self._packed_pfpksk: dict = {}
+        # held while a pack is built: concurrent first calls build it once
+        self._pack_lock = threading.RLock()
 
     @classmethod
     def from_arrays(cls, params: CryptoParams, lwe_small, glwe, bsk,
@@ -162,11 +169,12 @@ class Keys:
         CUDA)."""
         device = resolve_device(device)
         key = (message_bits, float(norm2), str(device))
-        if key not in self._packed:
-            self._packed[key] = pack_evaluation(
-                self.params, self.server.bsk, self.server.ksk, message_bits,
-                norm2, device)
-        return self._packed[key]
+        with self._pack_lock:
+            if key not in self._packed:
+                self._packed[key] = pack_evaluation(
+                    self.params, self.server.bsk, self.server.ksk,
+                    message_bits, norm2, device)
+            return self._packed[key]
 
     def wop_keys(self, wop_params) -> np.ndarray:
         """The u64 PFPKSK of `wop_params`' pfks gadget, generated at first
@@ -176,16 +184,18 @@ class Keys:
         from concrete_tpu_torch.utils.csprng import SecureGenerator
         self._require()
         key = (wop_params.pfks_level, wop_params.pfks_base_log)
-        if key not in self._pfpksk:
-            self._pfpksk[key] = wop.pfpksk_gen(
-                SecureGenerator(), self._secret, wop_params).pfpksk
-            if self.cache_directory is not None and not self._foreign_key:
-                # refresh the cached keyset so that the PFPKSK is not
-                # generated again (never one from an injected key)
-                path = self._cache_path(self._seed)
-                if os.path.exists(path):
-                    self.save(path)
-        return self._pfpksk[key]
+        with self._pack_lock:
+            if key not in self._pfpksk:
+                self._pfpksk[key] = wop.pfpksk_gen(
+                    SecureGenerator(), self._secret, wop_params).pfpksk
+                if self.cache_directory is not None \
+                        and not self._foreign_key:
+                    # refresh the cached keyset so that the PFPKSK is not
+                    # generated again (never one from an injected key)
+                    path = self._cache_path(self._seed)
+                    if os.path.exists(path):
+                        self.save(path)
+            return self._pfpksk[key]
 
     def wop_evaluation(self, wop_params, device=None):
         """The PFPKSK packed as int8 limb planes on `device` (default
@@ -193,10 +203,11 @@ class Keys:
         from concrete_tpu_torch.core import kernels_wop as kw
         device = resolve_device(device)
         key = (wop_params.pfks_level, wop_params.pfks_base_log, str(device))
-        if key not in self._packed_pfpksk:
-            self._packed_pfpksk[key] = kw.pack_pfpksk(
-                self.wop_keys(wop_params), wop_params, device=device)
-        return self._packed_pfpksk[key]
+        with self._pack_lock:
+            if key not in self._packed_pfpksk:
+                self._packed_pfpksk[key] = kw.pack_pfpksk(
+                    self.wop_keys(wop_params), wop_params, device=device)
+            return self._packed_pfpksk[key]
 
     def _require(self):
         if self._secret is None:
@@ -269,6 +280,7 @@ class MultiKeys:
             w: Keys(p) for w, p in self.partitions.items()}
         self._fks: dict[tuple, np.ndarray] = {}
         self._packed_fks: dict = {}
+        self._pack_lock = threading.Lock()
 
     def _needs_eval(self, w: int) -> bool:
         return self.pbs_widths is None or w in self.pbs_widths
@@ -342,14 +354,15 @@ class MultiKeys:
         from concrete_tpu_torch.core.kernels_wop import split_u64_limbs
         device = resolve_device(device)
         key = (src, dst, str(device))
-        if key not in self._packed_fks:
-            lvl, base = self.conversions[(src, dst)]
-            u64 = torch.from_numpy(np.ascontiguousarray(
-                self._fks[(src, dst)], dtype=np.uint64).view(np.int64))
-            self._packed_fks[key] = kn.LimbKSK(
-                planes=split_u64_limbs(u64.to(device)), base_log=base,
-                levels=lvl)
-        return self._packed_fks[key]
+        with self._pack_lock:
+            if key not in self._packed_fks:
+                lvl, base = self.conversions[(src, dst)]
+                u64 = torch.from_numpy(np.ascontiguousarray(
+                    self._fks[(src, dst)], dtype=np.uint64).view(np.int64))
+                self._packed_fks[key] = kn.LimbKSK(
+                    planes=split_u64_limbs(u64.to(device)), base_log=base,
+                    levels=lvl)
+            return self._packed_fks[key]
 
     def wop_evaluation_for(self, width: int, wop_params, device=None):
         return self._keys[width].wop_evaluation(wop_params, device=device)

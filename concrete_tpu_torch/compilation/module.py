@@ -14,8 +14,9 @@ the same messages, so one module compiles to the JAX package's graphs and
 share one ``Keys``, and so one packed keyset per (message bits, norm2):
 ``Keys.evaluation_for`` packs and caches, no function packs on its own.
 ``FheFunction.run`` returns ``Server.run``'s host u64 arrays; a composed
-call uploads them again.  Simulation and ``run_async`` are not ported yet
-(ROADMAP queue 1 item 5).
+call uploads them again.  ``simulate`` runs the host simulation
+(``simulation/``); ``run_async`` runs on the dataflow scheduler and takes
+Futures of other functions' calls as arguments.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from typing import Callable, Optional
 
 from concrete_tpu_torch.compilation.client import Client
 from concrete_tpu_torch.compilation.configuration import Configuration
-from concrete_tpu_torch.compilation.executor import not_ported
 from concrete_tpu_torch.compilation.keys import Keys
 from concrete_tpu_torch.compilation.server import Server
 from concrete_tpu_torch.compilation.specs import ClientSpecs
@@ -128,11 +128,18 @@ class FheFunction:
         return self.decrypt(*res)
 
     def simulate(self, *args):
-        raise not_ported("simulation", "ROADMAP queue 1 item 5, simulation/")
+        """Noise-accurate plaintext simulation of this function, on the
+        host."""
+        from concrete_tpu_torch.simulation import simulate_graph
+        return simulate_graph(self.graph, self.client_specs, *args)
 
     def run_async(self, *args):
-        raise not_ported("run_async",
-                         "ROADMAP queue 1 item 5, the dataflow scheduler")
+        """Run on the dataflow scheduler; args may be Futures of other
+        functions' run_async results (module composition as a task graph
+        — the RT/DFR analog)."""
+        from concrete_tpu_torch.compilation.scheduler import \
+            default_scheduler
+        return default_scheduler().submit(self.run, *args)
 
     @property
     def _statistic_records(self):

@@ -182,17 +182,20 @@ def pack_bsk(bsk_u64: np.ndarray, params: CryptoParams,
     2N-1) with Cin = lev * (k+1) + r and the last axis the negacyclic
     extension [-(w[1:]), w] (u64 negation first, then the limb split).
     `truncate_limbs` drops that many low limb planes (S = 8 - t).  The
-    planes go to `device`, CUDA by default (``resolve_device``)."""
+    key is uploaded as u64 to `device`, CUDA by default
+    (``resolve_device``), and extended and split there
+    (``limbs.split_u64_limbs``, bit for bit the host's
+    ``u64_to_balanced_i8``)."""
     device = resolve_device(device)
-    bsk_u64 = np.asarray(bsk_u64)
-    n, l, kp1, _, big_n = bsk_u64.shape
-    ext = np.concatenate(
-        [(np.uint64(0) - bsk_u64[..., 1:]), bsk_u64], axis=-1)
-    limbs = np.moveaxis(lb.u64_to_balanced_i8(ext), -1, -2)
+    x = torch.from_numpy(np.ascontiguousarray(
+        bsk_u64, dtype=np.uint64).view(np.int64)).to(device)
+    n, l, kp1, _, big_n = x.shape
+    # int64 negation wraps as u64 negation does
+    ext = torch.cat([-x[..., 1:], x], dim=-1)
+    limbs = lb.split_u64_limbs(ext).movedim(-1, -2)
     limbs = limbs.reshape(n, l * kp1, kp1, 8, 2 * big_n - 1)
-    limbs = np.ascontiguousarray(limbs[:, :, :, truncate_limbs:, :])
     # with the tail the latency kernel's bulk copies may read
-    return LimbBSK(planes=lat.with_tail(torch.from_numpy(limbs), device),
+    return LimbBSK(planes=lat.with_tail(limbs[:, :, :, truncate_limbs:, :]),
                    base_log=params.pbs_base_log, levels=params.pbs_level,
                    truncate_limbs=truncate_limbs)
 
@@ -200,10 +203,13 @@ def pack_bsk(bsk_u64: np.ndarray, params: CryptoParams,
 def pack_ksk(ksk_u64: np.ndarray, params: CryptoParams,
              device=None) -> LimbKSK:
     """u64 KSK (n_in, l, n_out+1) -> int8 limb planes (n_in, l, n_out+1, 8)
-    on `device`, CUDA by default (``resolve_device``)."""
+    on `device`, CUDA by default (``resolve_device``): uploaded as u64 and
+    split there (``limbs.split_u64_limbs``, bit for bit the host's
+    ``u64_to_balanced_i8``)."""
     device = resolve_device(device)
-    limbs = lb.u64_to_balanced_i8(np.asarray(ksk_u64))
-    return LimbKSK(planes=torch.from_numpy(limbs).to(device),
+    u64 = torch.from_numpy(np.ascontiguousarray(
+        ksk_u64, dtype=np.uint64).view(np.int64))
+    return LimbKSK(planes=lb.split_u64_limbs(u64.to(device)),
                    base_log=params.ks_base_log, levels=params.ks_level)
 
 

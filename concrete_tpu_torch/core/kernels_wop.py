@@ -91,18 +91,9 @@ class LimbPFPKSK:
         return self.planes.device
 
 
-def split_u64_limbs(x: torch.Tensor, num_limbs: int = lb.N_LIMBS_U64):
-    """``core.limbs.u64_to_balanced_i8`` as int64 torch ops on x's device:
-    u64 values (as int64) -> balanced base-256 int8 limbs on a new
-    trailing axis, bit for bit the host split."""
-    v = x
-    limbs = []
-    for _ in range(num_limbs):
-        d = v & 0xFF
-        carry = (d >= 128).to(torch.int64)
-        limbs.append((d - (carry << 8)).to(torch.int8))
-        v = lb.srl(v, 8) + carry
-    return torch.stack(limbs, dim=-1)
+#: the device split of u64 key material (``core.limbs``), by this name for
+#: the PFPKSK, the conversion keys and the TFHE-rs bridge's keys
+split_u64_limbs = lb.split_u64_limbs
 
 
 def pack_pfpksk(pfpksk, wp: WopParams, device=None) -> LimbPFPKSK:

@@ -12,7 +12,8 @@ so products fit an int8 x int8 -> int32 datapath (``torch._int_mm``, or the
 Torus values are carried as torch ``int64``: torch has no uint64 arithmetic,
 and int64 addition, subtraction and multiplication wrap mod 2^64 exactly as
 u64 does.  Only right shifts differ, so they go through ``srl`` (logical).
-Key material is split on the host with numpy (``u64_to_balanced_i8``).
+Key material is split on the host with numpy (``u64_to_balanced_i8``) or,
+uploaded as u64, on its device (``split_u64_limbs``, bit for bit the same).
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ def srl(x: torch.Tensor, s: int) -> torch.Tensor:
 
 def u64_to_balanced_i8(x: np.ndarray, num_limbs: int = N_LIMBS_U64):
     """Split numpy u64 values into `num_limbs` balanced base-256 limbs
-    (int8), stacked on a new trailing axis (host-side key packing)."""
+    (int8), stacked on a new trailing axis: the host split, which the
+    device's (``split_u64_limbs``) is held to."""
     v = np.asarray(x).astype(np.uint64)
     limbs = []
     for _ in range(num_limbs):
@@ -42,6 +44,20 @@ def u64_to_balanced_i8(x: np.ndarray, num_limbs: int = N_LIMBS_U64):
         v = (v >> np.uint64(8)) + carry
         limbs.append(d.astype(np.int8))
     return np.stack(limbs, axis=-1)
+
+
+def split_u64_limbs(x: torch.Tensor, num_limbs: int = N_LIMBS_U64):
+    """``u64_to_balanced_i8`` as int64 torch ops on x's device: u64 values
+    (as int64) -> balanced base-256 int8 limbs on a new trailing axis, bit
+    for bit the host split."""
+    v = x
+    limbs = []
+    for _ in range(num_limbs):
+        d = v & 0xFF
+        carry = (d >= 128).to(torch.int64)
+        limbs.append((d - (carry << 8)).to(torch.int8))
+        v = srl(v, 8) + carry
+    return torch.stack(limbs, dim=-1)
 
 
 def i32_digits_to_balanced_i8(d: torch.Tensor, num_limbs: int):

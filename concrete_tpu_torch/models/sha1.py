@@ -16,9 +16,9 @@ Lowerings differ from the reference where TPU batching helps:
 
 Counterpart of ``concrete_tpu/models/sha1.py``: the same module, so both
 packages compile it to the same graphs and parameters; ``compile`` also
-takes the port's ``device``.  ``digest`` runs in ``mode="run"`` (encrypt,
-run every function on the device, decrypt); simulation is not ported yet
-(ROADMAP queue 1 item 5).
+takes the port's ``device``.  ``digest`` runs in ``mode="simulate"`` (the
+default: the host simulation, no keys) or ``mode="run"`` (encrypt, run
+every function on the device, decrypt).
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ import struct
 import numpy as np
 
 import concrete_tpu_torch as fhe
-from concrete_tpu_torch.compilation.executor import not_ported
 
 _K = (0x5A827999, 0x6ED9EBA1, 0x8F1BBCDC, 0xCA62C1D6)
 _H0 = (0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476, 0xC3D2E1F0)
@@ -150,15 +149,17 @@ class Sha1:
         return [split32(v) for v in w]
 
     def digest(self, message: bytes, mode: str = "simulate") -> bytes:
-        """SHA1 digest; ``mode="run"`` (full encrypt/run/decrypt through
-        the keyset); ``mode="simulate"`` is not ported yet."""
+        """SHA1 digest; ``mode="simulate"`` (noise-accurate, no keys, on
+        the host) or ``"run"`` (full encrypt/run/decrypt through the
+        keyset)."""
         if self.module is None:
             raise RuntimeError("call compile() first")
         m = self.module
         if mode == "simulate":
-            raise not_ported("simulation",
-                             "ROADMAP queue 1 item 5, simulation/")
-        if mode == "run":
+            call = lambda fn, *args: np.asarray(fn.simulate(*args))  # noqa: E731
+            lift = np.asarray
+            lower = np.asarray
+        elif mode == "run":
             call = lambda fn, *args: fn.run(*args)  # noqa: E731
             lift = m.rotate30.encrypt        # encrypts (does not rotate)
             lower = m.add2.decrypt

@@ -8,7 +8,9 @@ the first call in a fresh checkout builds it and later calls load it.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
-``LAUNCHES`` counts, per kernel, the launches its wrapper made.
+``LAUNCHES`` counts, per kernel, the launches its wrapper made
+(``count``).  The build and the count each take a lock: the dataflow
+scheduler's threads may launch, and make their first call, at once.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 from concrete_tpu_torch.utils.csprng import BUILD_DIR
@@ -37,6 +40,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 BUILD_INFO: dict = {}
 
 _LIB = None
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # acc, a_rows, out, rows, n, base_log, levels, a_limbs, stream
@@ -88,6 +93,12 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
+def count(name: str) -> None:
+    """One launch of kernel `name`, made by its wrapper."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
@@ -135,10 +146,18 @@ def _build(sources: list[str], so_path: str) -> tuple[str, dict]:
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built at first use."""
-    global _LIB
+    """The kernels' shared library, built at first use (once, whatever
+    the threads that ask for it)."""
     if _LIB is not None:
         return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            _load()
+    return _LIB
+
+
+def _load() -> None:
+    global _LIB
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
@@ -160,7 +179,6 @@ def library() -> ctypes.CDLL:
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=so_path,
                       log=log, sources=sources, source_seconds=seconds)
     _LIB = lib
-    return lib
 
 
 def check(name: str, code: int) -> None:

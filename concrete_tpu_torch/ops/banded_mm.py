@@ -134,7 +134,7 @@ def _launch_latency(out: torch.Tensor, lhs: torch.Tensor, offset: int,
         digits.data_ptr() if digits is not None else None,
         vv.data_ptr() if vv is not None else None, out.data_ptr(), a_limbs,
         rows, cin, kp1, batch, s_planes, n, _build.stream_of(out)))
-    _build.LAUNCHES[LATENCY] += 1
+    _build.count(LATENCY)
     return out
 
 
@@ -176,7 +176,7 @@ def banded_matmul(lhs: torch.Tensor, vv: torch.Tensor, *,
     _build.check(NAME, _build.library().banded_matmul(
         lhs.data_ptr(), vv.data_ptr(), out.data_ptr(), a_limbs, rows, cin,
         kp1, cout, s_planes, n, _build.stream_of(lhs)))
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME)
     return out
 
 

@@ -111,5 +111,5 @@ def external_product_accumulate(planes: torch.Tensor, vv: torch.Tensor,
         planes.data_ptr(), vv.data_ptr(), acc.data_ptr(), b_ct, levels,
         a_limbs, kp1, n, s_planes, keep, limb_offset,
         _build.stream_of(acc)))
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME)
     return acc

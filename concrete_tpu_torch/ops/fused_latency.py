@@ -179,5 +179,5 @@ def blind_rotate_fused_latency(a_t: torch.Tensor, acc: torch.Tensor,
         spec_sh.data_ptr(), tw.data_ptr(), pcst.data_ptr(), gcst.data_ptr(),
         batch, n_small, kp1, levels, base_log, len(primes),
         n.bit_length() - 1, trunc_bits, int(acc32), _build.stream_of(acc)))
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME)
     return acc

@@ -218,7 +218,7 @@ def crt_external_product(digits: torch.Tensor, spec: torch.Tensor,
         digits.data_ptr(), spec.data_ptr(), spec_sh.data_ptr(),
         out.data_ptr(), tw.data_ptr(), cst.data_ptr(), rows // kp1, levels,
         kp1, n_p, n.bit_length() - 1, co_group, _build.stream_of(digits)))
-    _build.LAUNCHES[XP] += 1
+    _build.count(XP)
     return out
 
 
@@ -293,7 +293,7 @@ def crt_external_product_keyed(digits: torch.Tensor, spec: torch.Tensor,
         out.data_ptr(), tw.data_ptr(), cst.data_ptr(), key_index.data_ptr(),
         rows // kp1, levels, kp1, n_p, n.bit_length() - 1, co_group,
         _build.stream_of(digits)))
-    _build.LAUNCHES[XPK] += 1
+    _build.count(XPK)
     return out
 
 
@@ -369,7 +369,7 @@ def garner_accumulate(res: torch.Tensor, acc: torch.Tensor, primes: tuple,
     _build.check(GARNER, _build.library().garner_accumulate(
         res.data_ptr(), acc.data_ptr(), cst.data_ptr(), n_p, acc.numel(),
         trunc_bits, int(acc.dtype == torch.int32), _build.stream_of(res)))
-    _build.LAUNCHES[GARNER] += 1
+    _build.count(GARNER)
     return acc
 
 

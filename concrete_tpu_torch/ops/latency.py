@@ -211,5 +211,5 @@ def blind_rotate_latency(a_t: torch.Tensor, acc: torch.Tensor,
         planes.data_ptr() + planes.numel(), batch, n_small, kp1, levels,
         base_log, d_limbs, s_key, n, limb_offset, pl.cluster,
         _build.stream_of(acc)))
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME)
     return acc

@@ -163,7 +163,7 @@ def ntt_forward(x: torch.Tensor, primes: tuple) -> torch.Tensor:
             pair_tables(n, primes, x.device).data_ptr(),
             constants(n, primes, x.device).data_ptr(), polys, len(primes),
             n.bit_length() - 1, _build.stream_of(x)))
-        _build.LAUNCHES[FORWARD] += 1
+        _build.count(FORWARD)
     return out
 
 
@@ -197,7 +197,7 @@ def ntt_forward_pack(x: torch.Tensor, primes: tuple, rows: int,
             constants(n, primes, x.device).data_ptr(), polys, rows,
             len(primes), n.bit_length() - 1, trunc_bits,
             _build.stream_of(x)))
-        _build.LAUNCHES[PACK] += 1
+        _build.count(PACK)
     return val, sh
 
 
@@ -223,5 +223,5 @@ def ntt_inverse(spec: torch.Tensor, primes: tuple) -> torch.Tensor:
             pair_tables(n, primes, spec.device).data_ptr(),
             constants(n, primes, spec.device).data_ptr(), polys,
             len(primes), n.bit_length() - 1, _build.stream_of(spec)))
-        _build.LAUNCHES[INVERSE] += 1
+        _build.count(INVERSE)
     return out

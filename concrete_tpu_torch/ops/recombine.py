@@ -63,5 +63,5 @@ def recombine_accumulate(planes: torch.Tensor, acc: torch.Tensor, *,
     _build.check(NAME, _build.library().recombine_accumulate(
         planes.data_ptr(), acc.data_ptr(), rows, n_planes, n, limb_offset,
         _build.stream_of(acc)))
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME)
     return acc

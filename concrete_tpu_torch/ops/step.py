@@ -61,7 +61,7 @@ def rotate_decompose(acc: torch.Tensor, a_rows: torch.Tensor, *,
     _build.check(NAME, lib.rotate_decompose(
         acc.data_ptr(), a_rows.data_ptr(), out.data_ptr(), rows, n,
         base_log, levels, a_limbs, _build.stream_of(acc)))
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME)
     return out
 
 
@@ -107,5 +107,5 @@ def rotate_decompose_digits(acc: torch.Tensor, a_rows: torch.Tensor, *,
     _build.check(DIGITS, _build.library().rotate_decompose_digits(
         acc.data_ptr(), int(acc32), a_rows.data_ptr(), out.data_ptr(), rows,
         n, base_log, levels, _build.stream_of(acc)))
-    _build.LAUNCHES[DIGITS] += 1
+    _build.count(DIGITS)
     return out

@@ -363,6 +363,15 @@ def optimize_v0_multi(patterns: tuple, p_error: float = 6.3e-5,
     # weight of the (v_ks + v_ms) term per pattern (see noise_only above)
     ks_ms_w = [1.0] * len(patterns) + [4.0 ** -p
                                        for p, _, _ in noise_only]
+    # the patterns' constraints as columns, checked against every n and
+    # keyswitch gadget at once (the same float operations, in the same
+    # order, as one pattern and one gadget at a time)
+    sv_col = np.array(safe_vars, dtype=np.float64)[:, None]
+    in_col = np.array(in_sqs, dtype=np.float64)[:, None]
+    lut_col = np.array(lut_sqs, dtype=np.float64)[:, None]
+    w_col = np.array(ks_ms_w, dtype=np.float64)[:, None]
+    frontier_bounds = [safe_variance_bound(int(fp), p_error)
+                       for fp, _, _ in frontier]
     # the BSK-truncation budget in the cost model must hold for every
     # pattern: use the tightest precision
     best = None
@@ -426,23 +435,23 @@ def optimize_v0_multi(patterns: tuple, p_error: float = 6.3e-5,
             if n_big > (1 << 17):
                 continue
             var_bsk = pp.minimal_variance_glwe(k, big_n, security_level)
-            # precompute keyswitch variance per candidate (vector over ns)
-            v_ks_all = {}
-            for ks_l, ks_b in ks_candidates:
-                v_ks_all[(ks_l, ks_b)] = _variance_keyswitch_vec(
-                    n_big, ks_b, ks_l, var_lwe)
+            # keyswitch variance and cost per candidate (rows) and n
+            v_ks_all = np.stack([_variance_keyswitch_vec(
+                n_big, ks_b, ks_l, var_lwe)
+                for ks_l, ks_b in ks_candidates])
+            v_ks_ms = v_ks_all + v_ms
+            ks_costs = np.stack([cost_ks_macs(n_big, ns, ks_l, ks_b)
+                                 for ks_l, ks_b in ks_candidates])
             for br_l, br_b in br_candidates:
                 v_cmux = pp.variance_external_product(k, big_n, br_b, br_l,
                                                       var_bsk)
                 v_br_unit = ns * v_cmux
-                base_ok = np.ones_like(ns, dtype=bool)
-                for sv, i_sq, l_sq, w in zip(safe_vars, in_sqs, lut_sqs,
-                                             ks_ms_w):
-                    base_ok &= (i_sq * var_bsk + l_sq * v_br_unit
-                                + w * v_ms < sv)
-                for fp, fn2, fextra in frontier:
+                noise = in_col * var_bsk + lut_col * v_br_unit
+                base_ok = (noise + w_col * v_ms < sv_col).all(axis=0)
+                for (_, fn2, fextra), bound in zip(frontier,
+                                                   frontier_bounds):
                     base_ok &= (v_br_unit * float(fn2) ** 2 + float(fextra)
-                                < safe_variance_bound(int(fp), p_error))
+                                < bound)
                 if not base_ok.any():
                     continue
                 # dispatch-aware cost: the runtime picks the cheaper of the
@@ -477,32 +486,32 @@ def optimize_v0_multi(patterns: tuple, p_error: float = 6.3e-5,
                         (float(nb) * (ep1 * v_ggsw + ep0), float(n2o) ** 2,
                          safe_variance_bound(po, p_error))
                         for nb, po, n2o in wop_patterns]
-                for (ks_l, ks_b), v_ks in v_ks_all.items():
-                    feasible = base_ok.copy()
-                    for sv, i_sq, l_sq, w in zip(safe_vars, in_sqs,
-                                                 lut_sqs, ks_ms_w):
-                        feasible &= (i_sq * var_bsk + l_sq * v_br_unit
-                                     + w * (v_ks + v_ms) < sv)
-                    for cap in ks_ms_caps:
-                        feasible &= v_ks + v_ms < cap
-                    if wop_patterns:
-                        for v_out, n2sq_o, sv_o in wop_outs:
-                            feasible &= v_out * n2sq_o + v_ks + v_ms < sv_o
-                    if not feasible.any():
-                        continue
-                    cost = c_br + cost_ks_macs(n_big, ns, ks_l, ks_b)
-                    cost = np.where(feasible, cost, math.inf)
-                    i = int(np.argmin(cost))
-                    if cost[i] < best_cost:
-                        best_cost = float(cost[i])
-                        best = pp.CryptoParams(
-                            n_small=int(ns[i]), glwe_dimension=k,
-                            polynomial_size=big_n, pbs_level=br_l,
-                            pbs_base_log=br_b, ks_level=ks_l,
-                            ks_base_log=ks_b,
-                            lwe_std=math.sqrt(float(var_lwe[i])),
-                            glwe_std=math.sqrt(var_bsk),
-                            security_level=security_level)
+                # (candidates, n): every keyswitch gadget at once
+                feasible = base_ok & (
+                    noise[:, None, :] + w_col[:, :, None] * v_ks_ms
+                    < sv_col[:, :, None]).all(axis=0)
+                for cap in ks_ms_caps:
+                    feasible &= v_ks_ms < cap
+                if wop_patterns:
+                    for v_out, n2sq_o, sv_o in wop_outs:
+                        feasible &= v_out * n2sq_o + v_ks_all + v_ms < sv_o
+                if not feasible.any():
+                    continue
+                cost = np.where(feasible, c_br + ks_costs, math.inf)
+                # the first least cost in the candidates' order, as the
+                # candidate-by-candidate strict comparison keeps
+                c_i, i = divmod(int(np.argmin(cost)), ns.size)
+                if cost[c_i, i] < best_cost:
+                    ks_l, ks_b = ks_candidates[c_i]
+                    best_cost = float(cost[c_i, i])
+                    best = pp.CryptoParams(
+                        n_small=int(ns[i]), glwe_dimension=k,
+                        polynomial_size=big_n, pbs_level=br_l,
+                        pbs_base_log=br_b, ks_level=ks_l,
+                        ks_base_log=ks_b,
+                        lwe_std=math.sqrt(float(var_lwe[i])),
+                        glwe_std=math.sqrt(var_bsk),
+                        security_level=security_level)
     if best is None:
         raise ValueError(
             f"no feasible parameters for patterns={patterns}, "

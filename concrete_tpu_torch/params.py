@@ -27,6 +27,7 @@ so the simulator can also model reference behavior, but our own noise predicate 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -182,8 +183,12 @@ def variance_bsk_truncation_bits(in_lwe_dimension: int, glwe_dimension: int,
     return per_coeff * key_factor
 
 
+@functools.lru_cache(maxsize=None)
 def kappa_of_p_error(p_error: float) -> float:
-    """sigma scale with P(|x| > kappa*sigma) = p_error (reference error.rs)."""
+    """sigma scale with P(|x| > kappa*sigma) = p_error (reference error.rs).
+
+    Cached: the parameter search asks for the same few p_error values
+    millions of times (a 200-step bisection each)."""
     # invert erfc by bisection (p_error in (0, 1)); avoids a scipy dependency
     lo, hi = 0.0, 40.0
     for _ in range(200):

@@ -1,9 +1,9 @@
 """The port's public names against the JAX package's.
 
 The port's ``__all__`` equals the JAX package's less the names listed in
-``NOT_PORTED``, each with the ROADMAP queue 1 item that ports it; every
-other name resolves in both packages.  A name taken off the list must then
-exist in the port.
+``NOT_PORTED``, each with the ROADMAP queue 1 item that ports it (none is
+left: the list is empty); every other name resolves in both packages.  A
+name taken off the list must then exist in the port.
 """
 
 import pytest
@@ -11,10 +11,7 @@ import pytest
 import concrete_tpu as fhe
 import concrete_tpu_torch as tfhe
 
-NOT_PORTED = {
-    "DataflowScheduler": "item 5, compilation/scheduler.py",
-    "tfhers": "item 9, the TFHE-rs bridge",
-}
+NOT_PORTED: dict = {}
 
 
 def test_public_names_match_reference():

@@ -403,7 +403,7 @@ def test_compiled_circuit_run_matches_reference(name, params):
         assert tc.encrypt_run_decrypt(*args) == want
 
 
-# -- (f, g) what the port does not do yet, and its device --------------------
+# -- (f, g) the configuration fields and features of later slices, the device
 
 @pytest.mark.parametrize("field,item", [
     ("fhe_simulation", "item 5"), ("simulate_encrypt_run_decrypt", "item 5"),
@@ -411,14 +411,12 @@ def test_compiled_circuit_run_matches_reference(name, params):
     ("compress_input_ciphertexts", "item 6"),
     ("forced_wop_parameters", "item 7")])
 def test_unported_configuration_raises(field, item):
+    """Every field of the later slices is ported now (simulation and the
+    scheduler, item 5; the key cache and seeded compression, item 6;
+    WoP-PBS, item 7): each is taken as it is, as in the JAX package."""
     value = (1, 2, 3, 4) if field == "forced_wop_parameters" else True
-    if item in ("item 6", "item 7"):
-        # WoP-PBS (item 7), the key cache and seeded compression (item 6)
-        # are ported: the fields are taken as they are
-        assert getattr(tfhe.Configuration(**{field: value}), field) == value
-    else:
-        with pytest.raises(NotImplementedError, match=item):
-            tfhe.Configuration(**{field: value})
+    assert getattr(tfhe.Configuration(**{field: value}), field) == value
+    assert getattr(fhe.Configuration(**{field: value}), field) == value
     # fields the JAX package accepts and ignores stay accepted
     tfhe.Configuration(loop_parallelize=False, dataflow_parallelize=True,
                        auto_parallelize=True, mesh_shape=(2, 2))
@@ -427,11 +425,15 @@ def test_unported_configuration_raises(field, item):
 
 
 def test_unported_features_raise():
-    _, tc = _compiled("quickstart")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tc.simulate(1, 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tc.run_async(1, 2)
+    """The features of later slices work: simulation and run_async (item
+    5) on the levelled quickstart circuit, as in the JAX package; debug
+    artifacts (item 6); a 9-bit lookup (item 7)."""
+    jc, tc = _compiled("quickstart")
+    assert tc.simulate(2, 6) == jc.simulate(2, 6) == 8
+    enc = tc.encrypt(2, 6)
+    fut = tc.run_async(*enc)
+    assert np.array_equal(fut.result(timeout=120), tc.run(*enc))
+    assert tc.decrypt(fut.result()) == 8
     # debug artifacts (item 6) are ported: compile hands them its stages
     seen = []
 

@@ -251,14 +251,15 @@ def test_encrypt_run_decrypt_and_not_ported():
     """The port's own client round trip through a module function, the
     levelled one (the client's encryption is unseeded, and a lookup's
     decision at TEST_PARAMS_TINY fails now and then: the lookups are held
-    above on seeded ciphertexts); simulation and run_async name ROADMAP
-    item 5."""
-    _, tm = _compiled("not_composable")
+    above on seeded ciphertexts); simulation equal to the JAX package's,
+    and run_async, chained on its own future, equal to run."""
+    jm, tm = _compiled("not_composable")
     assert int(tm.small.encrypt_run_decrypt(1)) == 2
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tm.small.simulate(1)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tm.small.run_async(1)
+    assert int(tm.small.simulate(1)) == int(jm.small.simulate(1)) == 2
+    enc = tm.small.encrypt(1)
+    fut = tm.small.run_async(enc)
+    assert np.array_equal(fut.result(timeout=120), tm.small.run(enc))
+    assert int(tm.small.decrypt(fut.result())) == 2
 
 
 def _message(pkg, build, inputsets, params=TEST_PARAMS_TINY):

@@ -1,11 +1,11 @@
 """Multi-partition circuits in the port against the JAX package, on CPU.
 
 The cases of ``tests/test_multi.py`` that serving a multi-partition
-circuit covers (simulation is ROADMAP queue 1 item 5): ``MultiKeys`` from
-one seed equal to the JAX package's array by array, secret-only
-partitions included, and its npz blob byte for byte; a JAX blob loaded in
-the port; the conversion keys split on the device bit-equal to the host
-split; ``_mixed_circuit("multi")`` of ``tests/test_multi.py`` at the
+circuit covers (simulation is ``tests/test_torch_simulation.py``'s):
+``MultiKeys`` from one seed equal to the JAX package's array by array,
+secret-only partitions included, and its npz blob byte for byte; a JAX
+blob loaded in the port; the conversion keys split on the device
+bit-equal to the host split; ``_mixed_circuit("multi")`` of ``tests/test_multi.py`` at the
 default configuration (compiled once a module, one request through the
 JAX package) with output ciphertexts bit-equal under the same keys and
 ciphertexts; a circuit with a frontier at every lookup kind but the WoP

@@ -9,8 +9,8 @@ under one keyset from one seed, one ``add2`` call (a carry chain of 63
 lookups) and one ``choose`` call (one multivariate lookup over 32 bits)
 give the JAX package's output ciphertexts bit for bit.  The host side of a
 digest (padding, message schedule, word split) is the JAX package's; the
-port's ``digest`` runs in ``mode="run"`` only.  The port runs with
-``device="cpu"``.
+port's ``digest`` in its default simulate mode gives hashlib's digest at
+``p_error=1e-8``.  The port runs with ``device="cpu"``.
 """
 
 import dataclasses
@@ -126,9 +126,11 @@ def test_sha1_modes():
     sha = TSha1()
     with pytest.raises(RuntimeError, match="compile"):
         sha.digest(b"abc", mode="run")
-    _, sha.module = _compiled("tiny")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sha.hexdigest(b"abc")               # the default mode, simulate
+    # the default mode, simulate: the digest configuration of
+    # tests/test_models.py (77 bytes: two chunks)
+    _, sha.module = _compiled("p_error_1e-8")
+    for message in (b"abc", b"x" * 77):
+        assert sha.hexdigest(message) == hashlib.sha1(message).hexdigest()
     with pytest.raises(ValueError, match="unknown mode"):
         sha.digest(b"abc", mode="fast")
 

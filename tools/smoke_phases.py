@@ -2,19 +2,24 @@
 """Run some phases of ``chip_smoke.py`` alone on one NVIDIA GPU.
 
     python3 tools/smoke_phases.py [models] [multi] [module] [kinds] [fused]
-                                  [wop]
+                                  [wop] [bigint] [tfhers] [scheduler] [cli]
 
 Builds the port's kernels from ``concrete_tpu_torch/csrc``, then runs the
 named phases of the smoke (``models``: the five model circuits and the
 2-key database against the CPU; ``multi``: PrimeMatch at two sizes and
 HammingDistance with via="xor", multi-partition circuits; ``module``:
 fhe.module's composition cases and Sha1 over encrypted words, a whole
-digest of b"abc" held to hashlib; ``kinds``: the node-kinds circuits;
+digest of b"abc" held to hashlib, and its digest in the default simulate
+mode on the host; ``kinds``: the node-kinds circuits;
 ``fused``: the CRT-NTT blind rotate at B <= 4 in one launch at the models'
 shapes, with its variant builds; ``wop``: the WoP vertical packing's
 kernel entries and PrivateInformationRetrieval at 32 rows served, 64
-compiled; ``models`` and ``kinds`` when none is named), each as the whole
-smoke runs it, with its checks.
+compiled; ``bigint``: 16-bit radix addition at B=512 and a radix_mul,
+radix_lt and radix_eq circuit; ``tfhers``: a TFHE-rs FheUint8 bincode round
+trip through the bridge; ``scheduler``: run_async chains and concurrent
+calls against sequential runs; ``cli``: python -m concrete_tpu_torch's
+four verbs as subprocesses; ``models`` and ``kinds`` when none is named),
+each as the whole smoke runs it, with its checks.
 It prints no kernel line and no result line, so it proves nothing about
 the rest of the smoke.  Writes chiprun_out/smoke_phases.json.
 """
@@ -55,7 +60,9 @@ def wop_phase(rng):
 
 PHASES = {"models": cs.models_phase, "multi": cs.multi_phase,
           "module": cs.module_phase, "kinds": cs.kinds_phase,
-          "fused": fused_phase, "wop": wop_phase}
+          "fused": fused_phase, "wop": wop_phase,
+          "bigint": cs.bigint_phase, "tfhers": cs.tfhers_phase,
+          "scheduler": cs.scheduler_phase, "cli": cs.cli_phase}
 DEFAULT = ("models", "kinds")
 
 
