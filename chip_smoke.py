@@ -213,14 +213,31 @@
 16. the cli phase: ``python -m concrete_tpu_torch compile``, ``inspect``,
    ``keygen`` and ``run`` as subprocesses on a 4-bit lookup, on the
    default device (the card), ``run``'s printed result held to the table;
-17. prints one JSON line per the kernels run (each one's launches
-   include those of the models, multi, module, wop, bigint, tfhers and
-   scheduler phases' requests), then the result line.
+17. the parallel phase (``parallel/``): one process per visible card,
+   this script started again (``--parallel-rank``), the ranks joined in a
+   torch.distributed group with the NCCL backend; each makes its keys from
+   the smoke's seed, rank 0 packs them and ``replicate_keys`` broadcasts
+   them.  A batch-sharded PBS of 1024 ciphertexts at
+   BENCH_PARAMS_4BIT_TPUOPT (``sharded_pbs_fn`` on each rank's shard,
+   kernels A and B, then ``gather``), bit-equal to ``pbs_batch`` on the
+   whole batch on one card, 0 wrong, PBS/s per rank and
+   ``scaling_report``; the table archive's ``Server.run`` on each rank's
+   shard, gathered, bit-equal to the unsharded run; and the limb-sharded
+   PBS (``pbs_batch_limb_sharded``, kernels 1 and 4 a step, all-to-all
+   exchanges between the four-step NTT's stages) at BENCH_PARAMS_6BIT
+   (N=4096), B = 2, bit-equal to ``blind_rotate_ntt`` and to ``pbs_batch``
+   on an exact banded key on one card, 0 wrong, with the rank's spectrum
+   shard (N/D wide) and its time a request.  The ranks run on several
+   cards only where the machine has several GPUs: on one card the group
+   has one rank, and every collective runs over that rank alone;
+18. prints one JSON line per the kernels run (each one's launches
+   include those of the models, multi, module, wop, bigint, tfhers,
+   scheduler and parallel phases' requests), then the result line.
 
 Any failed phase exits non-zero before the result line.  Without CUDA, or
 next to no checkout of the port, it exits non-zero at once.
 ``tools/smoke_phases.py`` runs the models, multi, module, node-kinds,
-wop, bigint, tfhers, scheduler and cli phases alone.
+wop, bigint, tfhers, scheduler, cli and parallel phases alone.
 """
 
 from __future__ import annotations
@@ -333,6 +350,9 @@ SCHEDULER_CHAINS = 8                    # the counter's chains, one an input
 SCHEDULER_BATCH = 64                    # two concurrent run_async requests
 CLI_TABLE = [(5 * v + 3) % 16 for v in range(16)]
 CLI_ARG = 11
+PARALLEL_BATCH = 1024                   # the batch-sharded PBS's ciphertexts
+PARALLEL_LIMB_BATCH = 2                 # the limb-sharded PBS's
+PARALLEL_TIMEOUT = 400                  # s for every rank of the phase
 KEYED = "crt_external_product_keyed"
 LOOKUP_KINDS = ("tlu", "univariate", "multivariate", "dynamic_tlu")
 # Operations bounds of the CRT-NTT kernels.  The NTT kernels (2, 3) are
@@ -2629,6 +2649,17 @@ def mono_decision_failures(fn) -> float:
     return expected_failures(decision_failures(fn.graph, specs))
 
 
+def run_digest(sha):
+    """``sha.hexdigest(SHA1_MESSAGE, mode="run")``, or None where a word of
+    the digest decrypts past 32 bits: a limb past its width, which the
+    rule's too-noisy truncated keys (ROADMAP queue 3) can give."""
+    import struct
+    try:
+        return sha.hexdigest(SHA1_MESSAGE, mode="run")
+    except struct.error:
+        return None
+
+
 def serve_sha1(rng):
     """Part (b) of the module phase: Sha1 at Configuration(p_error=1e-8)
     compiled by the port, keyed and packed (one pack per norm2), then
@@ -2717,7 +2748,7 @@ def serve_sha1(rng):
     fns["rotate30"].encrypt = recording
     before = dict(_build.LAUNCHES)
     t0 = time.perf_counter()
-    got = sha.hexdigest(SHA1_MESSAGE, mode="run")
+    got = run_digest(sha)
     digest_s = time.perf_counter() - t0
     counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
               if v - before.get(k, 0)}
@@ -2733,9 +2764,9 @@ def serve_sha1(rng):
     lookups = sum(calls[f] * fns[f].programmable_bootstrap_count
                   for f in names)
     model = {f: calls[f] * mono_decision_failures(fns[f]) for f in names}
-    wrong_bits = [bin(int(got[8 * i:8 * i + 8], 16)
-                      ^ int(want[8 * i:8 * i + 8], 16)).count("1")
-                  for i in range(5)]
+    wrong_bits = None if got is None else [
+        bin(int(got[8 * i:8 * i + 8], 16)
+            ^ int(want[8 * i:8 * i + 8], 16)).count("1") for i in range(5)]
     rec_fns = {f: {"calls": calls[f],
                    "lookups_per_call": fns[f].programmable_bootstrap_count,
                    "norm2": fns[f].graph.max_norm2(),
@@ -2769,7 +2800,7 @@ def serve_sha1(rng):
         for f in swapped:
             fns[f]._evaluation_keys = lambda _e=exact_evs[f]: _e
         t0 = time.perf_counter()
-        exact_got = sha.hexdigest(SHA1_MESSAGE, mode="run")
+        exact_got = run_digest(sha)
         exact_s = time.perf_counter() - t0
         for f in swapped:
             del fns[f]._evaluation_keys
@@ -3390,6 +3421,405 @@ def cli_phase(rng):
           f"seconds a verb { {k: round(v, 2) for k, v in rec['seconds'].items()} }"
           f"; phase {rec['phase_s']:.1f} s", flush=True)
     return rec
+
+
+def parallel_phase(rng):
+    """The parallel phase: one process per visible card (``parallel_rank``,
+    this script started again), joined in an NCCL process group by
+    ``parallel.distributed.initialize``; their records read back here.  A
+    rank that fails to join, to launch or to match the bits fails the
+    phase; every rank is stopped before it returns.  With one card the
+    group has one rank: its collectives run, each over that rank alone."""
+    import socket
+    import tempfile
+    import torch
+    start = time.perf_counter()
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()           # the cards' memory for the ranks
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "LOCAL_WORLD_SIZE": str(world)}
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--parallel-rank", str(r), str(world), str(port), tmp],
+            env={**env, "LOCAL_RANK": str(r)}, stdout=log,
+            stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
+        deadline = time.monotonic() + PARALLEL_TIMEOUT
+        try:
+            while time.monotonic() < deadline and any(
+                    p.poll() is None for p in procs) and not any(
+                    p.poll() for p in procs):
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+            for log in logs:
+                log.close()
+        codes = [p.returncode for p in procs]
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                for line in f.read().splitlines():
+                    print(f"  [rank {r}] {line}", flush=True)
+        if any(codes):
+            fail(f"parallel phase: rank exit codes {codes} (negative: "
+                 f"stopped here, after a rank failed or at the "
+                 f"{PARALLEL_TIMEOUT} s limit)")
+        recs = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    launches = {}
+    for rec in recs:
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    r0 = recs[0]
+    bt, lm = r0["batch"], r0["limb"]
+    print(f"parallel: world {world} over {r0['devices']}; batch-sharded PBS "
+          f"per rank { [round(r['batch']['pbs_per_s_rank'], 1) for r in recs] }"
+          f" PBS/s, scaling {bt['scaling']}; the table archive on the shards "
+          f"{r0['circuit']['wall_s']:.4f} s, bits equal to the unsharded "
+          f"run; limb-sharded PBS (B={PARALLEL_LIMB_BATCH}, N="
+          f"{lm['n']}) {lm['request_s'][-1]:.4f} s a request (traced idle "
+          f"{lm['traced']['idle_share']:.3f}; an exchange "
+          f"{lm['exchange_ms']:.4f} ms), launches a request "
+          f"{lm['launches']}, spectrum shard {lm['shard_shape']} "
+          f"({lm['shard_width']} = N/{world} wide); phase "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    return {"world": world, "ranks": recs, "launches": launches,
+            "phase_s": time.perf_counter() - start}
+
+
+def _rank_launches(want: dict, path: str) -> dict:
+    """The launches since the last reset, held to `want` (kernel name ->
+    launches; the rest none)."""
+    from concrete_tpu_torch.ops import _build
+    got = dict(_build.LAUNCHES)
+    if got != want:
+        fail(f"{path} launched {got}, want {want}")
+    return got
+
+
+def parallel_batch(rank: int) -> dict:
+    """Batch-sharded PBS: PARALLEL_BATCH ciphertexts at
+    BENCH_PARAMS_4BIT_TPUOPT (the table request's parameters, its truncated
+    key), keys made on every rank from the smoke's seed, packed on rank 0
+    and broadcast (``replicate_keys``); each rank runs ``sharded_pbs_fn``
+    (``pbs_batch``: kernels A and B a step) on its shard, ``gather``
+    assembles the batch; its bits against ``pbs_batch`` on the whole batch
+    on this card, every decryption against the table."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from concrete_tpu_torch import params as pp
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.core import keygen as kg
+    from concrete_tpu_torch.core import refimpl as ref
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.parallel import distributed as pd
+    from concrete_tpu_torch.parallel import sharding as ps
+    params = pp.BENCH_PARAMS_4BIT_TPUOPT
+    rng = np.random.default_rng(SEED)       # the same keys on every rank
+    t0 = time.perf_counter()
+    sk, server_keys = kg.keygen(rng, params)
+    keygen_s = time.perf_counter() - t0
+    mesh = ps.make_mesh()
+    trunc = pp.choose_truncate_limbs(params, 4)
+    t0 = time.perf_counter()
+    ksk = bsk = None
+    if rank == 0:
+        ksk = kn.pack_ksk(server_keys.ksk, params)
+        bsk = kn.pack_bsk(server_keys.bsk, params, trunc)
+    ksk, bsk = ps.replicate_keys(mesh, ksk, bsk)
+    torch.cuda.synchronize()
+    keys_s = time.perf_counter() - t0
+    lut = torch.from_numpy(ref.encode_expand_lut(
+        np.array(TABLE, dtype=np.uint64), params.polynomial_size, 4)
+        .view(np.int64)).cuda()
+    msgs = rng.integers(0, 16, PARALLEL_BATCH)
+    ct_full = torch.from_numpy(kg.encrypt_lwe_batch(
+        rng, sk.lwe_big, ref.encode(msgs, 4), params.glwe_std)
+        .view(np.int64)).cuda()
+    ct = ps.shard_ciphertexts(mesh, ct_full)
+    fn = ps.sharded_pbs_fn(mesh, params, 4)
+    fn(ct, ksk, bsk, lut)                   # first use: handles, library
+    torch.cuda.synchronize()
+    dist.barrier()
+    _build.reset_launches()                 # this path's run starts here
+    t0 = time.perf_counter()
+    out = fn(ct, ksk, bsk, lut)
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    full = ps.gather(mesh, out)
+    mesh_s = time.perf_counter() - t0
+    launches = _rank_launches(                # ... and ends here: the
+        {"rotate_decompose": params.n_small,  # banded scan, as the batch's
+         "external_product_accumulate": params.n_small},
+        "the batch-sharded PBS")
+    slowest = torch.tensor([mesh_s], dtype=torch.float64, device="cuda")
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+    t0 = time.perf_counter()
+    want = kn.pbs_batch(ct_full, ksk, bsk, lut, params, 4)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    if not torch.equal(full, want):
+        fail("the batch-sharded PBS's gathered outputs differ from pbs_batch "
+             "on the whole batch on one card")
+    dec = ref.decode(ref.lwe_decrypt(
+        sk.lwe_big, full.cpu().numpy().view(np.uint64)), 4)
+    wrong = int(np.count_nonzero(dec != np.array(TABLE)[msgs]))
+    if wrong:
+        fail(f"batch-sharded PBS: {wrong} wrong of {PARALLEL_BATCH}")
+    report = pd.scaling_report(PARALLEL_BATCH / one_s,
+                               PARALLEL_BATCH / slowest.item())
+    rec = {"keygen_s": keygen_s, "keys_s": keys_s, "shard": ct.shape[0],
+           "local_s": local_s, "mesh_s": mesh_s, "one_card_s": one_s,
+           "pbs_per_s_rank": ct.shape[0] / local_s, "scaling": report,
+           "wrong": wrong, "launches": launches}
+    print(f"batch-sharded PBS: {ct.shape[0]} of {PARALLEL_BATCH} "
+          f"ciphertexts on this rank in {local_s:.4f} s "
+          f"({rec['pbs_per_s_rank']:.1f} PBS/s), gathered {mesh_s:.4f} s; "
+          f"the whole batch on one card {one_s:.4f} s, equal bits; 0 wrong; "
+          f"keygen {keygen_s:.2f} s, pack and broadcast {keys_s:.2f} s; "
+          f"launches {launches}; {report}", flush=True)
+    return rec
+
+
+def parallel_circuit(rank: int) -> dict:
+    """The compiled table circuit on shards: ``Server.run`` of the
+    committed table_sub archive on this rank's shard of an encrypted batch
+    (keys from the smoke's seed on every rank; the batch encrypted on rank
+    0, whose encryption draws from the system's generator, and broadcast),
+    the shards gathered; bits against the unsharded run, decryptions
+    against the table."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.parallel import sharding as ps
+    server = tfhe.Server.load(FIXTURE)
+    specs = server.client_specs
+    client = tfhe.Client(specs)
+    client.keygen(seed=SEED)
+    ev = client.evaluation_keys
+    rng = np.random.default_rng(SEED + 1)    # the same batch on every rank
+    size = specs.inputs[0].shape[0]
+    x, y = rng.integers(0, 16, size), rng.integers(0, 16, size)
+    batch = [*client.encrypt(x, y)] if rank == 0 else [None, None]
+    dist.broadcast_object_list(batch, src=0)
+    cx, cy = batch
+    (want,) = server.run(cx, cy, evaluation_keys=ev)   # packs the keys
+    mesh = ps.make_mesh()
+    sx, sy = ps.shard_ciphertexts(mesh, cx), ps.shard_ciphertexts(mesh, cy)
+    torch.cuda.synchronize()
+    dist.barrier()
+    _build.reset_launches()                  # this path's run starts here
+    t0 = time.perf_counter()
+    (out,) = server.run(sx, sy, evaluation_keys=ev)
+    full = ps.gather(mesh, out)
+    wall = time.perf_counter() - t0
+    n_small = specs.params.n_small
+    launches = _rank_launches(               # ... and ends here: the
+        {"rotate_decompose": n_small,        # banded scan at 1024 / D rows
+         "external_product_accumulate": n_small},
+        "the sharded table circuit")
+    if not np.array_equal(full, want):
+        fail("the table circuit's gathered outputs differ from the unsharded "
+             "run's")
+    wrong = int(np.count_nonzero(client.decrypt(full)
+                                 != np.array(TABLE)[x] - y))
+    if wrong:
+        fail(f"the sharded table circuit: {wrong} wrong of {size}")
+    print(f"table circuit on a shard of {sx.shape[0]} of {size}: "
+          f"{wall:.4f} s with the gather, bits equal to the unsharded run, "
+          f"0 wrong; launches {launches}", flush=True)
+    return {"shard": int(sx.shape[0]), "wall_s": wall, "wrong": wrong,
+            "launches": launches}
+
+
+def parallel_limb(rank: int) -> dict:
+    """Limb-sharded PBS: ``pbs_batch_limb_sharded`` at BENCH_PARAMS_6BIT
+    (N=4096) and B = PARALLEL_LIMB_BATCH, 6-bit lookups; keys from the
+    smoke's seed, the four-step spectra packed on rank 0 and broadcast,
+    this rank keeping its k1 block.  Kernels 1 and 4 held to their plain
+    versions at the path's shapes first; then the request twice (the
+    second timed), its launches (kernels 1 and 4 once a step), its bits
+    against ``ntt_fourstep.blind_rotate_ntt`` and ``pbs_batch`` on an exact
+    banded key on this card, its decryptions against the table."""
+    import math
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from concrete_tpu_torch import params as pp
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.core import keygen as kg
+    from concrete_tpu_torch.core import ntt_fourstep as nt
+    from concrete_tpu_torch.core import refimpl as ref
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.ops import fused_ntt as fn
+    from concrete_tpu_torch.parallel import limb_sharding as ls
+    from concrete_tpu_torch.parallel import sharding as ps
+    params = pp.BENCH_PARAMS_6BIT
+    n, kp1 = params.polynomial_size, params.glwe_dimension + 1
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    sk, keys = kg.keygen(rng, params)
+    keygen_s = time.perf_counter() - t0
+    mesh = ls.make_limb_mesh()
+    world, me = mesh.size(), mesh.get_local_rank()
+    if not ls.check_limb_shardable(params, world):
+        fail(f"N={n} does not split over {world} ranks")
+    primes = nt.choose_primes(params)
+    t0 = time.perf_counter()
+    ksk = nbsk = None
+    if rank == 0:
+        ksk = kn.pack_ksk(keys.ksk, params)
+        nbsk = nt.pack_bsk_ntt(keys.bsk, params, primes)
+    ksk, nbsk = ps.replicate_keys(mesh, ksk, nbsk, axis_name=ls.LIMB_AXIS)
+    torch.cuda.synchronize()
+    keys_s = time.perf_counter() - t0
+    n1 = nt.build_plan(n, primes[0]).n1
+    shard = tuple(ls.spectrum_shard(nbsk.spectra, n1, world, me).shape)
+    rows, blk = PARALLEL_LIMB_BATCH * kp1, n // world
+    # kernels 1 and 4 at this path's shapes, against their plain versions
+    # (kernel 4 on residues of products within the primes' range)
+    check_digits(rng, rows=rows, n=n, base_log=params.pbs_base_log,
+                 levels=params.pbs_level, timed=False, clock=None)
+    half = math.prod(primes) // 8
+    z = [int(v) for v in rng.integers(-(1 << 62), 1 << 62, rows * blk)]
+    z = [v * (half >> 62) for v in z]
+    res = torch.tensor([[v % p for v in z] for p in primes],
+                       dtype=torch.int64).view(len(primes), rows, blk)
+    res = res.to(torch.int32).cuda()
+    acc = rand_torus(rng, (rows, blk), "cuda")
+    got = fn.garner_accumulate(res, acc.clone(), primes, 0)
+    if not torch.equal(got, fn.garner_accumulate_plain(res, acc.clone(),
+                                                       primes, 0)):
+        fail(f"garner_accumulate differs from its plain version at the "
+             f"limb-sharded path's shape ({len(primes)} primes {primes}, "
+             f"{rows} x {blk})")
+    lut = torch.from_numpy(ref.encode_expand_lut(
+        np.array(DIRECT_TABLE, dtype=np.uint64), n, 6).view(np.int64)).cuda()
+    msgs = rng.integers(0, 64, PARALLEL_LIMB_BATCH)
+    ct = torch.from_numpy(kg.encrypt_lwe_batch(
+        rng, sk.lwe_big, ref.encode(msgs, 6), params.glwe_std)
+        .view(np.int64)).cuda()
+    walls = []
+    for _ in range(2):                       # the first builds the tables
+        torch.cuda.synchronize()
+        dist.barrier()
+        _build.reset_launches()              # this path's run starts here
+        t0 = time.perf_counter()
+        out = ls.pbs_batch_limb_sharded(mesh, ct, ksk, nbsk, lut, params, 6)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = _rank_launches(           # ... and ends here
+            {"rotate_decompose_digits": params.n_small,
+             "garner_accumulate": params.n_small}, "the limb-sharded PBS")
+    # where a request's time goes: one traced, and the step's exchange
+    # (one all_to_all_single with its two layout copies) timed alone
+    def request():
+        t0 = time.perf_counter()
+        ls.pbs_batch_limb_sharded(mesh, ct, ksk, nbsk, lut, params, 6)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    wall, by_kernel, kernels_run, _ = profile_run(request, host_ops=False)
+    busy = sum(ms for *_, ms in by_kernel)
+    traced = {"wall_s": wall, "device_busy_ms": busy,
+              "idle_share": 1 - busy / (wall * 1e3),
+              "nccl_ms": sum(ms for k, _, ms in by_kernel
+                             if "nccl" in k.lower()),
+              "device_kernels": kernels_run,
+              "by_kernel": [{"name": k[:90], "count": c, "device_ms": ms}
+                            for k, c, ms in by_kernel[:8]]}
+    group = mesh.get_group(ls.LIMB_AXIS)
+    y = torch.zeros((len(primes), PARALLEL_LIMB_BATCH * kp1, n1 // world,
+                     n // n1), dtype=torch.int32, device="cuda")
+    ls._exchange(y, group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ls._exchange(y, group)
+    torch.cuda.synchronize()
+    exchange_ms = (time.perf_counter() - t0) / 200 * 1e3
+    small = kn.keyswitch(ct, ksk)
+    t0 = time.perf_counter()
+    want = kn.sample_extract(nt.blind_rotate_ntt(small, nbsk, lut, params))
+    torch.cuda.synchronize()
+    ntt_s = time.perf_counter() - t0
+    if not torch.equal(out, want):
+        fail("the limb-sharded PBS differs from blind_rotate_ntt on one card")
+    t0 = time.perf_counter()
+    exact = kn.pbs_batch(ct, ksk, kn.pack_bsk(keys.bsk, params), lut,
+                         params, 6)
+    torch.cuda.synchronize()
+    banded_s = time.perf_counter() - t0
+    if not torch.equal(out, exact):
+        fail("the limb-sharded PBS differs from pbs_batch on an exact banded "
+             "key on one card")
+    dec = ref.decode(ref.lwe_decrypt(
+        sk.lwe_big, out.cpu().numpy().view(np.uint64)), 6)
+    wrong = int(np.count_nonzero(dec != np.array(DIRECT_TABLE)[msgs]))
+    if wrong:
+        fail(f"limb-sharded PBS: {wrong} wrong of {PARALLEL_LIMB_BATCH}")
+    rec = {"n": n, "primes": list(primes), "keygen_s": keygen_s,
+           "keys_s": keys_s, "request_s": walls, "launches": launches,
+           "per_step": {k: v / params.n_small for k, v in launches.items()},
+           "blind_rotate_ntt_s": ntt_s, "pbs_batch_banded_s": banded_s,
+           "shard_shape": shard, "shard_width": shard[-2] * shard[-1],
+           "traced": traced, "exchange_ms": exchange_ms, "wrong": wrong}
+    print(f"limb-sharded PBS at {params}, B={PARALLEL_LIMB_BATCH}, {world} "
+          f"rank(s), {len(primes)} primes: requests "
+          f"{[round(w, 4) for w in walls]} s, launches {launches}; equal to "
+          f"blind_rotate_ntt ({ntt_s:.4f} s) and to pbs_batch on the exact "
+          f"banded key ({banded_s:.4f} s) on one card; 0 wrong; spectrum "
+          f"shard {shard}; keygen {keygen_s:.2f} s, pack and broadcast "
+          f"{keys_s:.2f} s; one request traced: wall {wall:.4f} s, device "
+          f"busy {busy:.2f} ms (idle {traced['idle_share']:.3f}, NCCL "
+          f"{traced['nccl_ms']:.2f} ms), {kernels_run} kernels; an "
+          f"exchange alone {exchange_ms:.4f} ms", flush=True)
+    for k in traced["by_kernel"]:
+        print(f"  {k['device_ms']:9.3f} ms {k['count']:6d}x  {k['name']}",
+              flush=True)
+    return rec
+
+
+def parallel_rank(rank: str, world: str, port: str, out_dir: str) -> None:
+    """One rank of the parallel phase: joins the NCCL group at
+    tcp://localhost:`port` on its card (``LOCAL_RANK``), loads the smoke's
+    kernel library, runs the three paths and writes its record to
+    `out_dir`/rank<rank>.json."""
+    import torch
+    import torch.distributed as dist
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.parallel import distributed as pd
+    rank, world = int(rank), int(world)
+    t0 = time.perf_counter()
+    pd.initialize(f"tcp://localhost:{port}", world_size=world, rank=rank)
+    if dist.get_backend() != "nccl":
+        fail(f"rank {rank} joined a {dist.get_backend()} group, not NCCL")
+    _build.library()
+    names = [None] * world
+    dist.all_gather_object(names, f"{torch.cuda.get_device_name()} "
+                                  f"(cuda:{torch.cuda.current_device()})")
+    init_s = time.perf_counter() - t0
+    print(f"rank {rank} of {world}: devices {names}, joined and loaded in "
+          f"{init_s:.1f} s", flush=True)
+    rec = {"world": world, "devices": names, "init_s": init_s,
+           "batch": parallel_batch(rank), "circuit": parallel_circuit(rank),
+           "limb": parallel_limb(rank)}
+    rec["launches"] = {}
+    for path in ("batch", "circuit", "limb"):
+        for k, v in rec[path]["launches"].items():
+            rec["launches"][k] = rec["launches"].get(k, 0) + v
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
 
 
 def kind_circuits(tfhe, rng):
@@ -4854,11 +5284,13 @@ def main() -> None:
     mark("scheduler")
     cli = cli_phase(rng)
     mark("cli")
-    # the models, multi, module, wop, bigint, tfhers and scheduler phases'
-    # own launches of the kernels that their lookups ran
+    par = parallel_phase(rng)
+    mark("parallel")
+    # the models, multi, module, wop, bigint, tfhers, scheduler and parallel
+    # phases' own launches of the kernels that their lookups ran
     model_launches = {}
     for rec in list(models.values()) + list(multi.values()) \
-            + [module, wop["pir_32"], bigint, bridge, scheduler]:
+            + [module, wop["pir_32"], bigint, bridge, scheduler, par]:
         for k, v in rec["launches"].items():
             model_launches[k] = model_launches.get(k, 0) + v
 
@@ -4976,6 +5408,7 @@ def main() -> None:
                    "multi": multi, "module": module, "kinds": kinds,
                    "wop": wop, "wop_kernels": keyed, "bigint": bigint,
                    "tfhers": bridge, "scheduler": scheduler, "cli": cli,
+                   "parallel": par,
                    "detail": {"rotate_decompose": rec_a,
                               "external_product_accumulate": rec_b,
                               "banded_matmul": rec_bm,
@@ -5043,4 +5476,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(*sys.argv[2:6])
+    else:
+        main()

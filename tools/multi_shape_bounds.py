@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Kernels A and B at PrimeMatch(5, 5, 4, 7)'s banded partition, kernels
-1, 3 and 4 at PrimeMatch(10, 10, 10, 50)'s N=8192 partition, on one GPU.
+1, 3 and 4 at PrimeMatch(10, 10, 10, 50)'s N=8192 partition, at
+``radix_add``'s and the TFHE-rs ``FheUint8`` circuit's lookups, and the
+fused persistent kernel at ``Sha1``'s, on one GPU.
 
     python3 tools/multi_shape_bounds.py
 
@@ -13,8 +15,17 @@ held bit-exact to its plain version on random operands of those shapes and
 timed beside it (CUDA events), with the bound ``chip_smoke.py`` computes
 from the shape (bytes over the memory rate, operations over the peak rate
 of their type) and, for kernel B, ``torch._int_mm`` of the same product on
-the pre-built Toeplitz matrix.  Prints one JSON line and writes
-chiprun_out/multi_shape_bounds.json.
+the pre-built Toeplitz matrix.  The shapes of the smoke's later phases
+are the served circuits' own, as their packing rule keys them (2048 and
+16384 take the special primes' first 2 or 3): kernels 1, 3 and 4 over two
+steps at ``radix_add``'s (B=512, N=2048, l=2, base 2^10, 2 primes, 28
+bits truncated, acc32) and at the ``FheUint8`` circuit's (N=16384, l=2,
+base 2^15, 3 primes, 5 bits truncated, acc32; B=128 and B=32); the fused
+persistent kernel (``blind_rotate_fused_latency``) over a whole lookup of
+``Sha1``'s (B=1, N=2048, l=2, base 2^10, 728 steps, acc32) on the rule's
+key (2 primes, 28 bits truncated) and the exact one (3 primes), against
+the three-kernel loop on the card, timed beside it.  Prints one JSON line
+and writes chiprun_out/multi_shape_bounds.json.
 """
 
 from __future__ import annotations
@@ -111,6 +122,23 @@ def main() -> None:
             rng, batch=batch, n=p.polynomial_size, levels=p.pbs_level,
             base_log=p.pbs_base_log, primes=primes, trunc_bits=trunc,
             acc32=acc32, steps=2, clock=clock, mix=mix, timed=True)}
+    # the shapes of the bigint, tfhers and module phases
+    fused = dict(levels=2, acc32=True, steps=2, clock=clock, mix=mix,
+                 timed=True)
+    rec["radix_add"] = cs.check_fused_steps(
+        rng, batch=512, n=2048, base_log=10,
+        primes=host.special_ntt_primes(2048, 128)[:2], trunc_bits=28,
+        **fused)
+    for batch in (128, 32):
+        rec[f"fheuint8_b{batch}"] = cs.check_fused_steps(
+            rng, batch=batch, n=16384, base_log=15,
+            primes=host.special_ntt_primes(16384, 128)[:3], trunc_bits=5,
+            **fused)
+    for n_p, trunc in ((2, 28), (3, 0)):
+        rec[f"sha1_{n_p}_primes"] = cs.check_fused_latency(
+            rng, batch=1, n=2048, kp1=2, levels=2, base_log=10, n_primes=n_p,
+            trunc_bits=trunc, acc32=True, n_small=728, plain=False,
+            timed=True, clock=clock, mix=mix)
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     with open(os.path.join(cs.OUT_DIR, "multi_shape_bounds.json"), "w") as f:
         json.dump(rec, f, indent=1)

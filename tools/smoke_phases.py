@@ -3,6 +3,7 @@
 
     python3 tools/smoke_phases.py [models] [multi] [module] [kinds] [fused]
                                   [wop] [bigint] [tfhers] [scheduler] [cli]
+                                  [parallel]
 
 Builds the port's kernels from ``concrete_tpu_torch/csrc``, then runs the
 named phases of the smoke (``models``: the five model circuits and the
@@ -18,7 +19,11 @@ compiled; ``bigint``: 16-bit radix addition at B=512 and a radix_mul,
 radix_lt and radix_eq circuit; ``tfhers``: a TFHE-rs FheUint8 bincode round
 trip through the bridge; ``scheduler``: run_async chains and concurrent
 calls against sequential runs; ``cli``: python -m concrete_tpu_torch's
-four verbs as subprocesses; ``models`` and ``kinds`` when none is named),
+four verbs as subprocesses; ``parallel``: one rank per visible card in an
+NCCL group, the batch-sharded PBS, the table archive on the shards and
+the limb-sharded PBS at N=4096, against one card; several ranks only
+where the machine has several GPUs; ``models`` and ``kinds`` when none is
+named),
 each as the whole smoke runs it, with its checks.
 It prints no kernel line and no result line, so it proves nothing about
 the rest of the smoke.  Writes chiprun_out/smoke_phases.json.
@@ -62,7 +67,8 @@ PHASES = {"models": cs.models_phase, "multi": cs.multi_phase,
           "module": cs.module_phase, "kinds": cs.kinds_phase,
           "fused": fused_phase, "wop": wop_phase,
           "bigint": cs.bigint_phase, "tfhers": cs.tfhers_phase,
-          "scheduler": cs.scheduler_phase, "cli": cs.cli_phase}
+          "scheduler": cs.scheduler_phase, "cli": cs.cli_phase,
+          "parallel": cs.parallel_phase}
 DEFAULT = ("models", "kinds")
 
 
