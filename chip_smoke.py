@@ -147,7 +147,11 @@
 9. the multi phase: three multi-partition circuits compiled by the port
    at the default ``Configuration()``, ``PrimeMatch(10, 10, 10, 50)``,
    ``PrimeMatch(5, 5, 4, 7)`` and ``HammingDistance(32, 4)`` with
-   ``via="xor"``, served as the models are (two requests through
+   ``via="xor"``, and one with a WoP partition, ``(ts[x], tb[y])`` (a
+   2-bit table beside a 9-bit one: x in a partition at the v0 search's
+   2-bit parameters, y in one at the mono compile's WoP parameters and
+   gadgets, N=4096, a conversion keyswitch after the WoP lookup; its
+   memory estimate checked first), served as the models are (two requests through
    ``Circuit.run`` within the compiled bounds, output ciphertexts equal
    to the archive-loaded ``Server``'s, each lookup node's launches those
    of its blind-rotate form on its partition's key, every kernel call held
@@ -169,10 +173,10 @@
    forms; then ``Sha1`` at ``Configuration(p_error=1e-8)``: compile, keygen
    and one pack per norm2 timed, ``hexdigest(b"abc", mode="run")`` (80
    rounds, 5,355 B=1 lookups in one launch each of the fused persistent
-   kernel, 80 B=32 lookups on the CRT-NTT loop) held to hashlib (where the
-   rule's truncated keys give another digest, the same ciphertexts served
-   on the exact keys and that digest held, the rule's wrong bits per word
-   printed beside the noise model's expected failing decisions), each
+   kernel, 80 B=32 lookups on the CRT-NTT loop) held to hashlib, served
+   on the exact keys where the rule truncates a fused key (the rule's
+   28-bit keys gave a wrong digest on every run so far, ROADMAP
+   queue 3; their digest is no longer served, for the smoke's time), each
    function's calls and ms a call, one ``round_add`` call traced with its
    argument uploads' share, the kernel calls of one ``choose`` call and of
    the first two lookup nodes of one ``round_add`` call held to their
@@ -189,10 +193,12 @@
    10-bit lookup (WoP-PBS at N=256), also held to the CPU's plain path;
 12. the wop phase: kernel 3's keyed entry (a key per ciphertext) and
    kernel 2's pack entry at the vertical packing's shapes against their
-   plain versions, timed; PrivateInformationRetrieval over 32 rows of 16
-   (a 9-bit WoP row fetch at N=4096) served as the models are, with its
-   PFPKSK generated, split and uploaded and its launches by kernel; PIR
-   over 64 rows compiled, its PFPKSK's size printed, not served;
+   plain versions, timed (PIR over 64 rows' N=8192, cbs_level 5 among
+   them); PrivateInformationRetrieval over 32 rows of 16 (a 9-bit WoP row
+   fetch at N=4096) and over 64 rows (11 bits at N=8192, a PFPKSK of
+   65,544 GLWE rows, 8.6 GB) served as the models are, each PFPKSK made
+   and split on the card (its draws, product and pack timed) and its
+   launches by kernel;
 13. the bigint phase: ``bench.py``'s BASELINE config 4 (``radix_add`` of
    16-bit integers as 4 x 4-bit limbs, B = 512 a request) and one circuit
    of ``radix_mul`` (mod 2^16), ``radix_lt`` and ``radix_eq`` of 16-bit
@@ -230,6 +236,14 @@
    shard (N/D wide) and its time a request.  The ranks run on several
    cards only where the machine has several GPUs: on one card the group
    has one rank, and every collective runs over that rank alone;
+Between steps 5 and 6 (after the first kernel checks), the key bodies:
+``core/keygen.py``'s product on the card held bit for bit to the host's
+at N=8192, a BSK and a PFPKSK made on the card to the host numpy
+keygen's from one seed, and the product timed on a chunk of rows at
+N=4096, 8192 and 16384 beside its bound; from there to the end of the
+parallel phase, every key's bodies are computed on the card and a call
+of the host's product fails the smoke.
+
 18. prints one JSON line per the kernels run (each one's launches
    include those of the models, multi, module, wop, bigint, tfhers,
    scheduler and parallel phases' requests), then the result line.
@@ -325,11 +339,21 @@ HAMMING = (32, 4)                       # words, bits a word
 PRIME_MATCH_10 = (10, 10, 10, 50)       # bank and client orders, symbols,
 PRIME_MATCH_5 = (5, 5, 4, 7)            # largest quantity (both multi)
 # 16 rows: the row fetch is a native lookup; at 32 rows it is 9 bits wide
-# and lowers to WoP-PBS (the wop phase serves it), at 64 rows 11 bits (the
-# wop phase compiles it; its PFPKSK of 65,544 GLWE rows is not generated)
+# and lowers to WoP-PBS, at 64 rows 11 bits (N=8192; its PFPKSK has 65,544
+# GLWE rows, 8.6 GB as u64, made on the card): the wop phase serves both
 PIR_SHAPE = (16, 16)
 PIR_WOP_SHAPE = (32, 16)
-PIR_COMPILED_SHAPE = (64, 16)
+PIR_64_SHAPE = (64, 16)
+PIR_64_GADGETS = (5, 3, 4, 6)   # its compile's (cbs_level, cbs_base_log,
+#                                 pfks_level, pfks_base_log), 11 bits
+# the multi phase's circuit with a WoP partition, (ts[x], tb[y]): a 2-bit
+# table beside a 9-bit one of 6-bit values, whose mono compile is PIR over
+# 32 rows' class (N=4096, 9 bits); partitions set explicitly (multi_wop)
+MULTI_WOP_TS = [3, 1, 2, 0]
+MULTI_WOP_TB = [(5 * i + 2) % 64 for i in range(1 << 9)]
+# the key bodies' product on the card (core/keygen.py): f64 matmuls, bound
+# by the FP64 tensor cores' peak (NVIDIA's H100 SXM data sheet, dense)
+PEAK_F64_OPS = 6.7e13
 MODULE_LOOP = 5                         # inc run on its own output
 SHA1_MESSAGE = b"abc"
 SHA1_P_ERROR = 1e-8                     # tests/test_models.py's digest
@@ -945,7 +969,8 @@ def latency_lookups(rng):
     from concrete_tpu_torch.ops import latency as lat
     params = pp.BENCH_PARAMS_4BIT_TPUOPT
     t0 = time.perf_counter()
-    sk, server_keys = kg.keygen(np.random.default_rng(SEED), params)
+    sk, server_keys = kg.keygen_device(np.random.default_rng(SEED), params,
+                                       "cuda")
     trunc = pp.choose_truncate_limbs(params, 4)
     ksk = kn.pack_ksk(server_keys.ksk, params, device="cuda")
     bsk = kn.pack_bsk(server_keys.bsk, params, trunc, device="cuda")
@@ -1435,7 +1460,8 @@ def wop_counts(circuit) -> dict:
         if spec is None:
             continue
         size = max(int(np.prod(node.output.shape)), 1)
-        chunks = -(-size // kw.chunk_size(ex.wop_params, spec.nb_bits))
+        chunks = -(-size // kw.chunk_size(
+            ex.wop_params_for(ex.lookup_partition(node)), spec.nb_bits))
         key = tuple(q.uid for q in circuit.graph.ordered_preds_of(node)) \
             if node.name == "crt_tlu" else node.uid
         if key not in sets:
@@ -1628,6 +1654,134 @@ class timed_calls:
             setattr(module, attr, fn)
 
 
+class host_products:
+    """From __enter__ on, every call of the host's key-body product
+    (``core.keygen._negacyclic_dot_with_key``, the numpy keygen's) is
+    counted: the card's key generation must make none."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        from concrete_tpu_torch.core import keygen as kg
+        self.saved = kg._negacyclic_dot_with_key
+
+        def counted(*args, _fn=self.saved):
+            self.calls += 1
+            return _fn(*args)
+        kg._negacyclic_dot_with_key = counted
+        return self
+
+    def __exit__(self, *exc):
+        from concrete_tpu_torch.core import keygen as kg
+        kg._negacyclic_dot_with_key = self.saved
+
+
+def setup_parts(seconds: dict) -> dict:
+    """A keyset's set-up parts (``Keys.setup_seconds``) by key, rounded:
+    the host's draws (thread seconds), the product on the card (with the
+    uploads), the BSK's copy to the host, the KSK (host), and the
+    PFPKSK's pack (its limb split on the card)."""
+    out = {}
+    for key, parts in seconds.items():
+        if isinstance(parts, dict):
+            for part, v in parts.items():
+                out[f"{key} {part[:-2] if part.endswith('_s') else part}"] \
+                    = round(v, 3)
+        else:
+            out[key[:-2] if key.endswith("_s") else key] = round(parts, 3)
+    return out
+
+
+def keygen_checks(rng):
+    """The GLWE key bodies on the card (core/keygen.py's device path,
+    core/wop.pfpksk_gen_device) against the host's numpy keygen: the
+    product at N=8192 (PIR over 64 rows' ring) on masks with their top
+    bits set and on edge words, a BSK from one seed at
+    TEST_PARAMS_TINY_WIDE and at N=2048 (the Sha1 keyset's ring), in
+    chunks of one and of several rows, and a PFPKSK at N=1024, each bit
+    for bit; then the
+    product timed on one chunk of rows (CHUNK_WORDS of masks) at N=4096,
+    8192 and 16384 beside its bound: four f64 matmuls of (rows, N) by
+    (N, N) over the FP64 tensor cores' peak, or its bytes (masks in, the
+    matrix read, the body out) over the memory's."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from concrete_tpu_torch.core import keygen as kg
+    from concrete_tpu_torch.core import wop
+    from concrete_tpu_torch.core.refimpl import SecretKeys
+    from concrete_tpu_torch.params import TEST_PARAMS_TINY_WIDE
+    from concrete_tpu_torch.utils.csprng import SecureGenerator
+    start = time.perf_counter()
+    n = 8192
+    masks = rng.integers(0, 1 << 64, (5, 1, n), dtype=np.uint64)
+    masks[:, :, :64] |= np.uint64(0xFFFF) << np.uint64(48)
+    masks[4, 0, :4] = [0, (1 << 64) - 1, 1 << 63, 0xFFFF]
+    key = rng.integers(0, 2, (1, n)).astype(np.uint64)
+    got = kg.negacyclic_dot_torch(torch.from_numpy(
+        masks.view(np.int64)).cuda(), key).cpu().numpy().view(np.uint64)
+    if not np.array_equal(got, kg._negacyclic_dot_with_key(masks, key)):
+        fail("the key-body product on the card differs from the host's at "
+             "N=8192")
+    recs = {"product_equal_at": n}
+    p2048 = dataclasses.replace(TEST_PARAMS_TINY_WIDE, n_small=16,
+                                polynomial_size=2048)
+    for params in (TEST_PARAMS_TINY_WIDE, p2048):
+        k, n = params.glwe_dimension, params.polynomial_size
+        sk_small = SecureGenerator(SEED).integers(0, 2, params.n_small,
+                                                  dtype=np.uint64)
+        gsk = SecureGenerator(SEED + 1).integers(0, 2, (k, n),
+                                                 dtype=np.uint64)
+        want = kg.make_bsk(SecureGenerator(SEED), sk_small, gsk, params)
+        for words in (k * n, kg.CHUNK_WORDS):
+            saved, kg.CHUNK_WORDS = kg.CHUNK_WORDS, words
+            try:
+                bsk = kg.make_bsk_device(SecureGenerator(SEED), sk_small,
+                                         gsk, params, "cuda")
+            finally:
+                kg.CHUNK_WORDS = saved
+            if not np.array_equal(bsk.cpu().numpy().view(np.uint64), want):
+                fail(f"the BSK made on the card differs from the host's at "
+                     f"N={n} (chunks of {words // (k * n)} rows)")
+    p1024 = dataclasses.replace(p2048, polynomial_size=1024)
+    sk = SecretKeys(lwe_small=sk_small, glwe=gsk[:, :1024].copy())
+    wp = wop.WopParams(base=p1024, cbs_level=3, cbs_base_log=6,
+                       pfks_level=2, pfks_base_log=10)
+    want = wop.pfpksk_gen(SecureGenerator(SEED), sk, wp).pfpksk
+    got = wop.pfpksk_gen_device(SecureGenerator(SEED), sk, wp, "cuda")
+    if not np.array_equal(got.cpu().numpy().view(np.uint64), want):
+        fail("the PFPKSK made on the card differs from the host's")
+    recs["bit_equal"] = ["product N=8192", "BSK N=256", "BSK N=2048",
+                         f"PFPKSK N=1024 ({want.shape[0] * want.shape[1] * want.shape[2]} rows)"]
+    del got, want
+    timed = {}
+    for n in (4096, 8192, 16384):
+        rows = kg.CHUNK_WORDS // n
+        a = torch.randint(-(1 << 62), 1 << 62, (rows, 1, n),
+                          dtype=torch.int64, device="cuda")
+        mats = [kg.negacyclic_matrix(torch.randint(
+            0, 2, (n,), dtype=torch.int64, device="cuda"))]
+        ms = cuda_ms(lambda: kg.negacyclic_dot_torch(a, mats), 5)
+        ops = 4 * 2 * rows * n * n
+        nbytes = rows * n * 8 * 2 + n * n * 8
+        ops_ms, bytes_ms = ops / PEAK_F64_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        timed[n] = {"rows": rows, "ms": ms, "bound_ms": max(ops_ms, bytes_ms),
+                    "bound_by": "operations" if ops_ms >= bytes_ms
+                    else "bytes", "us_a_row": ms * 1e3 / rows,
+                    "matrix_bytes": n * n * 8}
+        del a, mats
+    torch.cuda.empty_cache()
+    recs["product"] = timed
+    recs["phase_s"] = time.perf_counter() - start
+    print(f"key bodies on the card: bit-equal to the host's numpy keygen "
+          f"({', '.join(recs['bit_equal'])}); the product on a chunk of "
+          f"rows (ms, bound ms, bound by, us a row): "
+          f"{ {n: (r['rows'], round(r['ms'], 4), round(r['bound_ms'], 4), r['bound_by'], round(r['us_a_row'], 3)) for n, r in timed.items()} }"
+          f"; phase {recs['phase_s']:.1f} s", flush=True)
+    return recs
+
+
 def kernel_wrappers() -> dict:
     """{launch name: (module, wrapper, plain version)} of every kernel
     wrapper a served request or a key pack may launch; each plain version
@@ -1771,10 +1925,8 @@ def serve_model(name, compile_fn, draw, wrong_of, cpu_check=False):
     if specs.is_multi or circuit.device.type != "cuda":
         fail(f"{name} compiled multi-partition or off the card")
     inputs, draws = covered_draws(circuit, draw, MODEL_REQUESTS)
-    from concrete_tpu_torch.core import keygen as kg
     from concrete_tpu_torch.core import kernels as kn
     from concrete_tpu_torch.ops import fused_ntt as fn
-    from concrete_tpu_torch.core import kernels_wop as kw
     wp = specs.wop_params()
     wop = None
     if wp is not None:
@@ -1787,35 +1939,31 @@ def serve_model(name, compile_fn, draw, wrong_of, cpu_check=False):
                "pfpksk_glwe_rows": (p.glwe_dimension + 1) * (p.n_big + 1)
                * wp.pfks_level, "memory_estimates": est}
     t0 = time.perf_counter()
-    with timed_calls({"bsk_s": (kg, "make_bsk"),
-                      "ksk_s": (kg, "make_ksk")}) as keygen_parts:
-        circuit.keygen(seed=SEED)
-        if wp is not None:          # the PFPKSK, on its own line below
-            t1 = time.perf_counter()
-            circuit.keys.wop_keys(wp)
-            keygen_parts.seconds["pfpksk_s"] = time.perf_counter() - t1
+    circuit.keygen(seed=SEED)           # the BSK's bodies on the card
+    if wp is not None:      # the PFPKSK, made and split on the card
+        circuit.keys.wop_evaluation(wp, device=circuit.device)
     keygen_s = time.perf_counter() - t0
+    keygen_parts = setup_parts(circuit.keys.setup_seconds)
     checks = same_inputs(name)
     t0 = time.perf_counter()
     with timed_calls({"ksk_split_and_upload_s": (kn, "pack_ksk"),
                       "banded_bsk_s": (kn, "pack_bsk"),
-                      "fused_bsk_s": (fn, "pack_bsk_fused"),
-                      "pfpksk_upload_and_split_s": (kw, "pack_pfpksk"),
-                      "pfpksk_split_s": (kw, "split_u64_limbs")}) \
+                      "fused_bsk_s": (fn, "pack_bsk_fused")}) \
             as pack_parts, checks:
         ev = circuit._evaluation_keys()    # what Circuit.run serves on
         torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     if wop is not None:
-        parts = pack_parts.seconds
-        parts["pfpksk_upload_s"] = parts["pfpksk_upload_and_split_s"] \
-            - parts["pfpksk_split_s"]
+        pf = circuit.keys.setup_seconds["pfpksk"]
+        wop["pfpksk_setup_s"] = dict(pf)
         print(f"model {name}: WoP gadgets (cbs_level, cbs_base_log, "
               f"pfks_level, pfks_base_log) {wop['gadgets']}, extracted bits "
               f"{wop['nb_bits']}, PFPKSK {wop['pfpksk_glwe_rows']} GLWE "
-              f"rows, generated in {keygen_parts.seconds['pfpksk_s']:.2f} s; "
-              f"its split {parts['pfpksk_split_s']:.3f} s and upload "
-              f"{parts['pfpksk_upload_s']:.3f} s on the card; modeled bytes "
+              f"rows made on the card in {pf['wall_s'] + pf['pack_s']:.2f} "
+              f"s: draws {pf['draws_s']:.2f} s of host threads' time, "
+              f"product {pf['product_s']:.2f} s on the card (uploads "
+              f"included), pack (the limb split on the card) "
+              f"{pf['pack_s']:.3f} s; modeled bytes "
               f"{wop['memory_estimates']}", flush=True)
     t0 = time.perf_counter()
     with checks:
@@ -1910,7 +2058,7 @@ def serve_model(name, compile_fn, draw, wrong_of, cpu_check=False):
           f"N={p.polynomial_size} l={p.pbs_level} base 2^{p.pbs_base_log}, "
           f"{specs.message_bits}-bit messages, {key_form(ev[1])}; "
           f"compile {compile_s:.3f} s, keygen {keygen_s:.2f} s "
-          f"({ {k: round(v, 2) for k, v in keygen_parts.seconds.items()} }), "
+          f"({keygen_parts}), "
           f"pack {pack_s:.3f} s "
           f"({ {k: round(v, 3) for k, v in pack_parts.seconds.items()} }); "
           f"{lookups} lookups a request; lookup nodes by "
@@ -1936,7 +2084,7 @@ def serve_model(name, compile_fn, draw, wrong_of, cpu_check=False):
     return {"params": str(p), "message_bits": specs.message_bits,
             "phase_s": time.perf_counter() - start,
             "bsk": key_form(ev[1]), "compile_s": compile_s,
-            "keygen_s": keygen_s, "keygen_parts_s": keygen_parts.seconds,
+            "keygen_s": keygen_s, "keygen_parts_s": keygen_parts,
             "pack_s": pack_s, "pack_parts_s": pack_parts.seconds,
             "lookups_per_request": lookups, "forms": by_form,
             "sign_pbs_forms": sorted(sign_pbs_forms),
@@ -2020,7 +2168,8 @@ def models_phase(rng):
 def multi_lookup_forms(circuit, ev) -> dict:
     """lookup_forms for a multi-partition circuit: each lookup node's
     blind rotate on its input partition's packed key and parameters, with
-    the partition (no WoP partition here: the phase refuses one)."""
+    the partition; a WoP-PBS node's count as lookup_forms gives it, its
+    launches read on the run (wop_schedule)."""
     import numpy as np
     ex = circuit.server._executor
     forms = {}
@@ -2029,6 +2178,11 @@ def multi_lookup_forms(circuit, ev) -> dict:
             continue
         pid = ex.lookup_partition(node)
         batch = max(int(np.prod(node.output.shape)), 1)
+        spec = ex.wop_specs.get(node.uid)
+        if spec is not None:
+            forms[node.uid] = (f"{node.name} in {pid}",
+                               batch * spec.nb_bits, "WoP-PBS", {})
+            continue
         forms[node.uid] = (f"{node.name} in {pid}", batch) + br_form(
             ev[1][pid], ex.params_for_width(pid), batch)
     return forms
@@ -2120,8 +2274,12 @@ def serve_multi(name, compile_fn, draw, wrong_of):
     on the exact path, where the rule's path is not exact (a truncated
     fused key, or a fused key in the acc32 mode: multi_exact_keys, run
     under int64_accumulators), beside the noise model's expected failing
-    decisions (compilation.multi.decision_failures); the rule path's
-    wrong count is printed."""
+    decisions (compilation.multi.decision_failures, which models no
+    WoP-PBS lookup); the rule path's wrong count is printed.  A WoP
+    partition (one at most) is served as serve_model serves a WoP circuit:
+    check_wop_memory before any key, its PFPKSK made and split on the
+    card, its sign PBS's and vertical packing's launches read on the run
+    (wop_schedule) and held to the design's (wop_counts)."""
     start = time.perf_counter()
     import dataclasses
     import tempfile
@@ -2141,10 +2299,26 @@ def serve_multi(name, compile_fn, draw, wrong_of):
     if not specs.is_multi or circuit.device.type != "cuda":
         fail(f"{name} compiled mono or off the card")
     ex = circuit.server._executor
-    if ex.wop_specs:
-        fail(f"{name}: a WoP partition, which this phase does not check")
+    wop_pids = sorted({ex.lookup_partition(node)
+                       for node in circuit.graph.topological_order()
+                       if node.uid in ex.wop_specs})
+    if len(wop_pids) > 1:
+        fail(f"{name}: WoP lookups in partitions {wop_pids}; this phase "
+             f"reads the sign PBS's launches on one partition's key")
+    wop = None
+    if wop_pids:
+        est = circuit.server.check_wop_memory()    # before any key exists
+        wpid = wop_pids[0]
+        wpp = specs.partitions[wpid]
+        wop = {"partition": wpid, "params": str(wpp),
+               "gadgets": list(specs.partition_wop_gadgets[wpid]),
+               "nb_bits": [s.nb_bits for s in ex.wop_specs.values()],
+               "pfpksk_glwe_rows": (wpp.glwe_dimension + 1)
+               * (wpp.n_big + 1) * specs.wop_params(wpid).pfks_level,
+               "memory_estimates": est}
     inputs, draws = covered_draws(circuit, draw, MODEL_REQUESTS)
-    model = decision_failures(circuit.graph, specs)
+    model = [r for r in decision_failures(circuit.graph, specs)
+             if r["uid"] not in ex.wop_specs]
     expected = expected_failures(model)
 
     def timed_by(cls, attr, label_of, seconds):
@@ -2164,7 +2338,8 @@ def serve_multi(name, compile_fn, draw, wrong_of):
     saved = []
     for cls, attr, label_of, seconds in (
             (ck.Keys, "generate",
-             lambda k, *a, secret_only=False: f"partition {pid_of[id(k)]}"
+             lambda k, *a, secret_only=False, **kw:
+             f"partition {pid_of[id(k)]}"
              + (" (secret only)" if secret_only else ""), keygen_parts),
             (ck.Keys, "evaluation_for",
              lambda k, *a, **kw: f"partition {pid_of[id(k)]}", pack_parts),
@@ -2181,6 +2356,15 @@ def serve_multi(name, compile_fn, draw, wrong_of):
         keygen_s = time.perf_counter() - t0
         keygen_parts["conversion keys"] = keygen_s - sum(
             keygen_parts.values())
+        if wop is not None:     # the PFPKSK, made and split on the card
+            t0 = time.perf_counter()
+            circuit.keys.wop_evaluation_for(
+                wpid, specs.wop_params(wpid), device=circuit.device)
+            keygen_parts[f"partition {wpid} PFPKSK"] = \
+                time.perf_counter() - t0
+            keygen_s += keygen_parts[f"partition {wpid} PFPKSK"]
+        setup = {pid: setup_parts(circuit.keys.keys_for(pid).setup_seconds)
+                 for pid in specs.partitions}
         t0 = time.perf_counter()
         with checks:
             ev = circuit._evaluation_keys()    # what Circuit.run serves on
@@ -2213,18 +2397,29 @@ def serve_multi(name, compile_fn, draw, wrong_of):
     encrypted = [circuit.encrypt(*x) for x in inputs]
     encrypted = [ct if isinstance(ct, tuple) else (ct,) for ct in encrypted]
     conv = conversion_calls(ev[3])
+    wop_want = wop_counts(circuit)
+    sign_pbs_forms = set()
 
     def request(ct):
         before = dict(_build.LAUNCHES)
         t1 = time.perf_counter()
-        with conv:
+        with conv, wop_schedule() as sched:
             out = circuit.run(*ct)
         wall = time.perf_counter() - t1
         counts = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
                   if v - before.get(k, 0)}
-        if counts != want:
+        expect = dict(want)
+        if wop is not None:
+            made, wop_forms = sched.launches(ev[1][wpid], wpp)
+            if any(made.get(k, 0) != v for k, v in wop_want.items()):
+                fail(f"{name}: the WoP-PBS calls make {made}, the design "
+                     f"{wop_want}")
+            for k, v in made.items():
+                expect[k] = expect.get(k, 0) + v
+            sign_pbs_forms.update(wop_forms)
+        if counts != expect:
             fail(f"{name}: a request launched {counts}, its lookup nodes' "
-                 f"forms give {want}")
+                 f"forms and WoP-PBS calls give {expect}")
         return wall, out if isinstance(out, tuple) else (out,), counts
 
     wall, out, counts = request(encrypted[0])        # the path's run ...
@@ -2316,11 +2511,22 @@ def serve_multi(name, compile_fn, draw, wrong_of):
         f"accumulators: ROADMAP queue 3); the same ciphertexts on the "
         f"exact path (untruncated keys, int64 accumulators): {wrong} of "
         f"{values}")
+    if wop is not None:
+        pf = circuit.keys.keys_for(wpid).setup_seconds["pfpksk"]
+        wop["pfpksk_setup_s"] = dict(pf)
+        print(f"multi {name}: WoP partition {wpid} at {wpp}, gadgets "
+              f"{wop['gadgets']}, extracted bits {wop['nb_bits']}, "
+              f"check_wop_memory's estimate {wop['memory_estimates']}; "
+              f"PFPKSK {wop['pfpksk_glwe_rows']} GLWE rows made on the card: "
+              f"draws {pf['draws_s']:.2f} s of host threads' time, product "
+              f"{pf['product_s']:.2f} s, pack {pf['pack_s']:.3f} s; its sign "
+              f"PBS as {sorted(sign_pbs_forms)}", flush=True)
     print(f"multi {name}: partitions "
           f"{ {w: (r['N'], r['bsk']) for w, r in partitions.items()} }, "
           f"conversions {specs.conversions}; compile {compile_s:.3f} s, "
           f"keygen {keygen_s:.2f} s "
-          f"({ {k: round(v, 2) for k, v in keygen_parts.items()} }), pack "
+          f"({ {k: round(v, 2) for k, v in keygen_parts.items()} }; by key "
+          f"and part {setup}), pack "
           f"{pack_s:.3f} s ({ {k: round(v, 3) for k, v in pack_parts.items()} }"
           f"); {lookups} lookups a request; lookup nodes by form {by_form}; "
           f"{MODEL_REQUESTS} requests within the compiled bounds in {draws} "
@@ -2347,6 +2553,7 @@ def serve_multi(name, compile_fn, draw, wrong_of):
                             for (s, d), g in specs.conversions.items()},
             "phase_s": time.perf_counter() - start, "compile_s": compile_s,
             "keygen_s": keygen_s, "keygen_parts_s": keygen_parts,
+            "setup_by_partition": setup, "wop": wop,
             "pack_s": pack_s, "pack_parts_s": pack_parts,
             "lookups_per_request": lookups, "forms": by_form,
             "draws": draws, "wall_s": wall, "path_wrong": path_wrong,
@@ -2408,7 +2615,106 @@ def multi_phase(rng):
         "hamming_xor", lambda: ham.compile(via="xor"),
         lambda: tuple(rng.integers(0, 1 << HAMMING[1], HAMMING[0])
                       for _ in range(2)), ham_wrong)
+    out["multi_wop"] = multi_wop_phase(rng)
     return out
+
+
+def multi_wop_phase(rng):
+    """multi_wop_circuit served on the card (serve_multi), decryptions held
+    to (ts[x], tb[y])."""
+    import numpy as np
+
+    def wop_wrong(x, dec):
+        want = (MULTI_WOP_TS[x[0]], MULTI_WOP_TB[x[1]])
+        return sum(int(int(np.asarray(d)) != w)
+                   for d, w in zip(dec, want)), 2
+
+    return serve_multi(
+        "multi_wop", multi_wop_circuit,
+        lambda: (int(rng.integers(0, 4)), int(rng.integers(0, 512))),
+        wop_wrong)
+
+
+def multi_wop_circuit():
+    """(ts[x], tb[y]) on the card with a WoP partition, its partitions set
+    explicitly (the default planner puts the 9-bit lookup at N=32768, 160
+    GB of PFPKSK: ROADMAP queue 3).  The graph is the mono compile's; each
+    encrypted node's encoding width is its partition, as the planner's
+    finest cut gives them: x in 2, y in 9, tb's 6-bit output in 6 (ts's
+    stays in 2).  Partition 2 takes what the port's v0 search gives a
+    2-bit lookup, partition 9 the parameters and WoP gadgets of the mono
+    compile of tb alone, partition 6 (secret-only: no lookup reads it)
+    the v0 search's for a 6-bit lookup.  The frontier 9 -> 6 takes the
+    conversion gadget choose_fks gives a quarter of the 6-bit decode's
+    variance budget; the WoP gadgets are derived again (choose_wop_gadgets)
+    where the WoP output and that keyswitch together miss the budget."""
+    import dataclasses
+    import concrete_tpu_torch as tfhe
+    from concrete_tpu_torch import params as pp
+    from concrete_tpu_torch.compilation.circuit import Circuit
+    from concrete_tpu_torch.compilation.widths import (
+        TLU_OPS, partition_of, tlu_input_partition)
+    from concrete_tpu_torch.optimizer.v0 import (choose_fks,
+                                                 choose_wop_gadgets,
+                                                 p_error_of_variance)
+    ts = tfhe.LookupTable(MULTI_WOP_TS)
+    tb = tfhe.LookupTable(MULTI_WOP_TB)
+    ident6 = tfhe.LookupTable(list(range(64)))
+    inputset = [(i % 4, (37 * i) % 512) for i in range(40)] + [(3, 511)]
+
+    def compiled(fn, names, inputs, **kw):
+        return tfhe.compiler({n: "encrypted" for n in names})(fn).compile(
+            inputs, **kw)
+    mono = compiled(lambda x, y: (ts[x], tb[y]), ("x", "y"), inputset,
+                    parameter_selection_strategy="mono")
+    wide = compiled(lambda y: tb[y], ("y",), [y for _, y in inputset])
+    if wide.client_specs.wop_params() is None:
+        fail("tb compiled without WoP gadgets")
+    by_width = {2: compiled(lambda x: ts[x], ("x",), range(4)),
+                9: wide, 6: compiled(lambda x: ident6[x], ("x",), range(64))}
+    g, p = mono.graph, mono.client_specs.message_bits
+    widths = {partition_of(n, p) for n in g.topological_order()
+              if n.output.is_encrypted}
+    if widths != set(by_width):
+        fail(f"multi_wop: encoding widths {widths}, expected "
+             f"{set(by_width)}")
+    params = {w: c.client_specs.params for w, c in by_width.items()}
+    p_error = mono.configuration.p_error
+    conv = {}
+    for n in g.topological_order():
+        if n.name in TLU_OPS and n.output.is_encrypted:
+            src, dst = tlu_input_partition(g, n, p), partition_of(n, p)
+            if src != dst:
+                lvl, base, _ = choose_fks(
+                    params[src], params[dst],
+                    pp.safe_variance_bound(dst, p_error) / 4)
+                conv[(src, dst)] = (lvl, base)
+    if set(conv) != {(9, 6)}:
+        fail(f"multi_wop: frontiers {sorted(conv)}, expected (9, 6)")
+    gadgets = tuple(wide.client_specs.wop_gadgets)
+    lvl, base = conv[(9, 6)]
+    v_fks = pp.variance_keyswitch(params[9].n_big, base, lvl,
+                                  params[6].glwe_std ** 2)
+
+    def decode_p(g4):
+        return p_error_of_variance(6, pp.wop_output_variance(
+            params[9], 9, g4[1], g4[0], g4[3], g4[2]) + v_fks)
+    if decode_p(gadgets) > p_error:
+        wp = choose_wop_gadgets(params[9], 9, ((6, 1.0),), p_error=p_error)
+        gadgets = (wp.cbs_level, wp.cbs_base_log, wp.pfks_level,
+                   wp.pfks_base_log)
+    specs = dataclasses.replace(
+        mono.client_specs, partitions=params, conversions=conv,
+        partition_wop_gadgets={9: gadgets},
+        input_partitions=[partition_of(n, p) for n in g.ordered_inputs],
+        output_partitions=[partition_of(n, p) for n in g.ordered_outputs])
+    print(f"multi_wop: partitions (n_small, k, N, l, base_log) "
+          f"{ {w: (q.n_small, q.glwe_dimension, q.polynomial_size, q.pbs_level, q.pbs_base_log) for w, q in sorted(params.items())} }"
+          f", WoP gadgets {gadgets} on 9 (tb's mono compile: "
+          f"{tuple(wide.client_specs.wop_gadgets)}), conversions {conv}; "
+          f"the 6-bit decode after the frontier at p_error "
+          f"{decode_p(gadgets):.3g} (target {p_error})", flush=True)
+    return Circuit(mono.graph, specs, configuration=mono.configuration)
 
 
 def composition_modules(tfhe):
@@ -2720,8 +3026,9 @@ def serve_sha1(rng):
     print(f"module sha1: n_small={p.n_small} k={p.glwe_dimension} "
           f"N={p.polynomial_size} l={p.pbs_level} base 2^{p.pbs_base_log} "
           f"ks ({p.ks_level}, 2^{p.ks_base_log}); compile {compile_s:.3f} s, "
-          f"keygen {keygen_s:.2f} s, pack {pack_s:.3f} s (per norm2 "
-          f"{ {k: round(v, 3) for k, v in packs.items()} }, parts "
+          f"keygen {keygen_s:.2f} s "
+          f"({setup_parts(m.keys.setup_seconds)}), pack {pack_s:.3f} s (per "
+          f"norm2 { {k: round(v, 3) for k, v in packs.items()} }, parts "
           f"{ {k: round(v, 3) for k, v in pack_parts.seconds.items()} }); "
           f"keys per norm2 {keys_by_norm2}", flush=True)
 
@@ -2863,6 +3170,7 @@ def serve_sha1(rng):
     return {"params": str(p), "compile_s": compile_s,
             "simulated_digest": simulated, "simulate_s": simulate_s,
             "keygen_s": keygen_s,
+            "keygen_parts_s": setup_parts(m.keys.setup_seconds),
             "pack_s": pack_s, "pack_per_norm2_s": packs,
             "pack_parts_s": pack_parts.seconds,
             "keys_per_norm2": keys_by_norm2, "digest": got, "hashlib": want,
@@ -3235,6 +3543,7 @@ def tfhers_phase(rng):
                              for i in range(len(specs.outputs))],
            "bsk": key_form(ev[1]), "compile_s": compile_s,
            "keygen_s": keygen_s, "pack_s": pack_s,
+           "keygen_parts_s": setup_parts(circuit.keys.setup_seconds),
            "conversion_keys": {
                "s": conversion_s, "parts_s": conv.seconds,
                "import": [bridge._import_ksk.levels,
@@ -3258,7 +3567,8 @@ def tfhers_phase(rng):
           f"ks ({p.ks_level}, 2^{p.ks_base_log}), {specs.message_bits}-bit "
           f"messages, input width {specs.input_width(0)}, block outputs at "
           f"{rec['output_widths']} bits, {key_form(ev[1])}; compile "
-          f"{compile_s:.3f} s, keygen {keygen_s:.2f} s, pack {pack_s:.3f} s; "
+          f"{compile_s:.3f} s, keygen {keygen_s:.2f} s "
+          f"({rec['keygen_parts_s']}), pack {pack_s:.3f} s; "
           f"shared key of {TFHERS_KEY_DIM}: conversion keys "
           + (f"(levels, base_log) in {rec['conversion_keys']['import']}, "
              f"out {rec['conversion_keys']['export']}, "
@@ -3491,6 +3801,7 @@ def parallel_phase(rng):
           f"({lm['shard_width']} = N/{world} wide); phase "
           f"{time.perf_counter() - start:.1f} s", flush=True)
     return {"world": world, "ranks": recs, "launches": launches,
+            "host_products": sum(r["host_products"] for r in recs),
             "phase_s": time.perf_counter() - start}
 
 
@@ -3525,7 +3836,8 @@ def parallel_batch(rank: int) -> dict:
     params = pp.BENCH_PARAMS_4BIT_TPUOPT
     rng = np.random.default_rng(SEED)       # the same keys on every rank
     t0 = time.perf_counter()
-    sk, server_keys = kg.keygen(rng, params)
+    sk, server_keys = kg.keygen_device(rng, params,
+                                       torch.cuda.current_device())
     keygen_s = time.perf_counter() - t0
     mesh = ps.make_mesh()
     trunc = pp.choose_truncate_limbs(params, 4)
@@ -3668,7 +3980,7 @@ def parallel_limb(rank: int) -> dict:
     n, kp1 = params.polynomial_size, params.glwe_dimension + 1
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    sk, keys = kg.keygen(rng, params)
+    sk, keys = kg.keygen_device(rng, params, torch.cuda.current_device())
     keygen_s = time.perf_counter() - t0
     mesh = ls.make_limb_mesh()
     world, me = mesh.size(), mesh.get_local_rank()
@@ -3810,9 +4122,12 @@ def parallel_rank(rank: str, world: str, port: str, out_dir: str) -> None:
     init_s = time.perf_counter() - t0
     print(f"rank {rank} of {world}: devices {names}, joined and loaded in "
           f"{init_s:.1f} s", flush=True)
-    rec = {"world": world, "devices": names, "init_s": init_s,
-           "batch": parallel_batch(rank), "circuit": parallel_circuit(rank),
-           "limb": parallel_limb(rank)}
+    with host_products() as products:
+        rec = {"world": world, "devices": names, "init_s": init_s,
+               "batch": parallel_batch(rank),
+               "circuit": parallel_circuit(rank),
+               "limb": parallel_limb(rank)}
+    rec["host_products"] = products.calls
     rec["launches"] = {}
     for path in ("batch", "circuit", "limb"):
         for k, v in rec[path]["launches"].items():
@@ -4117,7 +4432,9 @@ def wop_keyed_checks(rng, clock, mix):
     cbs 3 x 2^5: its rotation phase, one key per ciphertext, and the pack
     of its 144 GGSWs), a tree phase's (pairs of ciphertexts on one key:
     repeated indices), the node-kinds circuits' N=256 and 512, and k+1=3
-    (accumulators in shared memory)."""
+    (accumulators in shared memory); then PIR over 64 rows' (16
+    ciphertexts of 11 bits, N=8192, cbs 5 x 2^3: its rotation step and
+    the pack of its 176 GGSWs), timed."""
     from concrete_tpu_torch.core import ntt as host
     b, nb = PIR_WOP_SHAPE[1], 9
     rec = check_keyed(rng, batch=b, n=4096, kp1=2, levels=3, base_log=5,
@@ -4138,58 +4455,69 @@ def wop_keyed_checks(rng, clock, mix):
     for n in (256, 512):
         check_ntt_pack(rng, n_small=4, rows=12, n=n,
                        primes=host.runtime_primes(n, 2, 6, 3), trunc_bits=0)
-    return {"rotation": rec, "tree": tree, "pack": pack}
+    b64, nb64 = PIR_64_SHAPE[1], 11
+    cbs_l, cbs_b = PIR_64_GADGETS[:2]
+    rec64 = check_keyed(rng, batch=b64, n=8192, kp1=2, levels=cbs_l,
+                        base_log=cbs_b, keys=b64 * nb64,
+                        index=[i * nb64 + nb64 - 1 for i in range(b64)],
+                        clock=clock, mix=mix, timed=True,
+                        label=": PIR 64's rotation step")
+    pack64 = check_ntt_pack(rng, n_small=b64 * nb64, rows=cbs_l * 2 * 2,
+                            n=8192, primes=host.runtime_primes(
+                                8192, 2, cbs_b, cbs_l),
+                            trunc_bits=0, clock=clock, mix=mix, timed=True)
+    return {"rotation": rec, "tree": tree, "pack": pack,
+            "rotation_pir_64": rec64, "pack_pir_64": pack64}
 
 
 def wop_phase(rng):
     """PrivateInformationRetrieval over 32 rows of 16 (a 9-bit WoP row
-    fetch) compiled by the port at the default Configuration() and served
-    on the card as the models are (serve_model: keygen with its PFPKSK,
-    the pack by part, two requests through Circuit.run within the
-    models' rule of wrong decryptions, bits equal to the archive-loaded
-    Server's, every kernel call held to its plain version on the same
-    inputs, the launches of its blind-rotate forms and vertical packing,
-    one request traced); then PIR over 64 rows compiled, its parameters
-    and set-up printed, not served."""
+    fetch at N=4096) and over 64 rows of 16 (11 bits at N=8192, its PFPKSK
+    of 65,544 GLWE rows made on the card), each compiled by the port at
+    the default Configuration() and served on the card as the models are
+    (serve_model: the memory check before any key, keygen with its
+    PFPKSK's draws, product and pack, the BSK's pack by part, two requests
+    through Circuit.run within the models' rule of wrong decryptions, held
+    on the exact key where the rule truncates, bits equal to the
+    archive-loaded Server's, every kernel call held to its plain version
+    on the same inputs, the launches of its blind-rotate forms and
+    vertical packing, one request traced)."""
     import numpy as np
+    import torch
     from concrete_tpu_torch import models as tm
-    from concrete_tpu_torch.core import kernels_wop as kw
-    pir = tm.PrivateInformationRetrieval(rng.integers(0, 16, PIR_WOP_SHAPE))
+    out = {}
+    for name, shape in (("pir_32", PIR_WOP_SHAPE), ("pir_64", PIR_64_SHAPE)):
+        pir = tm.PrivateInformationRetrieval(rng.integers(0, 16, shape))
 
-    def wrong_of(x, dec):
-        want = np.asarray(pir.query_clear(*x)).reshape(-1)
-        got = np.concatenate([np.asarray(d).reshape(-1) for d in dec])
-        return int(np.count_nonzero(got != want)), want.size
+        def wrong_of(x, dec, pir=pir):
+            want = np.asarray(pir.query_clear(*x)).reshape(-1)
+            got = np.concatenate([np.asarray(d).reshape(-1) for d in dec])
+            return int(np.count_nonzero(got != want)), want.size
 
-    rec = serve_model("pir_32", pir.compile,
-                      lambda: (int(rng.integers(0, PIR_WOP_SHAPE[0])),),
-                      wrong_of)
-    per_request = {k: v / MODEL_REQUESTS for k, v in rec["launches"].items()}
-    print(f"PIR {PIR_WOP_SHAPE}: launches a request {per_request} "
-          f"({rec['launches'].get('ntt_forward_pack', 0)} packs of the "
-          f"circuit bootstrap's GGSWs and "
-          f"{rec['launches'].get(KEYED, 0)} keyed products in "
-          f"{MODEL_REQUESTS} requests)", flush=True)
-    big = tm.PrivateInformationRetrieval(
-        rng.integers(0, 16, PIR_COMPILED_SHAPE))
-    t0 = time.perf_counter()
-    circuit = big.compile()
-    compile_s = time.perf_counter() - t0
-    specs, p = circuit.client_specs, circuit.client_specs.params
-    wp = specs.wop_params()
-    nb = [s.nb_bits for s in circuit.server._executor.wop_specs.values()]
-    rows = (p.glwe_dimension + 1) * (p.n_big + 1) * wp.pfks_level
-    est = kw.wop_memory_estimate(wp, max(nb), PIR_COMPILED_SHAPE[1])
-    rec_big = {"params": str(p), "gadgets": specs.wop_gadgets,
-               "nb_bits": nb, "compile_s": compile_s,
-               "pfpksk_glwe_rows": rows, "memory_estimate": est}
-    print(f"PIR {PIR_COMPILED_SHAPE} compiles (not served: ROADMAP queue 1 "
-          f"waits on its set-up): {p}, WoP gadgets {specs.wop_gadgets}, "
-          f"extracted bits {nb}, compile {compile_s:.3f} s; PFPKSK {rows} "
-          f"GLWE rows, {est['pfpksk_upload']} bytes as u64 and "
-          f"{est['pfpksk']} packed; a chunk of the circuit bootstrap "
-          f"{est['chunk']} bytes", flush=True)
-    return {"pir_32": rec, "pir_64": rec_big}
+        def compiled(pir=pir, name=name):
+            circuit = pir.compile()
+            if name == "pir_64" and tuple(
+                    circuit.client_specs.wop_gadgets) != PIR_64_GADGETS:
+                fail(f"PIR 64 compiled to the gadgets "
+                     f"{circuit.client_specs.wop_gadgets}, the keyed checks "
+                     f"ran at {PIR_64_GADGETS}")
+            return circuit
+
+        torch.cuda.reset_peak_memory_stats()
+        rec = out[name] = serve_model(
+            name, compiled, lambda shape=shape: (int(rng.integers(
+                0, shape[0])),), wrong_of)
+        per_request = {k: v / MODEL_REQUESTS
+                       for k, v in rec["launches"].items()}
+        print(f"PIR {shape}: launches a request {per_request} "
+              f"({rec['launches'].get('ntt_forward_pack', 0)} packs of the "
+              f"circuit bootstrap's GGSWs and "
+              f"{rec['launches'].get(KEYED, 0)} keyed products in "
+              f"{MODEL_REQUESTS} requests); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        torch.cuda.empty_cache()
+    return out
 
 
 def wop_kind_circuits(tfhe, rng):
@@ -5148,6 +5476,11 @@ def main() -> None:
         fail(f"the kernels are too slow to serve {REQUESTS} requests within "
              f"the smoke's time limit (estimate {est_s:.0f} s)")
     mark("kernel checks")
+    # the key bodies on the card against the host's keygen; from here on,
+    # no key is made by the host's product
+    keygen = keygen_checks(rng)
+    products = host_products().__enter__()
+    mark("key bodies")
     run = serve(rng)
     # ... and in "pallas" mode, n_small steps of kernels A, 9 and the
     # recombine; then one blind rotate in each of the five modes (the
@@ -5286,11 +5619,21 @@ def main() -> None:
     mark("cli")
     par = parallel_phase(rng)
     mark("parallel")
+    products.__exit__(None, None, None)
+    if products.calls or par["host_products"]:
+        fail(f"the host's key-body product ran {products.calls} times in "
+             f"this process and {par['host_products']} in the parallel "
+             f"ranks: a key fell back from the card")
+    print("the host's key-body product on the main path: 0 calls in this "
+          "process and in the parallel ranks (every BSK and PFPKSK body "
+          "they made computed on the card; the CLI's subprocesses are not "
+          "counted)", flush=True)
     # the models, multi, module, wop, bigint, tfhers, scheduler and parallel
     # phases' own launches of the kernels that their lookups ran
     model_launches = {}
     for rec in list(models.values()) + list(multi.values()) \
-            + [module, wop["pir_32"], bigint, bridge, scheduler, par]:
+            + [module, wop["pir_32"], wop["pir_64"], bigint, bridge,
+               scheduler, par]:
         for k, v in rec["launches"].items():
             model_launches[k] = model_launches.get(k, 0) + v
 
@@ -5406,6 +5749,7 @@ def main() -> None:
                    "serve_mlp": mlp, "direct_lookups": direct,
                    "compiled": compiled, "models": models,
                    "multi": multi, "module": module, "kinds": kinds,
+                   "key_bodies": keygen,
                    "wop": wop, "wop_kernels": keyed, "bigint": bigint,
                    "tfhers": bridge, "scheduler": scheduler, "cli": cli,
                    "parallel": par,

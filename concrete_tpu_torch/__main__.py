@@ -115,7 +115,7 @@ def main(argv=None) -> int:
 
     if args.cmd == "keygen":
         keys = Keys(specs.params)
-        keys.generate(args.seed)
+        keys.generate(args.seed, device=device)
         keys.save(args.output)
         print(f"keys -> {args.output}")
         return 0

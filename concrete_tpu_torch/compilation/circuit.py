@@ -50,7 +50,7 @@ class Circuit:
                              pbs_widths=self._pbs_widths())
         else:
             keys = Keys(specs.params, cache_directory=cache)
-        self.client = Client(specs, keys)
+        self.client = Client(specs, keys, device=self.device)
         # the server refuses an unported node kind here, before any key is
         # generated
         self.server = Server(graph, specs, device=self.device)

@@ -24,18 +24,21 @@ from concrete_tpu_torch.dtypes import Integer
 
 
 class Client:
-    def __init__(self, specs: ClientSpecs, keys=None):
+    def __init__(self, specs: ClientSpecs, keys=None, device=None):
         """`keys`: a ``Keys`` (mono) or ``MultiKeys``; by default a new
-        keyset for the specs (every partition's full keys if multi)."""
+        keyset for the specs (every partition's full keys if multi).
+        `device`: where the key bodies are computed (``Keys.generate``;
+        None: CUDA, which a key generation then needs)."""
         self.specs = specs
         if keys is None:
             keys = MultiKeys(specs.partitions, specs.conversions or {}) \
                 if specs.is_multi else Keys(specs.params)
         self.keys = keys
+        self.device = device
 
     def keygen(self, force: bool = False, seed: Optional[int] = None) -> None:
         if force or not self.keys.are_generated:
-            self.keys.generate(seed)
+            self.keys.generate(seed, device=self.device)
 
     @property
     def evaluation_keys(self):
@@ -49,7 +52,7 @@ class Client:
             return EvaluationKeys.from_keys(self.keys)
         wp = self.specs.wop_params()
         if wp is not None:
-            self.keys.wop_keys(wp)
+            self.keys.wop_keys(wp, device=self.device)
         return self.keys.evaluation_keys
 
     def encrypt(self, *args, compress: bool = False):

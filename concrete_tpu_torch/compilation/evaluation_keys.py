@@ -42,7 +42,7 @@ class EvaluationKeys:
                 "(per-partition packed keys) directly")
         return cls(params=keys.params, bsk=np.asarray(keys.server.bsk),
                    ksk=np.asarray(keys.server.ksk),
-                   pfpksk=dict(keys._pfpksk))
+                   pfpksk=keys.host_pfpksks())
 
     def packed(self, message_bits: Optional[int] = None, norm2: float = 1,
                device=None, wop_params=None):

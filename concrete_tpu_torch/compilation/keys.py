@@ -16,6 +16,15 @@ never cached.
 The device packs are built at first use and cached; one lock per keyset
 guards each cache, so that concurrent first calls (``Circuit.run_async``
 on the scheduler's threads) build one pack and share it.
+
+The GLWE key bodies are computed on a torch device (``core.keygen.
+keygen_device``, ``core.wop.pfpksk_gen_device``): the BSK's on the
+`device` given to ``generate``, the PFPKSK's on the device it is packed
+for, where it stays (8.6 GB as u64 at PIR over 64 rows).  A PFPKSK comes
+to the host only when a caller saves or serializes it (``wop_keys``,
+``save``, the key cache, ``EvaluationKeys.from_keys``): recombined from
+its packed limbs, which hold it exactly.  ``setup_seconds`` keeps the
+last generation's parts: draws, product, pack.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import io
 import json
 import os
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -58,6 +68,12 @@ def pack_evaluation(params: CryptoParams, bsk: np.ndarray, ksk: np.ndarray,
                                    device=device)
 
 
+def _synchronize(device) -> None:
+    if device.type == "cuda":
+        import torch
+        torch.cuda.synchronize(device)
+
+
 class Keys:
     """Client secret keys + server evaluation keys for one parameter set."""
 
@@ -77,6 +93,10 @@ class Keys:
         self._packed_pfpksk: dict = {}
         # held while a pack is built: concurrent first calls build it once
         self._pack_lock = threading.RLock()
+        #: seconds of the last key generation by key and part ("bsk":
+        #: draws, product, copy to the host; the KSK's; "pfpksk": draws,
+        #: product, pack) and of the last BSK pack
+        self.setup_seconds: dict = {}
 
     @classmethod
     def from_arrays(cls, params: CryptoParams, lwe_small, glwe, bsk,
@@ -94,11 +114,13 @@ class Keys:
 
     def generate(self, seed: Optional[int] = None,
                  glwe_key: Optional[np.ndarray] = None,
-                 secret_only: bool = False) -> None:
+                 secret_only: bool = False, device=None) -> None:
         """All key material from the ChaCha20 CSPRNG, seeded from
         os.urandom by default and deterministically from `seed`; with a
         cache directory, loaded from its file where one exists, else
-        generated and saved there.
+        generated and saved there.  The BSK's bodies are computed on
+        `device` (None: CUDA, which must then be available), bit for bit
+        the host numpy keygen's from the same seed.
 
         `glwe_key` injects an externally shared big secret key; such a
         keyset is never cached.  `secret_only` skips the evaluation keys
@@ -127,8 +149,12 @@ class Keys:
             self._secret = SecretKeys(lwe_small=sk_small, glwe=gsk)
             self._server = None
         else:
-            self._secret, self._server = kg.keygen(rng, self.params,
-                                                   glwe_key=glwe_key)
+            timings = {}
+            self._secret, self._server = kg.keygen_device(
+                rng, self.params, resolve_device(device), glwe_key=glwe_key,
+                timings=timings)
+            ksk_s = timings.pop("ksk_s")
+            self.setup_seconds = {"bsk": timings, "ksk_s": ksk_s}
         self._packed = {}
         self._pfpksk = {}
         self._packed_pfpksk = {}
@@ -171,43 +197,92 @@ class Keys:
         key = (message_bits, float(norm2), str(device))
         with self._pack_lock:
             if key not in self._packed:
+                t0 = time.perf_counter()
                 self._packed[key] = pack_evaluation(
                     self.params, self.server.bsk, self.server.ksk,
                     message_bits, norm2, device)
+                _synchronize(device)
+                self.setup_seconds["pack_s"] = time.perf_counter() - t0
             return self._packed[key]
 
-    def wop_keys(self, wop_params) -> np.ndarray:
-        """The u64 PFPKSK of `wop_params`' pfks gadget, generated at first
-        use (``core/wop.pfpksk_gen`` from the ChaCha20 CSPRNG seeded from
+    def _make_pfpksk(self, wop_params, device):
+        """A new PFPKSK's u64 bits on `device` (``core/wop.
+        pfpksk_gen_device`` from the ChaCha20 CSPRNG seeded from
         os.urandom, as the JAX package's ``Keys.wop_evaluation`` does)."""
         from concrete_tpu_torch.core import wop
         from concrete_tpu_torch.utils.csprng import SecureGenerator
         self._require()
+        timings = {}
+        key = wop.pfpksk_gen_device(SecureGenerator(), self._secret,
+                                    wop_params, device, timings=timings)
+        self.setup_seconds["pfpksk"] = timings
+        return key
+
+    def wop_keys(self, wop_params, device=None) -> np.ndarray:
+        """The u64 PFPKSK of `wop_params`' pfks gadget on the host, for a
+        caller that saves or ships it: the packed key's bits, the key made
+        and packed first on `device` (None: CUDA) where there is none."""
+        self._require()
         key = (wop_params.pfks_level, wop_params.pfks_base_log)
         with self._pack_lock:
-            if key not in self._pfpksk:
-                self._pfpksk[key] = wop.pfpksk_gen(
-                    SecureGenerator(), self._secret, wop_params).pfpksk
-                if self.cache_directory is not None \
-                        and not self._foreign_key:
-                    # refresh the cached keyset so that the PFPKSK is not
-                    # generated again (never one from an injected key)
-                    path = self._cache_path(self._seed)
-                    if os.path.exists(path):
-                        self.save(path)
-            return self._pfpksk[key]
+            if key not in self.host_pfpksks():
+                self.wop_evaluation(wop_params, device)
+            return self.host_pfpksks()[key]
+
+    def _refresh_cache(self) -> None:
+        """Write the cached keyset again, so that a new PFPKSK is not
+        generated again (never one from an injected key)."""
+        if self.cache_directory is not None and not self._foreign_key:
+            path = self._cache_path(self._seed)
+            if os.path.exists(path):
+                self.save(path)
 
     def wop_evaluation(self, wop_params, device=None):
         """The PFPKSK packed as int8 limb planes on `device` (default
-        CUDA), generated lazily per pfks gadget; cached."""
+        CUDA); cached.  One key per pfks gadget: packed from the host copy
+        where there is one (a loaded keyset), else copied from its pack on
+        another device, else made on `device` and handed to the pack there
+        (``kernels_wop.pack_pfpksk``)."""
         from concrete_tpu_torch.core import kernels_wop as kw
         device = resolve_device(device)
-        key = (wop_params.pfks_level, wop_params.pfks_base_log, str(device))
+        gadget = (wop_params.pfks_level, wop_params.pfks_base_log)
+        key = gadget + (str(device),)
         with self._pack_lock:
-            if key not in self._packed_pfpksk:
-                self._packed_pfpksk[key] = kw.pack_pfpksk(
-                    self.wop_keys(wop_params), wop_params, device=device)
-            return self._packed_pfpksk[key]
+            if key in self._packed_pfpksk:
+                return self._packed_pfpksk[key]
+            other = next((p for k, p in self._packed_pfpksk.items()
+                          if k[:2] == gadget), None)
+            if gadget in self._pfpksk:
+                packed = kw.pack_pfpksk(self._pfpksk[gadget], wop_params,
+                                        device=device)
+            elif other is not None:
+                packed = dataclasses.replace(
+                    other, planes=other.planes.to(device))
+            else:
+                made = self._make_pfpksk(wop_params, device)
+                t0 = time.perf_counter()
+                packed = kw.pack_pfpksk(made, wop_params, device=device)
+                del made
+                _synchronize(device)
+                self.setup_seconds["pfpksk"]["pack_s"] = \
+                    time.perf_counter() - t0
+            self._packed_pfpksk[key] = packed
+            if other is None and gadget not in self._pfpksk:
+                self._refresh_cache()
+            return packed
+
+    def host_pfpksks(self) -> dict:
+        """Every PFPKSK of the keyset as u64 on the host, by (level,
+        base_log): the packed ones' bits copied back where needed."""
+        from concrete_tpu_torch.core import kernels_wop as kw
+        self._require()
+        with self._pack_lock:
+            for (lev, base, dev), packed in list(
+                    self._packed_pfpksk.items()):
+                if (lev, base) not in self._pfpksk:
+                    self._pfpksk[(lev, base)] = kw.unpack_pfpksk(
+                        packed, self.params.n_big + 1)
+            return dict(self._pfpksk)
 
     def _require(self):
         if self._secret is None:
@@ -226,7 +301,7 @@ class Keys:
         if self._server is not None:
             out["bsk"] = self._server.bsk
             out["ksk"] = self._server.ksk
-        for (lev, base), pfpksk in self._pfpksk.items():
+        for (lev, base), pfpksk in self.host_pfpksks().items():
             out[f"pfpksk_{lev}_{base}"] = pfpksk
         return out
 
@@ -290,11 +365,12 @@ class MultiKeys:
         return all(k.are_generated for k in self._keys.values()) \
             and set(self._fks) == set(self.conversions)
 
-    def generate(self, seed: Optional[int] = None) -> None:
+    def generate(self, seed: Optional[int] = None, device=None) -> None:
         """Each partition's keyset from its own seed (seed + 7919 w, so
-        that partitions of equal parameters never share secrets), then the
-        conversion keys in order from one stream seeded seed + 13: src's
-        big key to dst's big key at dst's GLWE noise.  With a cache
+        that partitions of equal parameters never share secrets), its BSK
+        computed on `device` (None: CUDA), then the conversion keys in
+        order from one stream seeded seed + 13: src's big key to dst's big
+        key at dst's GLWE noise (LWE keys: host numpy).  With a cache
         directory, loaded from its file where one exists, else saved
         there."""
         from concrete_tpu_torch.utils.csprng import SecureGenerator
@@ -305,7 +381,7 @@ class MultiKeys:
                 return
         for w, keys in self._keys.items():
             keys.generate(None if seed is None else seed + 7919 * w,
-                          secret_only=not self._needs_eval(w))
+                          secret_only=not self._needs_eval(w), device=device)
         self._fks = {}
         self._packed_fks = {}
         rng = SecureGenerator(None if seed is None else seed + 13)

@@ -172,9 +172,11 @@ class FheFunction:
 class FheModule:
     """A set of compiled functions sharing one keyset (composable)."""
 
-    def __init__(self, functions: dict[str, FheFunction], keys: Keys):
+    def __init__(self, functions: dict[str, FheFunction], keys: Keys,
+                 device=None):
         self._functions = functions
         self.keys = keys
+        self.device = device      # where keygen computes the key bodies
 
     def __getattr__(self, name):
         fns = object.__getattribute__(self, "_functions")
@@ -188,7 +190,7 @@ class FheModule:
 
     def keygen(self, force: bool = False, seed: Optional[int] = None):
         if force or not self.keys.are_generated:
-            self.keys.generate(seed)
+            self.keys.generate(seed, device=self.device)
 
 
 class ModuleCompiler:
@@ -316,11 +318,11 @@ class ModuleCompiler:
                 output_widths=[output_encoding_width(n, p)
                                for n in g.ordered_outputs],
                 wop_gadgets=wop_gadgets if wop_triples else None)
-            client = Client(specs, keys)
+            client = Client(specs, keys, device=device)
             functions[name] = FheFunction(name, g, specs, client,
                                           configuration=config,
                                           device=device)
-        return FheModule(functions, keys)
+        return FheModule(functions, keys, device=device)
 
 
 def module():

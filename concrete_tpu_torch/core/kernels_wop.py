@@ -42,7 +42,9 @@ values are int64 tensors (mod 2^64), as everywhere in the port.
   in the JAX package; ``check_wop_memory`` refuses a lookup whose chunk and
   packed PFPKSK do not fit the device's free memory before any key is
   generated or packed (the JAX package's 100 GB host-RSS fault: fail
-  fast, with the estimate).
+  fast, with the estimate).  The PFPKSK is generated on the device it is
+  packed for (``core.wop.pfpksk_gen_device``), so the estimate counts the
+  u64 key and its generation there.
 
 Shapes: B = batch, nb = extracted bits, n_big = big LWE dim, k = GLWE dim,
 N = poly size, l = gadget levels (cbs or pfks by context).
@@ -118,6 +120,24 @@ def pack_pfpksk(pfpksk, wp: WopParams, device=None) -> LimbPFPKSK:
     return LimbPFPKSK(planes=planes, base_log=wp.pfks_base_log,
                       levels=wp.pfks_level, glwe_dimension=kp1 - 1,
                       polynomial_size=n)
+
+
+def unpack_pfpksk(packed: LimbPFPKSK, n_in: int) -> np.ndarray:
+    """The u64 PFPKSK (k+1, n_in, l, k+1, N) on the host from its limb
+    planes (n_in = n_big + 1): every limb is kept, so sum_s limb_s << 8s
+    gives the key back exactly.  A row block at a time on the planes'
+    device, so no temporary of the whole key's size is made there."""
+    kp1 = packed.glwe_dimension + 1
+    n, levels = packed.polynomial_size, packed.levels
+    view = packed.planes[:n_in * levels].view(n_in, levels, kp1, kp1, n, 8)
+    out = np.empty((kp1, n_in, levels, kp1, n), dtype=np.uint64)
+    step_rows = max(1, (1 << 24) // (levels * kp1 * kp1 * n))
+    for i0 in range(0, n_in, step_rows):
+        block = view[i0:i0 + step_rows]
+        vals = lb.recombine_i32_planes_to_u64(block, axis=-1)
+        out[:, i0:i0 + step_rows] = vals.permute(2, 0, 1, 3, 4).cpu() \
+            .numpy().view(np.uint64)
+    return out
 
 
 def private_packing_keyswitch_batch(lwe_ct: torch.Tensor,
@@ -403,8 +423,13 @@ def chunk_size(wp: WopParams, nb: int) -> int:
 def wop_memory_estimate(wp: WopParams, nb: int, batch: int) -> dict:
     """Modeled device bytes of one WoP lookup of `batch` elements: its
     largest chunk's working set (the GGSWs twice, their spectra and
-    companions, the PFPKSK product's int32 planes) and the PFPKSK, packed
-    and as uploaded for the split."""
+    companions, the PFPKSK product's int32 planes), the PFPKSK packed, the
+    PFPKSK as the u64 key that is generated on the device before its
+    split (or uploaded, from a host copy: the same bytes), and the key
+    generation's working set (``core.keygen``: the key's f64 Toeplitz
+    matrices and one chunk's masks, limbs, products, messages and
+    noise)."""
+    from concrete_tpu_torch.core.keygen import CHUNK_WORDS
     params = wp.base
     kp1 = params.glwe_dimension + 1
     n = params.polynomial_size
@@ -417,9 +442,12 @@ def wop_memory_estimate(wp: WopParams, nb: int, batch: int) -> dict:
              + rows * kp1 * kp1 * n * (8 + a_limbs - 1 + 8) * 4)
     k_rows = (params.n_big + 1) * wp.pfks_level
     packed = -(-k_rows // 8) * 8 * kp1 * kp1 * n * 8
-    upload = kp1 * k_rows * kp1 * n * 8
-    return {"chunk": chunk, "pfpksk": packed, "pfpksk_upload": upload,
-            "total": chunk + packed + upload}
+    u64 = kp1 * k_rows * kp1 * n * 8
+    k = kp1 - 1
+    gen_rows = min(kp1 * k_rows, max(1, CHUNK_WORDS // (k * n)))
+    keygen = k * n * n * 8 + gen_rows * n * 8 * (k + 15)
+    return {"chunk": chunk, "pfpksk": packed, "pfpksk_u64": u64,
+            "keygen": keygen, "total": chunk + packed + u64 + keygen}
 
 
 def free_memory(device) -> int:
@@ -442,9 +470,9 @@ def check_wop_memory(wp: WopParams, nb: int, batch: int, device,
         raise MemoryError(
             f"a WoP-PBS lookup of {batch} elements at {nb} bits needs about "
             f"{est['total']} bytes on {device} (chunk {est['chunk']}, "
-            f"PFPKSK {est['pfpksk']} packed + {est['pfpksk_upload']} "
-            f"uploaded), {free} are free; lower CONCRETE_TPU_WOP_CHUNK_MB "
-            "or the batch")
+            f"PFPKSK {est['pfpksk']} packed + {est['pfpksk_u64']} as u64, "
+            f"its generation {est['keygen']}), {free} are free; lower "
+            "CONCRETE_TPU_WOP_CHUNK_MB or the batch")
     return est
 
 

@@ -76,7 +76,7 @@ def keygen_partitioned(rng, specs: dict[str, tuple[CryptoParams, int]],
     device = resolve_device(device)
     parts = {}
     for name, (params, bits) in specs.items():
-        secret, server = kg.keygen(rng, params)
+        secret, server = kg.keygen_device(rng, params, device)
         parts[name] = Partition(name=name, params=params, message_bits=bits,
                                 secret=secret, server=server, device=device)
     conv = {}

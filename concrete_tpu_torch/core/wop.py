@@ -108,6 +108,43 @@ def pfpksk_gen(rng: np.random.Generator, sk: ref.SecretKeys,
     return WopKeys(pfpksk=cts.reshape(k + 1, n_big + 1, levels, k + 1, n))
 
 
+def pfpksk_gen_device(rng, sk: ref.SecretKeys, wp: WopParams, device,
+                      timings: dict = None):
+    """``pfpksk_gen`` with the bodies' product on `device`
+    (``core.keygen.glwe_encrypt_batch_device``): the (k+1, n_big+1, levels,
+    k+1, N) int64 PFPKSK there, bit for bit the host's from the same
+    generator.  Row ((r (n_big+1) + i) levels + j) encrypts in_coeffs[i]
+    v_r g_j; the messages are made on the device a chunk at a time (4.3 GB
+    at PIR over 64 rows, never whole)."""
+    import torch
+
+    from concrete_tpu_torch.core import keygen as kg
+    device = torch.device(device)
+    params = wp.base
+    k, n = sk.glwe.shape
+    n_in = params.n_big + 1
+    levels = wp.pfks_level
+    gsk = torch.from_numpy(np.asarray(sk.glwe, dtype=np.int64)).to(device)
+    e0 = torch.zeros((1, n), dtype=torch.int64, device=device)
+    e0[0, 0] = 1
+    v_polys = torch.cat([-gsk, e0])                      # (k+1, N)
+    in_coeffs = torch.cat([-torch.from_numpy(np.asarray(
+        sk.lwe_big, dtype=np.int64)), torch.ones(1, dtype=torch.int64)]
+    ).to(device)                                         # (n_big+1,)
+    g = kg.gadget_i64(wp.pfks_base_log, levels).to(device)
+
+    def messages(r0, r1):
+        q = torch.arange(r0, r1, device=device)
+        r, i, j = q // (n_in * levels), (q // levels) % n_in, q % levels
+        return (in_coeffs[i] * g[j])[:, None] * v_polys[r]
+
+    rows = (k + 1) * n_in * levels
+    cts = kg.glwe_encrypt_batch_device(rng, sk.glwe, rows, messages,
+                                       params.glwe_std, device,
+                                       timings=timings)
+    return cts.view(k + 1, n_in, levels, k + 1, n)
+
+
 def private_packing_keyswitch(lwe_ct: np.ndarray, pfpksk_r: np.ndarray,
                               base_log: int, levels: int) -> np.ndarray:
     """One LWE (big key) -> GLWE with the message multiplied by the key's

@@ -78,13 +78,13 @@ class Bridge:
             if (not force and keys.are_generated
                     and np.array_equal(keys.secret.lwe_big, key.ravel())):
                 return  # already generated from this exact shared key
-            keys.generate(glwe_key=key)
+            keys.generate(glwe_key=key, device=self.circuit.device)
             self._shared_key = key.ravel()
             self._import_ksk = self._export_ksk = None
             return
         # differing dimension: own keys + two conversion KSKs
         if force or not keys.are_generated:
-            keys.generate()
+            keys.generate(device=self.circuit.device)
         self._shared_key = key.ravel()
         self._build_conversion_keys()
 

@@ -75,19 +75,46 @@ class ChaCha20Stream:
         v = int.from_bytes(self.nonce, "little") + 1
         self.nonce = (v % (1 << 96)).to_bytes(12, "little")
 
-    def random_bytes(self, n: int) -> bytes:
+    def reserve(self, n: int) -> tuple:
+        """Advance the stream past the `n` bytes that ``random_bytes(n)``
+        would return, without making them; returns where they start,
+        (nonce, block counter), for ``bytes_at``.  A draw that is made
+        later, or in parts on other threads, is then bit for bit the one
+        the stream would have made here."""
         # the 32-bit block counter covers 256 GiB per nonce; advance the
         # nonce before it wraps so keystream (thus LWE masks) never repeats
         blocks = (n + 63) // 64
         if blocks > 0xFFFFFFFF - self.counter:
             self._bump_nonce()
             self.counter = 0
-        out = ctypes.create_string_buffer(n)
-        self.counter = self._lib.chacha20_fill(
-            self.seed, self.counter, self.nonce, out, n)
+        start = (self.nonce, self.counter)
+        self.counter = (self.counter + blocks) & 0xFFFFFFFF
         if self.counter == 0 and blocks:
             self._bump_nonce()
-        return out.raw
+        return start
+
+    def bytes_at(self, start: tuple, offset: int, n: int) -> bytes:
+        """`n` bytes at byte `offset` of a reserved region (``reserve``'s
+        `start`): a seek, since the keystream is counter-based."""
+        nonce, counter = start
+        skip = offset % 64
+        out = ctypes.create_string_buffer(skip + n)
+        self._lib.chacha20_fill(self.seed, counter + offset // 64, nonce,
+                                out, skip + n)
+        return out.raw[skip:]
+
+    def words_at(self, start: tuple, offset: int, count: int) -> np.ndarray:
+        """``bytes_at`` as `count` u64 words at word `offset`, written by
+        the keystream straight into a new (writable) array."""
+        nonce, counter = start
+        skip = offset % 8
+        out = np.empty(skip + count, dtype=np.uint64)
+        self._lib.chacha20_fill(self.seed, counter + offset // 8, nonce,
+                                out.ctypes.data, 8 * (skip + count))
+        return out[skip:]
+
+    def random_bytes(self, n: int) -> bytes:
+        return self.bytes_at(self.reserve(n), 0, n)
 
     def random_u64(self, shape) -> np.ndarray:
         n = int(np.prod(shape)) if shape else 1

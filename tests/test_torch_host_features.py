@@ -146,21 +146,21 @@ def _same_keys(a, b):
 def test_keys_cache_writes_reloads_and_reuses(tmp_path, secret_only):
     d = str(tmp_path)
     first = TKeys(_tp(TEST_PARAMS_TINY), cache_directory=d)
-    first.generate(seed=5, secret_only=secret_only)
+    first.generate(seed=5, secret_only=secret_only, device="cpu")
     files = os.listdir(d)
     assert len(files) == 1 and files[0].startswith("keys_")
     path = os.path.join(d, files[0])
     assert path == first._cache_path(5, secret_only)
     stamp = os.path.getmtime(path)
     again = TKeys(_tp(TEST_PARAMS_TINY), cache_directory=d)
-    again.generate(seed=5, secret_only=secret_only)
+    again.generate(seed=5, secret_only=secret_only, device="cpu")
     assert os.listdir(d) == files and os.path.getmtime(path) == stamp
     _same_keys(again, first)
     # the JAX package names the same keyset's file the same way
     assert os.path.basename(path) == os.path.basename(JKeys(
         TEST_PARAMS_TINY, cache_directory=d)._cache_path(5, secret_only))
     other = TKeys(_tp(TEST_PARAMS_TINY), cache_directory=d)
-    other.generate(seed=6, secret_only=secret_only)
+    other.generate(seed=6, secret_only=secret_only, device="cpu")
     assert len(os.listdir(d)) == 2
 
 
@@ -170,13 +170,19 @@ def test_keys_cache_file_loads_in_the_other_package(tmp_path, writer):
     jkeys = JKeys(TEST_PARAMS_TINY, cache_directory=d)
     tkeys = TKeys(_tp(TEST_PARAMS_TINY), cache_directory=d)
     first, second = (jkeys, tkeys) if writer == "jax" else (tkeys, jkeys)
-    first.generate(seed=9)
+    first.generate(seed=9, **_on_cpu(first))
     files = sorted(os.listdir(d))
     stamp = os.path.getmtime(os.path.join(d, files[0]))
-    second.generate(seed=9)
+    second.generate(seed=9, **_on_cpu(second))
     assert sorted(os.listdir(d)) == files
     assert os.path.getmtime(os.path.join(d, files[0])) == stamp
     _same_keys(tkeys, jkeys)
+
+
+def _on_cpu(keys) -> dict:
+    """The port's keygen on the CPU (its default device is the card)."""
+    return {"device": "cpu"} if isinstance(keys, (TKeys, TMultiKeys)) \
+        else {}
 
 
 def _multi(pkg, d):
@@ -202,13 +208,13 @@ def test_multikeys_cache_writes_reloads_and_crosses(tmp_path, writer):
     conversion key; reloaded by the same package and by the other."""
     d = str(tmp_path)
     first = _multi(fhe if writer == "jax" else tfhe, d)
-    first.generate(seed=13)
+    first.generate(seed=13, **_on_cpu(first))
     files = os.listdir(d)
     assert len(files) == 1 and files[0].startswith("multikeys_")
     stamp = os.path.getmtime(os.path.join(d, files[0]))
     for pkg in (fhe, tfhe):
         again = _multi(pkg, d)
-        again.generate(seed=13)
+        again.generate(seed=13, **_on_cpu(again))
         _same_multi(again, first)
         assert again.keys_for(3)._server is None
     assert os.listdir(d) == files
@@ -227,16 +233,16 @@ def test_foreign_keyset_never_cached(tmp_path):
     PFPKSK, never reach the cache."""
     d = str(tmp_path)
     normal = TKeys(_tp(TEST_PARAMS_TINY_WIDE), cache_directory=d)
-    normal.generate(seed=None)
+    normal.generate(seed=None, device="cpu")
     files = {f: os.path.getmtime(os.path.join(d, f)) for f in os.listdir(d)}
     assert files
     shared = np.random.default_rng(0).integers(
         0, 2, (TEST_PARAMS_TINY_WIDE.glwe_dimension,
                TEST_PARAMS_TINY_WIDE.polynomial_size)).astype(np.uint64)
     foreign = TKeys(_tp(TEST_PARAMS_TINY_WIDE), cache_directory=d)
-    foreign.generate(seed=None, glwe_key=shared)
+    foreign.generate(seed=None, glwe_key=shared, device="cpu")
     assert np.array_equal(foreign.secret.glwe, shared)
-    foreign.wop_keys(_wop_params(tfhe))
+    foreign.wop_keys(_wop_params(tfhe), device="cpu")
     assert {f: os.path.getmtime(os.path.join(d, f))
             for f in os.listdir(d)} == files
 
@@ -246,10 +252,10 @@ def test_cached_keyset_keeps_its_pfpksk(tmp_path):
     keyset's cache file, and a reload takes it instead of a new one."""
     d = str(tmp_path)
     keys = TKeys(_tp(TEST_PARAMS_TINY_WIDE), cache_directory=d)
-    keys.generate(seed=21)
-    pfpksk = keys.wop_keys(_wop_params(tfhe))
+    keys.generate(seed=21, device="cpu")
+    pfpksk = keys.wop_keys(_wop_params(tfhe), device="cpu")
     again = TKeys(_tp(TEST_PARAMS_TINY_WIDE), cache_directory=d)
-    again.generate(seed=21)
+    again.generate(seed=21, device="cpu")
     assert np.array_equal(again._pfpksk[(8, 4)], pfpksk)
     # and the JAX package reads it from the same file
     jkeys = JKeys(TEST_PARAMS_TINY_WIDE, cache_directory=d)

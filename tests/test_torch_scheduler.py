@@ -200,7 +200,7 @@ def test_first_evaluation_for_calls_pack_once(monkeypatch):
     """Many threads' first Keys.evaluation_for at once leave one pack in
     the cache, and every thread gets it."""
     keys = tkeys.Keys(TINY)
-    keys.generate(seed=9)
+    keys.generate(seed=9, device="cpu")
     slow = _SlowFirstCall()
     monkeypatch.setattr(tkeys, "pack_evaluation", slow)
     got = _race(lambda: keys.evaluation_for(3, device="cpu"))
@@ -213,7 +213,7 @@ def test_first_conversion_key_calls_split_once(monkeypatch):
     """MultiKeys.conversion_key from many threads at once: one split."""
     from concrete_tpu_torch.core import kernels_wop
     mk = tkeys.MultiKeys({2: TINY, 3: TINY}, {(2, 3): (2, 8)})
-    mk.generate(seed=4)
+    mk.generate(seed=4, device="cpu")
     real = kernels_wop.split_u64_limbs
     slow = _SlowFirstCall()
 

@@ -236,7 +236,7 @@ def test_mlp_server_run_matches_reference(tmp_path):
 
 def test_client_roundtrip_and_validation(deployment):
     server = tfhe.Server.load(deployment["archive"], device="cpu")
-    client = tfhe.Client(server.client_specs)
+    client = tfhe.Client(server.client_specs, device="cpu")
     with pytest.raises(RuntimeError):
         client.decrypt(deployment["cts"][0])
     client.keygen(seed=3)
@@ -254,7 +254,7 @@ def test_client_roundtrip_and_validation(deployment):
                          ids=["tiny", "tiny_wide"])
 def test_keys_generate_matches_reference(params):
     tk = TKeys(_tparams(params))
-    tk.generate(seed=11)
+    tk.generate(seed=11, device="cpu")
     jk = JKeys(params)
     jk.generate(seed=11)
     for name in ("lwe_small", "glwe"):

@@ -372,13 +372,21 @@ def test_chunks_give_the_same_bits(keyset, monkeypatch):
 
 def test_memory_refusal_before_any_allocation(monkeypatch):
     """The 12-bit lookup at N=16384, cbs_level 8 (the JAX package's 100 GB
-    host-RSS fault) is refused with its estimate; nothing is allocated."""
+    host-RSS fault) is refused with its estimate; nothing is allocated.
+    The estimate counts the PFPKSK generated on the device: its u64 key
+    beside the packed one, and the generation's Toeplitz matrix (2 GiB
+    of f64 at N=16384) and chunk."""
     params = dataclasses.replace(P, n_small=900, glwe_dimension=1,
                                  polynomial_size=16384)
     wp = wop.WopParams(base=params, cbs_level=8, cbs_base_log=4,
                        pfks_level=4, pfks_base_log=8)
     est = kw.wop_memory_estimate(wp, 12, 64)
     assert est["chunk"] > 1 << 30 and est["pfpksk"] > 8 << 30
+    rows = 2 * (params.n_big + 1) * 4
+    assert est["pfpksk_u64"] == rows * 2 * 16384 * 8
+    assert est["keygen"] > 16384 * 16384 * 8
+    assert est["total"] == est["chunk"] + est["pfpksk"] \
+        + est["pfpksk_u64"] + est["keygen"]
 
     def no_alloc(*args, **kwargs):
         raise AssertionError("allocated")

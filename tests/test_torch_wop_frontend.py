@@ -347,5 +347,5 @@ def test_pir_compiles_to_reference(tmp_path, rows):
     kp1 = p.glwe_dimension + 1
     assert kp1 * (p.n_big + 1) * wp.pfks_level == {32: 32776, 64: 65544}[rows]
     est = kw.wop_memory_estimate(wp, nb, 1)
-    assert est["pfpksk_upload"] == kp1 * (p.n_big + 1) * wp.pfks_level \
+    assert est["pfpksk_u64"] == kp1 * (p.n_big + 1) * wp.pfks_level \
         * kp1 * p.polynomial_size * 8

@@ -112,7 +112,7 @@ def _profile_latency(card: str) -> dict:
     from concrete_tpu_torch.core import refimpl as ref
     params = pp.BENCH_PARAMS_4BIT_TPUOPT
     rng = np.random.default_rng(1)
-    sk, server_keys = kg.keygen(rng, params)
+    sk, server_keys = kg.keygen_device(rng, params, "cuda")
     trunc = pp.choose_truncate_limbs(params, 4)
     ksk = kn.pack_ksk(server_keys.ksk, params, device="cuda")
     bsk = kn.pack_bsk(server_keys.bsk, params, trunc, device="cuda")

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Run some phases of ``chip_smoke.py`` alone on one NVIDIA GPU.
 
-    python3 tools/smoke_phases.py [models] [multi] [module] [kinds] [fused]
-                                  [wop] [bigint] [tfhers] [scheduler] [cli]
-                                  [parallel]
+    python3 tools/smoke_phases.py [keygen] [models] [multi] [multi_wop]
+                                  [module] [kinds] [fused] [wop] [bigint]
+                                  [tfhers] [scheduler] [cli] [parallel]
 
 Builds the port's kernels from ``concrete_tpu_torch/csrc``, then runs the
-named phases of the smoke (``models``: the five model circuits and the
+named phases of the smoke (``keygen``: the key bodies on the card
+against the host's keygen, and the product timed; ``models``: the five
+model circuits and the
 2-key database against the CPU; ``multi``: PrimeMatch at two sizes and
-HammingDistance with via="xor", multi-partition circuits; ``module``:
+HammingDistance with via="xor", multi-partition circuits, and the
+circuit with a WoP partition (``multi_wop`` alone); ``module``:
 fhe.module's composition cases and Sha1 over encrypted words, a whole
 digest of b"abc" held to hashlib, and its digest in the default simulate
 mode on the host; ``kinds``: the node-kinds circuits;
 ``fused``: the CRT-NTT blind rotate at B <= 4 in one launch at the models'
 shapes, with its variant builds; ``wop``: the WoP vertical packing's
-kernel entries and PrivateInformationRetrieval at 32 rows served, 64
-compiled; ``bigint``: 16-bit radix addition at B=512 and a radix_mul,
+kernel entries and PrivateInformationRetrieval at 32 and 64 rows
+served; ``bigint``: 16-bit radix addition at B=512 and a radix_mul,
 radix_lt and radix_eq circuit; ``tfhers``: a TFHE-rs FheUint8 bincode round
 trip through the bridge; ``scheduler``: run_async chains and concurrent
 calls against sequential runs; ``cli``: python -m concrete_tpu_torch's
@@ -63,7 +66,8 @@ def wop_phase(rng):
             "phase": cs.wop_phase(rng)}
 
 
-PHASES = {"models": cs.models_phase, "multi": cs.multi_phase,
+PHASES = {"keygen": cs.keygen_checks, "models": cs.models_phase,
+          "multi": cs.multi_phase, "multi_wop": cs.multi_wop_phase,
           "module": cs.module_phase, "kinds": cs.kinds_phase,
           "fused": fused_phase, "wop": wop_phase,
           "bigint": cs.bigint_phase, "tfhers": cs.tfhers_phase,
