@@ -31,6 +31,7 @@ from concrete_tpu_torch.compilation.keys import Keys, MultiKeys
 from concrete_tpu_torch.compilation.server import Server
 from concrete_tpu_torch.compilation.specs import ClientSpecs
 from concrete_tpu_torch.representation import Graph
+from concrete_tpu_torch.utils import telemetry as tm
 from concrete_tpu_torch.utils.device import resolve_device
 
 
@@ -147,12 +148,15 @@ class Circuit:
         return self._run_sync(*args)
 
     def _run_sync(self, *args):
-        if self.client_specs.wop_params() is not None:
-            # fail fast, before the PFPKSK is generated or packed
-            self.server.check_wop_memory()
-        self.keygen()
-        return_tuple = self.server.run(
-            *args, evaluation_keys=self._evaluation_keys())
+        with tm.request("circuit.run") if tm.on else tm.OFF:
+            if self.client_specs.wop_params() is not None:
+                # fail fast, before the PFPKSK is generated or packed
+                self.server.check_wop_memory()
+            with tm.span("circuit.keys") if tm.on else tm.OFF:
+                self.keygen()
+                evaluation_keys = self._evaluation_keys()
+            return_tuple = self.server.run(*args,
+                                           evaluation_keys=evaluation_keys)
         return return_tuple if len(return_tuple) != 1 else return_tuple[0]
 
     def decrypt(self, *results):

@@ -14,7 +14,9 @@ resulting ``Circuit`` runs on ``device`` (None means CUDA).  Table
 lookups above the native width compile to WoP-PBS, with the JAX package's
 gadget search (``optimizer.v0.choose_wop_gadgets``) or
 ``forced_wop_parameters``.  ``artifacts`` (a ``DebugArtifacts``) gets the
-JAX package's graph, bounds, parameters and statistics files.
+JAX package's graph, bounds, parameters and statistics files.  A compile is
+the span ``compile`` (``utils/telemetry``), its stages ``compile.trace``,
+``compile.bounds``, ``compile.optimize`` and ``compile.lower``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,13 @@ from concrete_tpu_torch.compilation.configuration import Configuration
 from concrete_tpu_torch.compilation.specs import ClientSpecs
 from concrete_tpu_torch.optimizer import optimize_v0_multi
 from concrete_tpu_torch.tracing import Tracer
+from concrete_tpu_torch.utils import telemetry as tm
+
+#: the span of each stage that ``Configuration.show_progress`` names
+_STAGE_SPANS = {"tracing": "compile.trace",
+                "transforms + bounds measurement": "compile.bounds",
+                "parameter optimization": "compile.optimize",
+                "lowering": "compile.lower"}
 
 
 class Compiler:
@@ -39,6 +48,12 @@ class Compiler:
 
     def compile(self, inputset, configuration: Optional[Configuration] = None,
                 artifacts=None, device=None, **kwargs) -> Circuit:
+        with tm.span("compile") if tm.on else tm.OFF, tm.Stages() as stages:
+            return self._compile(stages, inputset, configuration, artifacts,
+                                 device, **kwargs)
+
+    def _compile(self, stages, inputset, configuration, artifacts, device,
+                 **kwargs) -> Circuit:
         config = configuration or self.configuration
         if kwargs:
             config = config.fork(**kwargs)
@@ -49,6 +64,7 @@ class Compiler:
         sample = inputset[0]
 
         def progress(stage: str):
+            stages.next(_STAGE_SPANS[stage])
             # Configuration.show_progress (reference compile-progress bar)
             if config.show_progress:
                 title = config.progress_title or self.function.__name__

@@ -45,6 +45,7 @@ from concrete_tpu_torch.core import refimpl as ref
 from concrete_tpu_torch.dtypes import Integer
 from concrete_tpu_torch.params import CryptoParams
 from concrete_tpu_torch.representation import Graph, Node, Operation
+from concrete_tpu_torch.utils import telemetry as tm
 
 _KINDS = (
     "tlu", "univariate", "multivariate", "dynamic_tlu", "crt_tlu",
@@ -726,8 +727,9 @@ class GraphExecutor:
                     runtime.add(node)
                 values[node] = node(*args)
                 continue
-            values[node] = self._run_node(node, preds, args, enc_flags,
-                                          keys, lut_polys, device, wop)
+            with tm.span("node." + name) if tm.on else tm.OFF:
+                values[node] = self._run_node(node, preds, args, enc_flags,
+                                              keys, lut_polys, device, wop)
         outs = []
         for out_node in graph.ordered_outputs:
             v = values[out_node]

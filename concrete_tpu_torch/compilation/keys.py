@@ -24,7 +24,8 @@ for, where it stays (8.6 GB as u64 at PIR over 64 rows).  A PFPKSK comes
 to the host only when a caller saves or serializes it (``wop_keys``,
 ``save``, the key cache, ``EvaluationKeys.from_keys``): recombined from
 its packed limbs, which hold it exactly.  ``setup_seconds`` keeps the
-last generation's parts: draws, product, pack.
+last generation's parts: draws, product, pack, each the duration of its
+span (``utils/telemetry``: ``keygen.*``, ``pack``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ import io
 import json
 import os
 import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -44,6 +44,7 @@ from concrete_tpu_torch.core import keygen as kg
 from concrete_tpu_torch.core import kernels as kn
 from concrete_tpu_torch.core.refimpl import SecretKeys, ServerKeys
 from concrete_tpu_torch.params import CryptoParams, choose_truncate_limbs
+from concrete_tpu_torch.utils import telemetry as tm
 from concrete_tpu_torch.utils.device import resolve_device
 
 
@@ -128,6 +129,10 @@ class Keys:
         decrypts, and a BSK at its parameters can be GBs.  Its secret keys
         are the first draws of the same stream, so they equal a full
         keyset's from the same seed."""
+        with tm.span("keygen") if tm.on else tm.OFF:
+            self._generate(seed, glwe_key, secret_only, device)
+
+    def _generate(self, seed, glwe_key, secret_only: bool, device) -> None:
         from concrete_tpu_torch.core.refimpl import sample_binary_key
         from concrete_tpu_torch.utils.csprng import SecureGenerator
         self._seed = seed
@@ -197,12 +202,12 @@ class Keys:
         key = (message_bits, float(norm2), str(device))
         with self._pack_lock:
             if key not in self._packed:
-                t0 = time.perf_counter()
-                self._packed[key] = pack_evaluation(
-                    self.params, self.server.bsk, self.server.ksk,
-                    message_bits, norm2, device)
-                _synchronize(device)
-                self.setup_seconds["pack_s"] = time.perf_counter() - t0
+                with tm.timed("pack") as t:
+                    self._packed[key] = pack_evaluation(
+                        self.params, self.server.bsk, self.server.ksk,
+                        message_bits, norm2, device)
+                    _synchronize(device)
+                self.setup_seconds["pack_s"] = t.seconds
             return self._packed[key]
 
     def _make_pfpksk(self, wop_params, device):
@@ -260,12 +265,11 @@ class Keys:
                     other, planes=other.planes.to(device))
             else:
                 made = self._make_pfpksk(wop_params, device)
-                t0 = time.perf_counter()
-                packed = kw.pack_pfpksk(made, wop_params, device=device)
-                del made
-                _synchronize(device)
-                self.setup_seconds["pfpksk"]["pack_s"] = \
-                    time.perf_counter() - t0
+                with tm.timed("pack", key="pfpksk") as t:
+                    packed = kw.pack_pfpksk(made, wop_params, device=device)
+                    del made
+                    _synchronize(device)
+                self.setup_seconds["pfpksk"]["pack_s"] = t.seconds
             self._packed_pfpksk[key] = packed
             if other is None and gadget not in self._pfpksk:
                 self._refresh_cache()

@@ -15,12 +15,15 @@ everything else overlaps on the pool.  The pool's threads share the
 device's default stream, so their kernels run in the order they were
 issued; what overlaps is one call's host work (keyswitch glue, the
 executor's Python, uploads and downloads) with another call's kernels.
-A task's exception comes out of its future's ``result()``.
+A task's exception comes out of its future's ``result()``.  A task runs
+in a copy of the submitter's ``contextvars`` context, so the spans it
+records (``utils/telemetry``) join the submitter's request.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextvars
 import os
 import threading
 from typing import Any, Callable
@@ -49,7 +52,7 @@ class DataflowScheduler:
                   for k, v in kwargs.items()}
             return fn(*resolved, **kw)
 
-        return self._pool.submit(task)
+        return self._pool.submit(contextvars.copy_context().run, task)
 
     def map_unordered(self, fn: Callable, items) -> list:
         """Run fn over items concurrently, return results in input order."""

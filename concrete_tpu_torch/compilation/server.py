@@ -22,6 +22,7 @@ from concrete_tpu_torch.compilation.executor import GraphExecutor, to_torus
 from concrete_tpu_torch.compilation.specs import ClientSpecs
 from concrete_tpu_torch.core.compression import SeededLweCiphertext, decompress
 from concrete_tpu_torch.representation import Graph
+from concrete_tpu_torch.utils import telemetry as tm
 from concrete_tpu_torch.utils.device import resolve_device
 
 
@@ -69,6 +70,10 @@ class Server:
         A multi-partition circuit takes (ksk_by_partition,
         bsk_by_partition, pfpksk_by_partition or None, fks_by_frontier),
         which ``Circuit._evaluation_keys`` builds from ``MultiKeys``."""
+        with tm.request("server.run") if tm.on else tm.OFF:
+            return self._run(args, evaluation_keys)
+
+    def _run(self, args, evaluation_keys) -> tuple:
         from concrete_tpu_torch.compilation.evaluation_keys import \
             EvaluationKeys
         multi = self.client_specs.is_multi
@@ -108,19 +113,30 @@ class Server:
         if len(args) != len(self.client_specs.inputs):
             raise ValueError(f"expected {len(self.client_specs.inputs)} "
                              f"argument(s), got {len(args)}")
-        # a seeded (compressed) argument grows its masks back on the host
-        args = [decompress(a) if isinstance(a, SeededLweCiphertext) else a
-                for a in args]
-        enc_inputs = {
-            pos: to_torus(arg, self.device) if spec.is_encrypted
-            else (arg.numpy() if isinstance(arg, torch.Tensor)
-                  else np.asarray(arg))
-            for pos, (arg, spec) in enumerate(zip(args,
-                                                  self.client_specs.inputs))}
+        with tm.span("server.upload") if tm.on else tm.OFF:
+            # a seeded (compressed) argument grows its masks back on the
+            # host
+            args = [decompress(a) if isinstance(a, SeededLweCiphertext)
+                    else a for a in args]
+            enc_inputs = {
+                pos: to_torus(arg, self.device) if spec.is_encrypted
+                else (arg.numpy() if isinstance(arg, torch.Tensor)
+                      else np.asarray(arg))
+                for pos, (arg, spec) in enumerate(
+                    zip(args, self.client_specs.inputs))}
+        if tm.on:
+            tm.count("bytes.h2d", sum(
+                enc_inputs[pos].nbytes
+                for pos, spec in enumerate(self.client_specs.inputs)
+                if spec.is_encrypted))
         outs = self._executor.run(enc_inputs, ksk, bsk, self._lut_polys,
                                   self._wop_tables, pfpksk, fks=fks,
                                   device=self.device)
-        return tuple(o.cpu().numpy().view(np.uint64) for o in outs)
+        with tm.span("server.download") if tm.on else tm.OFF:
+            host = tuple(o.cpu().numpy().view(np.uint64) for o in outs)
+        if tm.on:
+            tm.count("bytes.d2h", sum(h.nbytes for h in host))
+        return host
 
     # -- deployment (reference server.py:245-378) --------------------------
 

@@ -32,6 +32,13 @@ plain PyTorch versions on a CPU one.
 
 Keyswitch, modulus switch, LUT expansion and sample extract stay plain torch
 ops, as they stay plain XLA in the JAX package.
+
+``pbs_batch`` records the spans ``pbs`` (attribute ``rows``, the batch) and
+its stages ``pbs.keyswitch``, ``pbs.init`` (modulus switch and LUT
+rotation), ``pbs.blind_rotate`` (attribute ``form``: ``banded_scan``,
+``latency_persistent``, ``latency_steps``, ``fused_latency`` or
+``crt_ntt_loop``) and ``pbs.extract`` (``utils/telemetry``), none inside a
+step loop.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from concrete_tpu_torch.ops import latency as lat
 from concrete_tpu_torch.ops import recombine as rc
 from concrete_tpu_torch.ops import step
 from concrete_tpu_torch.params import CryptoParams
+from concrete_tpu_torch.utils import telemetry as tm
 from concrete_tpu_torch.utils.device import resolve_device
 
 _Q_LOG = 64
@@ -316,8 +324,23 @@ def blind_rotate(ct_small: torch.Tensor, bsk, lut_poly: torch.Tensor,
     n = params.polynomial_size
     kp1 = params.glwe_dimension + 1
     levels = params.pbs_level
-    a_t, acc = _switch_and_init(ct_small, lut_poly, params)
-    acc = acc.view(b_ct * kp1, n)
+    with tm.span("pbs.init") if tm.on else tm.OFF:
+        a_t, acc = _switch_and_init(ct_small, lut_poly, params)
+    with tm.span("pbs.blind_rotate", form="banded_scan") if tm.on \
+            else tm.OFF:
+        _banded_scan(a_t, acc.view(b_ct * kp1, n), bsk, params, mode)
+    return acc
+
+
+def _banded_scan(a_t: torch.Tensor, acc: torch.Tensor, bsk: LimbBSK,
+                 params: CryptoParams, mode: str) -> None:
+    """The banded blind rotate's step loop at B > ``LATENCY_BATCH_MAX`` in
+    ``mode``: a_t (B, n_small) int32, acc (B*(k+1), N) int64 updated in
+    place."""
+    n = params.polynomial_size
+    kp1 = params.glwe_dimension + 1
+    levels = params.pbs_level
+    b_ct = a_t.shape[0]
     # per-step rotation of every accumulator row: (n_small, B*(k+1))
     a_rows = a_t.t().repeat_interleave(kp1, dim=1).contiguous()
     a_limbs = lb.num_digit_limbs(params.pbs_base_log)
@@ -341,7 +364,6 @@ def blind_rotate(ct_small: torch.Tensor, bsk, lut_poly: torch.Tensor,
         # planes past keep sit at shifts >= 64 and add nothing
         rc.recombine_accumulate(prods.view(b_ct * kp1, -1, n), acc,
                                 limb_offset=bsk.truncate_limbs)
-    return acc.view(b_ct, kp1, n)
 
 
 def _blind_rotate_latency(ct_small: torch.Tensor, bsk: LimbBSK,
@@ -367,17 +389,22 @@ def _blind_rotate_latency(ct_small: torch.Tensor, bsk: LimbBSK,
     n = params.polynomial_size
     kp1 = params.glwe_dimension + 1
     levels = params.pbs_level
-    a_t, acc = _switch_and_init(ct_small, lut_poly, params)
-    acc = acc.transpose(0, 1).contiguous()          # (k+1, B, N)
-    if acc.device.type == "cuda" and lat.plan(
-            b_ct, n, kp1, levels, lb.num_digit_limbs(params.pbs_base_log),
-            bsk.planes.shape[3]) is None:
-        acc = _blind_rotate_latency_steps(a_t, acc, bsk, params)
-    else:
-        acc = lat.blind_rotate_latency(
-            a_t.contiguous(), acc, bsk.planes, kp1=kp1, levels=levels,
-            base_log=params.pbs_base_log, limb_offset=bsk.truncate_limbs)
-    return acc.transpose(0, 1).contiguous()
+    with tm.span("pbs.init") if tm.on else tm.OFF:
+        a_t, acc = _switch_and_init(ct_small, lut_poly, params)
+    steps = ct_small.device.type == "cuda" and lat.plan(
+        b_ct, n, kp1, levels, lb.num_digit_limbs(params.pbs_base_log),
+        bsk.planes.shape[3]) is None
+    with tm.span("pbs.blind_rotate", form="latency_steps" if steps
+                 else "latency_persistent") if tm.on else tm.OFF:
+        acc = acc.transpose(0, 1).contiguous()      # (k+1, B, N)
+        if steps:
+            acc = _blind_rotate_latency_steps(a_t, acc, bsk, params)
+        else:
+            acc = lat.blind_rotate_latency(
+                a_t.contiguous(), acc, bsk.planes, kp1=kp1, levels=levels,
+                base_log=params.pbs_base_log,
+                limb_offset=bsk.truncate_limbs)
+        return acc.transpose(0, 1).contiguous()
 
 
 def _blind_rotate_latency_steps(a_t: torch.Tensor, acc: torch.Tensor,
@@ -425,10 +452,13 @@ def pbs_batch(ct_big: torch.Tensor, ksk: LimbKSK, bsk,
     KS -> modswitch -> BR -> sample extract, matching refimpl.pbs bit for
     bit, with the signed quarter-torus offset (FHEToTFHEScalar.cpp:395-411).
     """
-    if signed:
-        ct_big = ct_big.clone()
-        ct_big[:, -1] += (1 << (message_bits - 1)) << (
-            _Q_LOG - message_bits - 1)
-    ct_small = keyswitch(ct_big, ksk)
-    acc = blind_rotate(ct_small, bsk, lut_poly, params)
-    return sample_extract(acc, 0)
+    with tm.span("pbs", rows=ct_big.shape[0]) if tm.on else tm.OFF:
+        with tm.span("pbs.keyswitch") if tm.on else tm.OFF:
+            if signed:
+                ct_big = ct_big.clone()
+                ct_big[:, -1] += (1 << (message_bits - 1)) << (
+                    _Q_LOG - message_bits - 1)
+            ct_small = keyswitch(ct_big, ksk)
+        acc = blind_rotate(ct_small, bsk, lut_poly, params)
+        with tm.span("pbs.extract") if tm.on else tm.OFF:
+            return sample_extract(acc, 0)

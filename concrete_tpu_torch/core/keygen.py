@@ -37,8 +37,8 @@ there as an int64 tensor.
 from __future__ import annotations
 
 import collections
+import contextvars
 import os
-import time
 
 import numpy as np
 import torch
@@ -48,6 +48,7 @@ from concrete_tpu_torch.core.refimpl import (SecretKeys, ServerKeys,
                                        sample_torus_gaussian,
                                        sample_uniform_u64)
 from concrete_tpu_torch.params import CryptoParams
+from concrete_tpu_torch.utils import telemetry as tm
 
 
 def _negacyclic_dot_with_key(a_polys: np.ndarray, key: np.ndarray) -> np.ndarray:
@@ -185,12 +186,13 @@ class GlweDraws:
             return 0.0
 
         def timed(lo, hi):
-            t0 = time.perf_counter()
-            self._noise(lo, hi)
-            return time.perf_counter() - t0
+            with tm.timed("keygen.draws", words=hi - lo) as t:
+                self._noise(lo, hi)
+            return t.seconds
         step = max(1, CHUNK_WORDS // 2)
         return sum(f.result() for f in [
-            pool.submit(timed, lo, min(lo + step, self.m))
+            pool.submit(contextvars.copy_context().run, timed, lo,
+                        min(lo + step, self.m))
             for lo in range(0, self.m, step)])
 
     def draw(self, r0: int, r1: int):
@@ -214,60 +216,67 @@ def glwe_encrypt_batch_device(rng, gsk: np.ndarray, rows: int, messages,
     (r1-r0, N) tensor on `device`.  Worker threads make the noise
     (``GlweDraws.fill_noise``), then draw chunks of ``CHUNK_WORDS`` of
     masks (whole rows) a few chunks ahead of the device.  `timings` gains
-    the draws' seconds (summed over the threads), the product's (uploads,
-    product, messages and noise added, on the main thread) and the
-    wall."""
+    the draws' seconds (summed over the threads: the ``keygen.draws``
+    spans), the product's (uploads, product, messages and noise added, on
+    the main thread: the ``keygen.product`` spans) and the wall (the
+    ``keygen.encrypt`` span)."""
     from concurrent.futures import ThreadPoolExecutor
     device = torch.device(device)
     k, n = gsk.shape
-    t_wall = time.perf_counter()
-    draws = GlweDraws(rng, rows, k, n, std)
-    chunk_rows = max(1, CHUNK_WORDS // (k * n))
-    spans = [(lo, min(lo + chunk_rows, rows))
-             for lo in range(0, rows, chunk_rows)]
-    draw_s = [0.0]
+    with tm.timed("keygen.encrypt", rows=rows) as wall:
+        draws = GlweDraws(rng, rows, k, n, std)
+        chunk_rows = max(1, CHUNK_WORDS // (k * n))
+        spans = [(lo, min(lo + chunk_rows, rows))
+                 for lo in range(0, rows, chunk_rows)]
+        draw_s = [0.0]
 
-    def timed_draw(r0, r1):
-        t0 = time.perf_counter()
-        out = draws.draw(r0, r1)
-        draw_s.append(time.perf_counter() - t0)   # list.append: atomic
-        return out
+        def timed_draw(r0, r1):
+            with tm.timed("keygen.draws", rows=r1 - r0) as t:
+                out = draws.draw(r0, r1)
+            draw_s.append(t.seconds)               # list.append: atomic
+            return out
 
-    t0 = time.perf_counter()
-    mats = [negacyclic_matrix(torch.from_numpy(
-        np.asarray(gsk[r], dtype=np.int64)).to(device)) for r in range(k)]
-    out = torch.empty((rows, k + 1, n), dtype=torch.int64, device=device)
-    product_s = time.perf_counter() - t0
-    workers = min(os.cpu_count() or 1, 8)
-    with ThreadPoolExecutor(workers) as pool:
-        draw_s.append(draws.fill_noise(pool))
-        pending = collections.deque()
-        todo = iter(spans)
-        for span in todo:
-            pending.append((span, pool.submit(timed_draw, *span)))
-            if len(pending) > workers:
-                break
-        while pending:
-            (r0, r1), fut = pending.popleft()
-            a, e = fut.result()
-            span = next(todo, None)
-            if span is not None:
-                pending.append((span, pool.submit(timed_draw, *span)))
-            t0 = time.perf_counter()
-            a_t = torch.from_numpy(a.view(np.int64)).to(device)
-            body = negacyclic_dot_torch(a_t, mats)
-            body += messages(r0, r1)
-            body += torch.from_numpy(e).to(device)
-            out[r0:r1, :k] = a_t
-            out[r0:r1, k] = body
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            product_s += time.perf_counter() - t0
+        def submit(r0, r1):
+            # the draw threads' spans are children of this one
+            return pool.submit(contextvars.copy_context().run, timed_draw,
+                               r0, r1)
+
+        with tm.timed("keygen.product") as t:
+            mats = [negacyclic_matrix(torch.from_numpy(
+                np.asarray(gsk[r], dtype=np.int64)).to(device))
+                for r in range(k)]
+            out = torch.empty((rows, k + 1, n), dtype=torch.int64,
+                              device=device)
+        product_s = t.seconds
+        workers = min(os.cpu_count() or 1, 8)
+        with ThreadPoolExecutor(workers) as pool:
+            draw_s.append(draws.fill_noise(pool))
+            pending = collections.deque()
+            todo = iter(spans)
+            for span in todo:
+                pending.append((span, submit(*span)))
+                if len(pending) > workers:
+                    break
+            while pending:
+                (r0, r1), fut = pending.popleft()
+                a, e = fut.result()
+                span = next(todo, None)
+                if span is not None:
+                    pending.append((span, submit(*span)))
+                with tm.timed("keygen.product", rows=r1 - r0) as t:
+                    a_t = torch.from_numpy(a.view(np.int64)).to(device)
+                    body = negacyclic_dot_torch(a_t, mats)
+                    body += messages(r0, r1)
+                    body += torch.from_numpy(e).to(device)
+                    out[r0:r1, :k] = a_t
+                    out[r0:r1, k] = body
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                product_s += t.seconds
     if timings is not None:
         timings["draws_s"] = timings.get("draws_s", 0.0) + sum(draw_s)
         timings["product_s"] = timings.get("product_s", 0.0) + product_s
-        timings["wall_s"] = timings.get("wall_s", 0.0) \
-            + time.perf_counter() - t_wall
+        timings["wall_s"] = timings.get("wall_s", 0.0) + wall.seconds
     return out
 
 
@@ -329,14 +338,14 @@ def keygen_device(rng, params: CryptoParams, device, glwe_key=None,
     timings = {} if timings is None else timings
     bsk_dev = make_bsk_device(rng, sk_small, gsk, params, device,
                               timings=timings)
-    t0 = time.perf_counter()
-    bsk = bsk_dev.cpu().numpy().view(np.uint64)
-    del bsk_dev
-    timings["to_host_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ksk = make_ksk(rng, sk.lwe_big, sk_small, params.ks_base_log,
-                   params.ks_level, params.lwe_std)
-    timings["ksk_s"] = time.perf_counter() - t0
+    with tm.timed("keygen.to_host") as t:
+        bsk = bsk_dev.cpu().numpy().view(np.uint64)
+        del bsk_dev
+    timings["to_host_s"] = t.seconds
+    with tm.timed("keygen.ksk") as t:
+        ksk = make_ksk(rng, sk.lwe_big, sk_small, params.ks_base_log,
+                       params.ks_level, params.lwe_std)
+    timings["ksk_s"] = t.seconds
     return sk, ServerKeys(bsk=bsk, ksk=ksk)
 
 

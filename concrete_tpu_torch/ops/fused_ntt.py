@@ -49,6 +49,7 @@ from concrete_tpu_torch.core import ntt as host
 from concrete_tpu_torch.ops import _build
 from concrete_tpu_torch.ops import ntt as tn
 from concrete_tpu_torch.ops import step
+from concrete_tpu_torch.utils import telemetry as tm
 from concrete_tpu_torch.utils.device import resolve_device
 
 XP, GARNER = "crt_external_product", "garner_accumulate"
@@ -451,15 +452,19 @@ def blind_rotate_fused(ct_small: torch.Tensor, bsk: FusedBSK,
     fallback."""
     from concrete_tpu_torch.core.kernels import LATENCY_BATCH_MAX
     from concrete_tpu_torch.ops import fused_latency as fl
-    a_t, acc = first_accumulator(ct_small, bsk, lut_poly, params, acc32)
+    with tm.span("pbs.init") if tm.on else tm.OFF:
+        a_t, acc = first_accumulator(ct_small, bsk, lut_poly, params, acc32)
     b_ct, kp1, n = acc.shape
-    if b_ct <= LATENCY_BATCH_MAX and fl.plan(
-            b_ct, n, kp1, bsk.levels, len(bsk.primes),
-            acc.dtype == torch.int32) is not None:
-        fl.blind_rotate_fused_latency(
-            a_t, acc, bsk.spec_val, bsk.spec_sh, primes=bsk.primes,
-            trunc_bits=bsk.trunc_bits, base_log=bsk.base_log,
-            levels=bsk.levels)
-    else:
-        scan_steps(a_t, acc, bsk)
-    return last_accumulator(acc)
+    latency = b_ct <= LATENCY_BATCH_MAX and fl.plan(
+        b_ct, n, kp1, bsk.levels, len(bsk.primes),
+        acc.dtype == torch.int32) is not None
+    with tm.span("pbs.blind_rotate", form="fused_latency" if latency
+                 else "crt_ntt_loop") if tm.on else tm.OFF:
+        if latency:
+            fl.blind_rotate_fused_latency(
+                a_t, acc, bsk.spec_val, bsk.spec_sh, primes=bsk.primes,
+                trunc_bits=bsk.trunc_bits, base_log=bsk.base_log,
+                levels=bsk.levels)
+        else:
+            scan_steps(a_t, acc, bsk)
+        return last_accumulator(acc)

@@ -14,6 +14,13 @@
 The mesh is a 1-D ``torch.distributed.device_mesh.DeviceMesh`` over the
 whole process group (``distributed.initialize``), on the cards under NCCL
 or on the CPU under gloo.
+
+Spans (``utils/telemetry``): ``sharding.shard``, ``sharding.replicate_keys``,
+``sharding.pbs`` and ``sharding.gather``, whose stages are ``gather.sizes``
+(the exchange of the shards' row counts: where a rank waits for the
+slowest), ``gather.upload``, ``gather.all_gather`` and ``gather.to_host``;
+a host array's upload and download count in ``bytes.h2d`` and
+``bytes.d2h``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from concrete_tpu_torch.ops import latency as lat
 from concrete_tpu_torch.params import CryptoParams
 from concrete_tpu_torch.parallel.distributed import (all_gather_into,
                                                      local_batch_slice)
+from concrete_tpu_torch.utils import telemetry as tm
 
 
 def make_mesh(n_devices: int = None, axis_name: str = "batch"):
@@ -64,12 +72,13 @@ def shard_ciphertexts(mesh, ct, axis_name: str = "batch"):
     larger batch, set that bound below the shard
     (``CONCRETE_TPU_LATENCY_BATCH_MAX``).  ``sharded_pbs_fn`` pads its
     shards instead."""
-    if ct.ndim >= 2:
-        ct = ct[local_batch_slice(ct.shape[0], mesh.size(),
-                                  mesh.get_local_rank(axis_name))]
-    if isinstance(ct, torch.Tensor):
-        ct = ct.to(mesh_device(mesh))
-    return ct
+    with tm.span("sharding.shard") if tm.on else tm.OFF:
+        if ct.ndim >= 2:
+            ct = ct[local_batch_slice(ct.shape[0], mesh.size(),
+                                      mesh.get_local_rank(axis_name))]
+        if isinstance(ct, torch.Tensor):
+            ct = ct.to(mesh_device(mesh))
+        return ct
 
 
 def _replicate(key, group, device: torch.device):
@@ -110,7 +119,8 @@ def replicate_keys(mesh, ksk, bsk, axis_name: str = "batch"):
     (ksk, bsk) on this rank."""
     group = mesh.get_group(axis_name)
     device = mesh_device(mesh)
-    return _replicate(ksk, group, device), _replicate(bsk, group, device)
+    with tm.span("sharding.replicate_keys") if tm.on else tm.OFF:
+        return _replicate(ksk, group, device), _replicate(bsk, group, device)
 
 
 def sharded_pbs_fn(mesh, params: CryptoParams, message_bits: int,
@@ -129,16 +139,18 @@ def sharded_pbs_fn(mesh, params: CryptoParams, message_bits: int,
 
     def fn(ct, ksk, bsk, lut_poly):
         rows = ct.shape[0]
-        total = torch.tensor([rows], device=ct.device)
-        dist.all_reduce(total, group=group)
-        floor = kn.LATENCY_BATCH_MAX + 1
-        if total.item() >= floor > rows:
-            ct = torch.cat([ct, ct.new_zeros((floor - rows, ct.shape[1]))])
-            if lut_poly.ndim == 2:
-                lut_poly = torch.cat([lut_poly, lut_poly.new_zeros(
-                    (floor - rows, lut_poly.shape[1]))])
-        return kn.pbs_batch(ct, ksk, bsk, lut_poly, params, message_bits,
-                            signed=signed)[:rows]
+        with tm.span("sharding.pbs", rows=rows) if tm.on else tm.OFF:
+            total = torch.tensor([rows], device=ct.device)
+            dist.all_reduce(total, group=group)
+            floor = kn.LATENCY_BATCH_MAX + 1
+            if total.item() >= floor > rows:
+                ct = torch.cat([ct, ct.new_zeros((floor - rows,
+                                                  ct.shape[1]))])
+                if lut_poly.ndim == 2:
+                    lut_poly = torch.cat([lut_poly, lut_poly.new_zeros(
+                        (floor - rows, lut_poly.shape[1]))])
+            return kn.pbs_batch(ct, ksk, bsk, lut_poly, params,
+                                message_bits, signed=signed)[:rows]
     return fn
 
 
@@ -147,25 +159,39 @@ def gather(mesh, local, axis_name: str = "batch"):
     rank: shards of unequal sizes are padded to the largest for one
     ``all_gather`` and cut back.  A host array (u64 ciphertexts) comes back
     as a host array, a tensor on the rank's device."""
+    with tm.span("sharding.gather") if tm.on else tm.OFF:
+        return _gather(mesh, local, axis_name)
+
+
+def _gather(mesh, local, axis_name: str):
     group = mesh.get_group(axis_name)
     device = mesh_device(mesh)
     host = isinstance(local, np.ndarray)
-    if host:
-        dtype = local.dtype
-        arr = np.ascontiguousarray(local)
-        local = torch.from_numpy(arr.view(np.int64) if dtype == np.uint64
-                                 else arr)
-    t = local.to(device)
+    with tm.span("gather.upload") if tm.on else tm.OFF:
+        if host:
+            dtype = local.dtype
+            arr = np.ascontiguousarray(local)
+            local = torch.from_numpy(arr.view(np.int64)
+                                     if dtype == np.uint64 else arr)
+        t = local.to(device)
+    if tm.on and host:
+        tm.count("bytes.h2d", local.nbytes)
     world = mesh.size()
-    sizes = torch.empty(world, dtype=torch.int64, device=device)
-    all_gather_into(sizes, torch.tensor([t.shape[0]], device=device), group)
-    sizes = sizes.tolist()
-    padded = t.new_zeros((max(sizes),) + tuple(t.shape[1:]))
-    padded[:t.shape[0]] = t
-    out = t.new_empty((world,) + tuple(padded.shape))
-    all_gather_into(out, padded, group)
-    full = torch.cat([out[i, :s] for i, s in enumerate(sizes)])
-    if host:
+    with tm.span("gather.sizes") if tm.on else tm.OFF:
+        sizes = torch.empty(world, dtype=torch.int64, device=device)
+        all_gather_into(sizes, torch.tensor([t.shape[0]], device=device),
+                        group)
+        sizes = sizes.tolist()
+    with tm.span("gather.all_gather") if tm.on else tm.OFF:
+        padded = t.new_zeros((max(sizes),) + tuple(t.shape[1:]))
+        padded[:t.shape[0]] = t
+        out = t.new_empty((world,) + tuple(padded.shape))
+        all_gather_into(out, padded, group)
+        full = torch.cat([out[i, :s] for i, s in enumerate(sizes)])
+    if not host:
+        return full
+    with tm.span("gather.to_host") if tm.on else tm.OFF:
         full = full.cpu().numpy()
-        return full.view(np.uint64) if dtype == np.uint64 else full
-    return full
+    if tm.on:
+        tm.count("bytes.d2h", full.nbytes)
+    return full.view(np.uint64) if dtype == np.uint64 else full
