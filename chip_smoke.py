@@ -36,7 +36,15 @@
    against the plain version over a few steps and the step loop over a
    whole lookup, then at B = 1 .. 4, k+1 = 3 with two digit limbs and a
    full key over a few steps; kernel 1, kernel 9's latency form and the
-   recombine are also timed at GameOfLife's step;
+   recombine are also timed at GameOfLife's step; and the PBS prologue
+   (``pbs_prologue``: a B <= 4 lookup's keyswitch, modulus switch and
+   first accumulator in one launch) at tlu4's keyset (n_in 1024, ks 8
+   levels of base 2^2, n_out 698, N=1024) and GameOfLife's (n_in 2048,
+   n_out 758, N=2048) for B = 1 .. 4, and at k+1 = 3 with a 64-bit
+   decomposition, signed and unsigned, shared and per-row LUTs, against
+   its plain version (the torch composition it replaced), timed at tlu4's
+   B = 1 and 4 cold and with the key in L2, beside its bytes bound, the
+   plain version and ``torch._int_mm`` on the padded product alone;
 3. serves the committed deployment archive (``table[x] - y`` over 1024
    encrypted 4-bit pairs, 128-bit parameters, N=1024): ``Server.load`` on
    CUDA, ``Client.keygen`` from a seed, three requests, decryptions checked
@@ -48,8 +56,9 @@
    the five banded modes, whose accumulators must be equal; then the
    latency blind rotate (B <= 4) at the ``pbs_latency_b1`` configuration
    (BENCH_PARAMS_4BIT_TPUOPT, truncated key): lookups at B = 1 and 4
-   decrypted right, each lookup one launch of the persistent kernel and
-   no other port kernel, three single lookups timed and one traced
+   decrypted right, each lookup one launch of the prologue and one of the
+   persistent kernel and no other port kernel, three single lookups timed
+   and one traced
    (``torch.profiler``: device-busy ms, kernels run, launch calls); the
    B = 1 and 4 outputs equal, bit for bit, to the three-kernel step loop
    on the card (kernel 1, kernel 9's latency form and the recombine once a
@@ -695,6 +704,72 @@ def check_recombine(rng, *, rows, n_planes, n, limb_offset, timed):
     return rec
 
 
+def check_prologue(rng, *, batch, n_small, n, kp1, ks_level, ks_base_log,
+                   per_row, timed):
+    """The PBS prologue kernel against its plain version (unsigned and
+    signed, each launched twice: the first leaves its scratch zeroed for
+    the second), at n_in = (k+1 - 1) N; timed, the kernel's ms a launch
+    with the key in L2 (back to back) and cold (a 256 MB write between
+    launches, timed apart), beside its bytes bound, the plain version's
+    and torch._int_mm's on the padded product alone."""
+    import numpy as np
+    import torch
+    from concrete_tpu_torch.core import kernels as kn
+    from concrete_tpu_torch.ops import prologue as pro
+    from concrete_tpu_torch.params import CryptoParams
+    p = CryptoParams(n_small=n_small, glwe_dimension=kp1 - 1,
+                     polynomial_size=n, pbs_level=4, pbs_base_log=5,
+                     ks_level=ks_level, ks_base_log=ks_base_log, lwe_std=0.0,
+                     glwe_std=0.0, security_level=0)
+    n_in, cols = (kp1 - 1) * n, n_small + 1
+    ksk = kn.pack_ksk(rng.integers(0, 1 << 64, (n_in, ks_level, cols),
+                                   dtype=np.uint64), p, device="cuda")
+    ct = rand_torus(rng, (batch, n_in + 1), "cuda")
+    lut = rand_torus(rng, (batch, n) if per_row else (n,), "cuda")
+    shape = (f"B={batch} n_in={n_in} ks ({ks_level}, 2^{ks_base_log}) "
+             f"n_out={n_small} N={n} k+1={kp1} "
+             f"{'per-row' if per_row else 'shared'} LUT")
+    for signed in (False, True):
+        offset = pro.body_offset(4, signed)
+        want = pro.pbs_prologue_plain(ct, ksk, lut, p, offset)
+        for _ in range(2):
+            got = pro.pbs_prologue(ct, ksk, lut, p, offset)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"pbs_prologue differs from its plain version at "
+                     f"{shape}, signed={signed}")
+    rec = {"max_abs_err": 0.0}
+    if timed:
+        def launch():
+            pro.pbs_prologue(ct, ksk, lut, p, 0)
+        rec["ms_l2"] = cuda_ms(launch, 50)
+        flush = torch.empty(1 << 28, dtype=torch.int8, device="cuda")
+        marks = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(50)]
+        launch()
+        for start, end in marks:
+            flush.fill_(1)
+            start.record()
+            launch()
+            end.record()
+        torch.cuda.synchronize()
+        rec["ms"] = sum(s.elapsed_time(e) for s, e in marks) / len(marks)
+        rec["plain_ms"] = cuda_ms(lambda: pro.pbs_prologue_plain(
+            ct, ksk, lut, p, 0), 10)
+        k_rows = n_in * ks_level
+        lhs = torch.zeros((17, k_rows), dtype=torch.int8, device="cuda")
+        rhs = ksk.planes.reshape(k_rows, cols * 8)
+        rec["library_ms"] = cuda_ms(lambda: torch._int_mm(lhs, rhs), 50)
+        key_bytes = ksk.planes.numel()
+        io_bytes = 8 * batch * (n_in + 1) + 4 * batch * n_small \
+            + 8 * kp1 * batch * n + 8 * lut.numel()
+        # a 64-bit multiply-add: about 4 integer-pipe instructions
+        rec.update(bound(tally_ms(4 * batch * k_rows * cols, sm_clock()),
+                         key_bytes + io_bytes), key_bytes=key_bytes)
+    print(f"pbs_prologue bit-exact at {shape}: {rec}", flush=True)
+    return rec
+
+
 def build_variant(out_dir: str, sources: tuple, name: str,
                   switches: list):
     """Start nvcc on `sources` (in the port's csrc/) with the ABLATE_*
@@ -950,8 +1025,9 @@ def latency_lookups(rng):
     """The latency blind rotate (B <= LATENCY_BATCH_MAX) at the
     pbs_latency_b1 configuration, BENCH_PARAMS_4BIT_TPUOPT with its key
     truncation: keys from a seed, pbs_batch at B = 1 and 4 with the
-    decryptions checked, each lookup one launch of the persistent kernel
-    (blind_rotate_latency) and no other port kernel, then three timed
+    decryptions checked, each lookup one launch of the prologue
+    (pbs_prologue) and one of the persistent kernel (blind_rotate_latency)
+    and no other port kernel, then three timed
     single lookups and one traced; then the B = 1 and B = 4 outputs against
     the three-kernel step loop on the card (the route of the shapes the
     persistent kernel's rule refuses, driven here through the same
@@ -967,6 +1043,7 @@ def latency_lookups(rng):
     from concrete_tpu_torch.core import refimpl as ref
     from concrete_tpu_torch.ops import _build
     from concrete_tpu_torch.ops import latency as lat
+    from concrete_tpu_torch.ops import prologue as pro
     params = pp.BENCH_PARAMS_4BIT_TPUOPT
     t0 = time.perf_counter()
     sk, server_keys = kg.keygen_device(np.random.default_rng(SEED), params,
@@ -1001,8 +1078,9 @@ def latency_lookups(rng):
         ct = torch.from_numpy(kg.encrypt_lwe_batch(
             rng, sk.lwe_big, ref.encode(msgs, 4), params.glwe_std)
             .view(np.int64)).cuda()
-        # one launch of the persistent kernel for every step
-        wall, counts, out = run(ct, {lat.NAME: 1})
+        # one launch of the prologue, one of the persistent kernel for
+        # every step
+        wall, counts, out = run(ct, {pro.NAME: 1, lat.NAME: 1})
         dec = ref.decode(ref.lwe_decrypt(
             sk.lwe_big, out.cpu().numpy().view(np.uint64)), 4)
         wrong = int(np.count_nonzero(dec != np.array(TABLE)[msgs]))
@@ -1027,7 +1105,8 @@ def latency_lookups(rng):
     lat.plan = lambda *args: None
     _build.reset_launches()               # the step loop's path starts here
     try:
-        steps_want = dict.fromkeys(LATENCY_KERNELS, n_small)
+        steps_want = {**dict.fromkeys(LATENCY_KERNELS, n_small),
+                      pro.NAME: 1}
         for batch, (_, _, ct, out) in checked.items():
             if not torch.equal(run(ct, steps_want)[2], out):
                 fail(f"the B={batch} latency lookup's output differs from "
@@ -1244,8 +1323,9 @@ def serve_compiled(rng, circuit, archive, inputs, want_counts, decoded):
 def compiled_lookups(circuit):
     """examples/table_lookup.py's circuit, compiled by the port (k=4,
     N=256, l=3): every input through encrypt_run_decrypt on the card,
-    each B=1 lookup one launch of the persistent kernel (a cluster of 4
-    blocks, k+1 = 5) and no other port kernel; the outputs of a run on
+    each B=1 lookup one launch of the prologue and one of the persistent
+    kernel (a cluster of 4 blocks, k+1 = 5) and no other port kernel; the
+    outputs of a run on
     the card against the same run on CPU copies of the packed keys (every
     kernel's plain version), bit for bit; one run traced; then one run
     with the untruncated key (8 key limbs: a key ring of one slot), one
@@ -1258,6 +1338,7 @@ def compiled_lookups(circuit):
     from concrete_tpu_torch.core import kernels as kn
     from concrete_tpu_torch.ops import _build
     from concrete_tpu_torch.ops import latency as lat
+    from concrete_tpu_torch.ops import prologue as pro
     specs, p = circuit.client_specs, circuit.client_specs.params
     circuit.keygen(seed=SEED)
     ksk, bsk = circuit.keys.evaluation_for(specs.message_bits,
@@ -1270,7 +1351,7 @@ def compiled_lookups(circuit):
              f"{p.polynomial_size}, k+1={kp1}, l={p.pbs_level}, "
              f"{s_key} key limbs; want a cluster of 4")
     lookups = circuit.programmable_bootstrap_count
-    want = {lat.NAME: lookups}
+    want = {pro.NAME: lookups, lat.NAME: lookups}
 
     def run(ct, keys, want_counts):
         before = dict(_build.LAUNCHES)
@@ -1323,7 +1404,8 @@ def compiled_lookups(circuit):
     _build.reset_launches()               # the untruncated key's path ...
     full_wall, _, out = run(ct, (ksk, full), want)
     full_launches = dict(_build.LAUNCHES)  # ... ends here
-    steps = dict.fromkeys(LATENCY_KERNELS, p.n_small * lookups)
+    steps = {**dict.fromkeys(LATENCY_KERNELS, p.n_small * lookups),
+             pro.NAME: lookups}
     rule = lat.plan
     lat.plan = lambda *args: None
     _build.reset_launches()               # the step loop's path starts here
@@ -1408,7 +1490,8 @@ def compile_phase(rng):
             "table_lookup": lookup}
 
 
-def br_form(bsk, p, batch: int, min_scale: int = None) -> tuple:
+def br_form(bsk, p, batch: int, min_scale: int = None,
+            prologue: bool = True) -> tuple:
     """(form, launches) of one blind rotate of `batch` ciphertexts on the
     packed key `bsk` at parameters `p`: the form core.kernels.blind_rotate
     takes (the persistent kernel where ops/latency.plan takes the shape,
@@ -1417,11 +1500,15 @@ def br_form(bsk, p, batch: int, min_scale: int = None) -> tuple:
     plan takes the shape and the accumulator's mode at B <=
     LATENCY_BATCH_MAX, else the CRT-NTT loop; `min_scale`, a WoP sign
     PBS's smallest output scale, gates the acc32 mode) and the port
-    launches it makes there."""
+    launches it makes there, with, where `prologue` (a lookup through
+    core.kernels.pbs_batch, not a WoP sign PBS), the one launch of
+    ops/prologue.py before a banded blind rotate at B <=
+    LATENCY_BATCH_MAX."""
     from concrete_tpu_torch.core import kernels as kn
     from concrete_tpu_torch.core import limbs as lb
     from concrete_tpu_torch.ops import fused_latency as fl
     from concrete_tpu_torch.ops import latency as lat
+    from concrete_tpu_torch.ops import prologue as pro
     from concrete_tpu_torch.ops.fused_ntt import FusedBSK, acc32_eligible
     steps = p.n_small
     if isinstance(bsk, FusedBSK):
@@ -1439,11 +1526,12 @@ def br_form(bsk, p, batch: int, min_scale: int = None) -> tuple:
     s_key = bsk.planes.shape[3]
     plan = lat.plan(batch, p.polynomial_size, p.glwe_dimension + 1,
                     p.pbs_level, lb.num_digit_limbs(p.pbs_base_log), s_key)
+    first = {pro.NAME: 1} if prologue else {}
     if plan is None:
         return f"step loop ({s_key} key limbs)", \
-            dict.fromkeys(LATENCY_KERNELS, steps)
+            {**first, **dict.fromkeys(LATENCY_KERNELS, steps)}
     return f"persistent kernel (cluster of {plan.cluster}, {s_key} key " \
-        f"limbs)", {lat.NAME: 1}
+        f"limbs)", {**first, lat.NAME: 1}
 
 
 def wop_counts(circuit) -> dict:
@@ -1512,7 +1600,7 @@ class wop_schedule:
             out[name] = out.get(name, 0) + n
         for attr, *note in self.calls:
             if attr == "sign_pbs_batch":
-                form, more = br_form(bsk, p, *note)
+                form, more = br_form(bsk, p, *note, prologue=False)
                 forms.add(form)
                 for k, v in more.items():
                     add(k, v)
@@ -1792,6 +1880,7 @@ def kernel_wrappers() -> dict:
     from concrete_tpu_torch.ops import fused_ntt as fn
     from concrete_tpu_torch.ops import latency as lat
     from concrete_tpu_torch.ops import ntt as tn
+    from concrete_tpu_torch.ops import prologue as pro
     from concrete_tpu_torch.ops import recombine as rc
     from concrete_tpu_torch.ops import step
     return {name: (module, name, getattr(module, f"{name}_plain"))
@@ -1801,7 +1890,8 @@ def kernel_wrappers() -> dict:
                 (bm, "banded_matmul_latency"), (rc, "recombine_accumulate"),
                 (lat, "blind_rotate_latency"), (fn, "crt_external_product"),
                 (fn, KEYED), (fn, "garner_accumulate"),
-                (tn, "ntt_forward_pack"), (fl, FUSED_LATENCY))}
+                (tn, "ntt_forward_pack"), (fl, FUSED_LATENCY),
+                (pro, pro.NAME))}
 
 
 class same_inputs:
@@ -2110,6 +2200,7 @@ def models_phase(rng):
     import numpy as np
     from concrete_tpu_torch import models as tm
     from concrete_tpu_torch.ops import latency as lat
+    from concrete_tpu_torch.ops import prologue as pro
     gol = tm.GameOfLife(*GOL_SIZE)
     lev = tm.LevenshteinDistance(*LEVENSHTEIN)
     kvdb = tm.StaticKeyValueDatabase(KVDB_KEYS, KVDB_VALUES)
@@ -2153,7 +2244,8 @@ def models_phase(rng):
     # GameOfLife's B=1 lookups: one launch of the persistent kernel each
     # (a key ring of one slot), none of the step loop's kernels
     rec = out["game_of_life"]
-    want = {lat.NAME: MODEL_REQUESTS * rec["lookups_per_request"]}
+    want = dict.fromkeys((pro.NAME, lat.NAME),
+                         MODEL_REQUESTS * rec["lookups_per_request"])
     if rec["launches"] != want:
         fail(f"GameOfLife's requests launched {rec['launches']}, want "
              f"{want}")
@@ -5469,6 +5561,20 @@ def main() -> None:
         "recombine_accumulate": check_recombine(
             rng, rows=2, n_planes=5, n=2048, limb_offset=3, timed=True)}
 
+    # the PBS prologue at tlu4's keyset (n_in 1024, ks 8 levels of base
+    # 2^2, n_out 698, N=1024, k+1 = 2), timed at B = 1 and 4; GameOfLife's
+    # (n_in 2048, n_out 758, N=2048), k+1 = 3 and a 64-bit decompose
+    rec_pro = {batch: check_prologue(
+        rng, batch=batch, n_small=698, n=1024, kp1=2, ks_level=8,
+        ks_base_log=2, per_row=False, timed=batch in (1, 4))
+        for batch in (1, 2, 3, 4)}
+    for batch in (1, 2, 3, 4):
+        check_prologue(rng, batch=batch, n_small=758, n=2048, kp1=2,
+                       ks_level=8, ks_base_log=2, per_row=batch % 2 == 0,
+                       timed=False)
+    check_prologue(rng, batch=3, n_small=500, n=512, kp1=3, ks_level=3,
+                   ks_base_log=12, per_row=True, timed=False)
+
     # the serve phase runs n_small steps of both kernels per request
     est_s = REQUESTS * 698 * (rec_a["ms"] + rec_b["ms"]) / 1e3
     print(f"serve estimate from the kernel times: {est_s:.1f} s", flush=True)
@@ -5729,6 +5835,15 @@ def main() -> None:
                      "its body",
          "launches": 0,       # its path is the models phase's requests
          **{k: rec_fl["levenshtein"][k] for k in fields}},
+        {"name": "pbs_prologue", "route": "cuda",
+         "source": "concrete_tpu_torch/csrc/pbs_prologue.cu",
+         "replaces": "none: the JAX package's keyswitch is XLA's int8 "
+                     "matmul (concrete_tpu/core/kernels.py:435), its "
+                     "modulus switch and LUT rotation plain XLA; added to "
+                     "take the B <= 4 prologue's ~140 torch launches off "
+                     "the host path",
+         "launches": latency["launches"].get("pbs_prologue", 0),
+         **{k: rec_pro[1][k] for k in fields}},
     ]
     for k in kernels:
         # the models phase drives the port's entry points too
@@ -5771,7 +5886,8 @@ def main() -> None:
                               "recombine_accumulate": rec_rc,
                               "ntt_forward_pack": rec_pack,
                               "ntt_forward": rec_ntt, "ntt_inverse": rec_inv,
-                              **rec_f, FUSED_LATENCY: rec_fl},
+                              **rec_f, FUSED_LATENCY: rec_fl,
+                              "pbs_prologue": rec_pro},
                    "phase_end_s": marks,
                    "ptxas": ptxas_summary(_build.BUILD_INFO["log"]),
                    "build_s": _build.BUILD_INFO["seconds"],

@@ -31,14 +31,21 @@ Every mode gives the same bits.  Kernels run on a CUDA accumulator, their
 plain PyTorch versions on a CPU one.
 
 Keyswitch, modulus switch, LUT expansion and sample extract stay plain torch
-ops, as they stay plain XLA in the JAX package.
+ops, as they stay plain XLA in the JAX package, but for one route of
+``pbs_batch`` (``prologue_route``): CUDA ciphertexts on a ``LimbBSK`` at B
+<= ``LATENCY_BATCH_MAX`` run keyswitch, modulus switch and the first
+accumulator in one launch (``ops.prologue``), whose outputs go straight to
+the latency blind rotate.  At such a batch the keyswitch is a memory-bound
+matrix-vector product; above it, a GEMM, and it keeps ``torch._int_mm``.
 
 ``pbs_batch`` records the spans ``pbs`` (attribute ``rows``, the batch) and
-its stages ``pbs.keyswitch``, ``pbs.init`` (modulus switch and LUT
-rotation), ``pbs.blind_rotate`` (attribute ``form``: ``banded_scan``,
-``latency_persistent``, ``latency_steps``, ``fused_latency`` or
-``crt_ntt_loop``) and ``pbs.extract`` (``utils/telemetry``), none inside a
-step loop.
+its stages ``pbs.keyswitch`` (attribute ``form``: ``prologue``, the one
+launch, init included, or ``torch``), ``pbs.init`` (modulus switch and LUT
+rotation; not on the prologue route), ``pbs.blind_rotate`` (attribute
+``form``: ``banded_scan``, ``latency_persistent``, ``latency_steps``,
+``fused_latency`` or ``crt_ntt_loop``) and ``pbs.extract``
+(``utils/telemetry``), none inside a step loop, and counts the rows that
+took the prologue route in ``pbs.prologue_rows``.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from concrete_tpu_torch.core import limbs as lb
 from concrete_tpu_torch.ops import banded_mm as bm
 from concrete_tpu_torch.ops import external_product as xp
 from concrete_tpu_torch.ops import latency as lat
+from concrete_tpu_torch.ops import prologue as pro
 from concrete_tpu_torch.ops import recombine as rc
 from concrete_tpu_torch.ops import step
 from concrete_tpu_torch.params import CryptoParams
@@ -385,18 +393,27 @@ def _blind_rotate_latency(ct_small: torch.Tensor, bsk: LimbBSK,
     other shape, the step loop (``_blind_rotate_latency_steps``); a CPU one,
     the plain version of the persistent kernel.
     """
-    b_ct = ct_small.shape[0]
+    with tm.span("pbs.init") if tm.on else tm.OFF:
+        a_t, acc = _switch_and_init(ct_small, lut_poly, params)
+        acc = acc.transpose(0, 1).contiguous()      # (k+1, B, N)
+    return _rotate_latency(a_t, acc, bsk, params)
+
+
+def _rotate_latency(a_t: torch.Tensor, acc: torch.Tensor, bsk: LimbBSK,
+                    params: CryptoParams) -> torch.Tensor:
+    """The latency blind rotate from the switched mask a_t (B, n_small)
+    int32 and the first accumulator (k+1, B, N) int64 -> (B, k+1, N): the
+    persistent kernel, or the step loop where ``ops.latency.plan`` refuses
+    the shape on the card."""
+    b_ct = a_t.shape[0]
     n = params.polynomial_size
     kp1 = params.glwe_dimension + 1
     levels = params.pbs_level
-    with tm.span("pbs.init") if tm.on else tm.OFF:
-        a_t, acc = _switch_and_init(ct_small, lut_poly, params)
-    steps = ct_small.device.type == "cuda" and lat.plan(
+    steps = acc.device.type == "cuda" and lat.plan(
         b_ct, n, kp1, levels, lb.num_digit_limbs(params.pbs_base_log),
         bsk.planes.shape[3]) is None
     with tm.span("pbs.blind_rotate", form="latency_steps" if steps
                  else "latency_persistent") if tm.on else tm.OFF:
-        acc = acc.transpose(0, 1).contiguous()      # (k+1, B, N)
         if steps:
             acc = _blind_rotate_latency_steps(a_t, acc, bsk, params)
         else:
@@ -444,6 +461,15 @@ def sample_extract(acc: torch.Tensor, index: int = 0) -> torch.Tensor:
                      dim=-1)
 
 
+def prologue_route(device: torch.device, bsk, b_ct: int) -> bool:
+    """``pbs_batch`` runs ``ops.prologue``'s one launch, then the latency
+    blind rotate, for `b_ct` ciphertexts on `device` with key `bsk`: on
+    the card, on a banded key, at B <= ``LATENCY_BATCH_MAX`` (the blind
+    rotate's own latency bound) and the kernel's ``MAX_BATCH``."""
+    return device.type == "cuda" and isinstance(bsk, LimbBSK) \
+        and b_ct <= min(LATENCY_BATCH_MAX, pro.MAX_BATCH)
+
+
 def pbs_batch(ct_big: torch.Tensor, ksk: LimbKSK, bsk,
               lut_poly: torch.Tensor, params: CryptoParams,
               message_bits: int, signed: bool = False) -> torch.Tensor:
@@ -452,13 +478,24 @@ def pbs_batch(ct_big: torch.Tensor, ksk: LimbKSK, bsk,
     KS -> modswitch -> BR -> sample extract, matching refimpl.pbs bit for
     bit, with the signed quarter-torus offset (FHEToTFHEScalar.cpp:395-411).
     """
-    with tm.span("pbs", rows=ct_big.shape[0]) if tm.on else tm.OFF:
-        with tm.span("pbs.keyswitch") if tm.on else tm.OFF:
-            if signed:
-                ct_big = ct_big.clone()
-                ct_big[:, -1] += (1 << (message_bits - 1)) << (
-                    _Q_LOG - message_bits - 1)
-            ct_small = keyswitch(ct_big, ksk)
-        acc = blind_rotate(ct_small, bsk, lut_poly, params)
+    b_ct = ct_big.shape[0]
+    offset = pro.body_offset(message_bits, signed)
+    with tm.span("pbs", rows=b_ct) if tm.on else tm.OFF:
+        if prologue_route(ct_big.device, bsk, b_ct):
+            with tm.span("pbs.keyswitch", form="prologue") if tm.on \
+                    else tm.OFF:
+                a_t, acc = pro.pbs_prologue(ct_big, ksk, lut_poly, params,
+                                            offset)
+                if tm.on:
+                    tm.count("pbs.prologue_rows", b_ct)
+            acc = _rotate_latency(a_t, acc, bsk, params)
+        else:
+            with tm.span("pbs.keyswitch", form="torch") if tm.on \
+                    else tm.OFF:
+                if offset:
+                    ct_big = ct_big.clone()
+                    ct_big[:, -1] += offset
+                ct_small = keyswitch(ct_big, ksk)
+            acc = blind_rotate(ct_small, bsk, lut_poly, params)
         with tm.span("pbs.extract") if tm.on else tm.OFF:
             return sample_extract(acc, 0)

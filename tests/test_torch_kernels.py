@@ -26,7 +26,10 @@ from torch_threads import one_intra_op_thread  # noqa: F401
 from concrete_tpu_torch.core import kernels as tk
 from concrete_tpu_torch.core import limbs as tlb
 from concrete_tpu_torch.ops import external_product as txp
+from concrete_tpu_torch.ops import prologue as tpro
 from concrete_tpu_torch.ops import step as tstep
+from concrete_tpu_torch.ops.fused_ntt import FusedBSK
+from concrete_tpu_torch.utils import telemetry as ttm
 
 
 def t64(a) -> torch.Tensor:
@@ -279,3 +282,160 @@ def test_pbs_batch(params, truncate, signed):
         for i in range(2):
             assert np.array_equal(got[i], ref.pbs(
                 ct[i], server, table, params, p_bits, signed=signed))
+
+
+def _prologue_model(ct, planes, lut, p, offset):
+    """The prologue kernel's arithmetic in numpy u64 (csrc/pbs_prologue.cu):
+    the key words rebuilt from the raw bytes of their balanced limbs,
+    sum_{i,j} d_j(a_i) * K[i][j] mod 2^64, the body, the switch, X^{-b~}
+    LUT; -> (a_t (B, n_out), acc (k+1, B, N))."""
+    b_ct, n_in = ct.shape[0], ct.shape[1] - 1
+    n, kp1 = p.polynomial_size, p.glwe_dimension + 1
+    raw = np.ascontiguousarray(planes).view(np.uint64)[..., 0]
+    words = raw - ((raw & np.uint64(0x8080808080808080)) << np.uint64(1))
+    digits = ref.decompose(ct[:, :n_in], p.ks_base_log, p.ks_level)
+    d = digits.astype(np.int64).view(np.uint64)          # (B, n_in, l)
+    sums = np.einsum("bil,ilc->bc", d, words, dtype=np.uint64)
+    v = -sums
+    v[:, -1] += ct[:, n_in] + np.uint64(offset)
+    v = v >> np.uint64(64 - p.log2_polynomial_size - 2)
+    m = ((v + (v & np.uint64(1))) >> np.uint64(1)) & np.uint64(2 * n - 1)
+    m = m.astype(np.int64)
+    acc = np.zeros((kp1, b_ct, n), dtype=np.uint64)
+    rows = np.broadcast_to(lut, (b_ct, n))
+    for b in range(b_ct):
+        src = (np.arange(n) - (2 * n - m[b, -1]) % (2 * n)) % (2 * n)
+        neg = src >= n
+        vals = rows[b][np.where(neg, src - n, src)]
+        acc[-1, b] = np.where(neg, -vals, vals)
+    return m[:, :-1].astype(np.int32), acc
+
+
+@pytest.mark.parametrize("kp1", [2, 3])
+@pytest.mark.parametrize("per_row", [False, True], ids=["shared", "per_row"])
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("ks_level,ks_base_log", [(8, 2), (3, 12)],
+                         ids=["hi32", "u64"])
+@pytest.mark.parametrize("b_ct", [1, 2, 3, 4])
+def test_pbs_prologue_plain(b_ct, ks_level, ks_base_log, signed, per_row,
+                            kp1):
+    """The prologue's plain version (what the wrapper runs on the CPU) ==
+    keyswitch, then _switch_and_init, then the (k+1, B, N) transpose, bit
+    for bit, and == the kernel's u64 arithmetic in numpy; ks (8, 2) is
+    tlu4's and takes decompose_hi32, (3, 12) the 64-bit decompose."""
+    rng = np.random.default_rng([b_ct, ks_level, signed, per_row, kp1])
+    p = CryptoParams(n_small=19, glwe_dimension=kp1 - 1, polynomial_size=64,
+                     pbs_level=2, pbs_base_log=12, ks_level=ks_level,
+                     ks_base_log=ks_base_log, lwe_std=0.0, glwe_std=0.0,
+                     security_level=0)
+    n_in, n = (kp1 - 1) * 64, 64
+    ksk = tk.pack_ksk(rand_u64(rng, (n_in, ks_level, p.n_small + 1)), p,
+                      device="cpu")
+    ct = rand_u64(rng, (b_ct, n_in + 1))
+    lut = rand_u64(rng, (b_ct, n) if per_row else (n,))
+    offset = tpro.body_offset(3, signed)
+    a_t, acc = tpro.pbs_prologue(t64(ct), ksk, t64(lut), p, offset)
+    assert a_t.dtype == torch.int32 and a_t.shape == (b_ct, p.n_small)
+    assert acc.shape == (kp1, b_ct, n) and acc.is_contiguous()
+    shifted = t64(ct)
+    shifted[:, -1] += offset
+    want_a, want_acc = tk._switch_and_init(tk.keyswitch(shifted, ksk),
+                                           t64(lut), p)
+    assert torch.equal(a_t, want_a)
+    assert torch.equal(acc, want_acc.transpose(0, 1))
+    model_a, model_acc = _prologue_model(ct, ksk.planes.numpy(), lut, p,
+                                         offset)
+    assert np.array_equal(a_t.numpy(), model_a)
+    assert np.array_equal(u64(acc), model_acc)
+
+
+_LIMB_KEY = tk.LimbBSK(planes=torch.zeros(1, dtype=torch.int8), base_log=5,
+                       levels=4)
+_FUSED_KEY = FusedBSK(spec_val=torch.zeros(1), spec_sh=torch.zeros(1),
+                      primes=(), trunc_bits=0, base_log=5, levels=4)
+
+
+@pytest.mark.parametrize("device,key,b_ct,takes", [
+    ("cuda", _LIMB_KEY, 1, True), ("cuda", _LIMB_KEY, 2, True),
+    ("cuda", _LIMB_KEY, 4, True), ("cuda", _LIMB_KEY, 5, False),
+    ("cuda", _FUSED_KEY, 1, False), ("cuda", _FUSED_KEY, 4, False),
+    ("cpu", _LIMB_KEY, 1, False), ("cpu", _LIMB_KEY, 4, False)],
+    ids=["cuda-limb-1", "cuda-limb-2", "cuda-limb-4", "cuda-limb-5",
+         "cuda-fused-1", "cuda-fused-4", "cpu-limb-1", "cpu-limb-4"])
+def test_prologue_route(device, key, b_ct, takes):
+    """pbs_batch's route: CUDA + LimbBSK + B <= LATENCY_BATCH_MAX (4)
+    takes the one-launch prologue; B = 5, a FusedBSK and CPU tensors keep
+    the torch keyswitch."""
+    assert tk.LATENCY_BATCH_MAX == 4
+    assert tk.prologue_route(torch.device(device), key, b_ct) is takes
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("b_ct", [1, 4])
+def test_pbs_batch_on_the_prologue_route(monkeypatch, b_ct, signed):
+    """pbs_batch with the prologue route taken on the CPU (its plain
+    version, then the latency blind rotate) == the JAX package's
+    pbs_batch and the torch route, bit for bit; its spans: pbs.keyswitch
+    with form "prologue", no pbs.init, and pbs.prologue_rows counts the
+    rows."""
+    params, p_bits = TEST_PARAMS_TINY_WIDE, 3
+    sk, server = _keys(params, 11 + signed)
+    rng = np.random.default_rng(b_ct)
+    msgs = rng.integers(-4 if signed else 0, 4 if signed else 8, b_ct)
+    ct = ref.lwe_encrypt(rng, sk.lwe_big, ref.encode(msgs, p_bits),
+                         params.glwe_std)
+    table = np.array([(5 * v + 2) % 8 for v in range(8)], dtype=np.uint64)
+    lut_poly = ref.encode_expand_lut(table, params.polynomial_size, p_bits,
+                                     signed=signed)
+    ksk = tk.pack_ksk(server.ksk, params, device="cpu")
+    bsk = tk.pack_bsk(server.bsk, params, 3, device="cpu")
+    torch_route = u64(tk.pbs_batch(t64(ct), ksk, bsk, t64(lut_poly), params,
+                                   p_bits, signed=signed))
+    monkeypatch.setattr(tk, "prologue_route", lambda *args: True)
+    ttm.reset()
+    ttm.enable()
+    try:
+        got = u64(tk.pbs_batch(t64(ct), ksk, bsk, t64(lut_poly), params,
+                               p_bits, signed=signed))
+        snap = ttm.snapshot()
+    finally:
+        ttm.disable()
+        ttm.reset()
+    want = np.asarray(kn.pbs_batch(
+        jnp.asarray(ct), kn.pack_ksk(server.ksk, params),
+        kn.pack_bsk(server.bsk, params, 3), jnp.asarray(lut_poly), params,
+        p_bits, signed=signed))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, torch_route)
+    names = [s["name"] for s in snap["spans"]]
+    assert sorted(names) == ["pbs", "pbs.blind_rotate", "pbs.extract",
+                             "pbs.keyswitch"]
+    (ks,) = [s for s in snap["spans"] if s["name"] == "pbs.keyswitch"]
+    assert ks["attrs"] == {"form": "prologue"}
+    assert snap["counters"] == {"pbs.prologue_rows": b_ct}
+
+
+def test_pbs_batch_torch_route_spans():
+    """Off the prologue route (the CPU), pbs.keyswitch carries form
+    "torch", pbs.init opens, and pbs.prologue_rows is not counted."""
+    params = TEST_PARAMS_TINY
+    sk, server = _keys(params, 5)
+    rng = np.random.default_rng(5)
+    ct = ref.lwe_encrypt(rng, sk.lwe_big, ref.encode(np.arange(2), 3),
+                         params.glwe_std)
+    lut_poly = ref.encode_expand_lut(np.arange(8, dtype=np.uint64),
+                                     params.polynomial_size, 3)
+    ttm.reset()
+    ttm.enable()
+    try:
+        tk.pbs_batch(t64(ct), tk.pack_ksk(server.ksk, params, device="cpu"),
+                     tk.pack_bsk(server.bsk, params, device="cpu"),
+                     t64(lut_poly), params, 3)
+        snap = ttm.snapshot()
+    finally:
+        ttm.disable()
+        ttm.reset()
+    by = {s["name"]: s for s in snap["spans"]}
+    assert by["pbs.keyswitch"]["attrs"] == {"form": "torch"}
+    assert "pbs.init" in by
+    assert snap["counters"] == {}
