@@ -202,7 +202,10 @@ class Keys:
         key = (message_bits, float(norm2), str(device))
         with self._pack_lock:
             if key not in self._packed:
-                with tm.timed("pack") as t:
+                from concrete_tpu_torch.optimizer.v0 import use_fused
+                form = "fused" if use_fused(self.params, message_bits) \
+                    else "banded"
+                with tm.timed("pack", form=form) as t:
                     self._packed[key] = pack_evaluation(
                         self.params, self.server.bsk, self.server.ksk,
                         message_bits, norm2, device)

@@ -449,7 +449,8 @@ def blind_rotate_fused(ct_small: torch.Tensor, bsk: FusedBSK,
     ``ops.fused_latency.plan`` takes the shape and the accumulator's mode,
     one launch of its kernel (``blind_rotate_fused_latency``); else
     ``scan_steps``, three kernel launches a step.  A shape rule, not a
-    fallback."""
+    fallback.  With tracing on, the rows are counted by form in
+    ``pbs.fused_latency_rows`` or ``pbs.crt_ntt_rows``."""
     from concrete_tpu_torch.core.kernels import LATENCY_BATCH_MAX
     from concrete_tpu_torch.ops import fused_latency as fl
     with tm.span("pbs.init") if tm.on else tm.OFF:
@@ -458,6 +459,9 @@ def blind_rotate_fused(ct_small: torch.Tensor, bsk: FusedBSK,
     latency = b_ct <= LATENCY_BATCH_MAX and fl.plan(
         b_ct, n, kp1, bsk.levels, len(bsk.primes),
         acc.dtype == torch.int32) is not None
+    if tm.on:
+        tm.count("pbs.fused_latency_rows" if latency else "pbs.crt_ntt_rows",
+                 b_ct)
     with tm.span("pbs.blind_rotate", form="fused_latency" if latency
                  else "crt_ntt_loop") if tm.on else tm.OFF:
         if latency:
