@@ -299,6 +299,7 @@ FUSED_KERNELS = ("rotate_decompose_digits", "crt_external_product",
 LATENCY_KERNELS = ("rotate_decompose_digits", "banded_matmul_latency",
                    "recombine_accumulate")
 FUSED_LATENCY = "blind_rotate_fused_latency"
+CRT_SCAN = "blind_rotate_crt_scan"
 #: GameOfLife's B=1 lookups (any size) as the port compiles them at the
 #: default Configuration(): N=2048, k+1 = 2, l = 2, base 2^7, 5 kept key
 #: limbs (3 truncated), 758 steps; the persistent kernel's plan takes it
@@ -322,6 +323,14 @@ FUSED_LATENCY_SHAPES = {"levenshtein": (1024, 3, 2, 11, 3, 0, 718),
                         "kvdb_16": (2048, 2, 1, 21, 3, 7, 758),
                         "kvdb_2": (2048, 2, 2, 9, 2, 27, 758)}
 MLP_FUSED_SHAPE = (4096, 2, 2, 8, 3, 0, 822)
+#: the batches of CRT-NTT lookups that ops/crt_scan.py's rule takes:
+#: (B, N, l, base_log, primes, truncated bits, steps) of the key-value
+#: query's two levels (kvdb32) and radix_add's (its steps cut to 200); the
+#: rule refuses the MLP's N = 4096 and PrimeMatch 10's N = 8192 (more
+#: threads a block than keep 168 registers each)
+CRT_SCAN_SHAPES = {"kvdb32_b2048": (2048, 2048, 1, 23, 3, 9, 760),
+                   "kvdb32_b256": (256, 2048, 1, 23, 3, 9, 760),
+                   "radix_add": (512, 2048, 2, 10, 2, 28, 200)}
 #: variant builds of the B <= 4 CRT-NTT kernel, each without one part
 FUSED_LATENCY_VARIANTS = {"no key rows": "ABLATE_NO_KEY",
                           "own spectra only": "ABLATE_LOCAL_SPECTRA",
@@ -1265,7 +1274,8 @@ def serve_compiled(rng, circuit, archive, inputs, want_counts, decoded):
     seed, the circuit's keyset packed once on the card, then on the same
     ciphertexts the circuit's run and the archive-loaded Server's, whose
     output ciphertexts must be equal bit for bit; every request launches
-    `want_counts`, and decoded(x, got) counts its wrong decryptions."""
+    `want_counts` (or want_counts(circuit) once its keys are packed, where
+    it is callable), and decoded(x, got) counts its wrong decryptions."""
     import numpy as np
     import torch
     import concrete_tpu_torch as tfhe
@@ -1283,6 +1293,8 @@ def serve_compiled(rng, circuit, archive, inputs, want_counts, decoded):
                                      device=circuit.device)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
+    if callable(want_counts):
+        want_counts = want_counts(circuit)
     name = os.path.basename(archive)
     walls, archive_walls, wrong, values = [], [], 0, 0
     _build.reset_launches()               # this path's run starts here
@@ -1471,7 +1483,8 @@ def compile_phase(rng):
     mlp = serve_compiled(
         rng, mlp_c, MLP_FIXTURE,
         [(rng.integers(0, 4, shape),) for _ in range(COMPILED_REQUESTS)],
-        dict.fromkeys(FUSED_KERNELS, mlp_c.client_specs.params.n_small),
+        lambda c: br_form(c._evaluation_keys()[1], c.client_specs.params,
+                          c.programmable_bootstrap_count)[1],
         lambda x, got, server: (int(np.count_nonzero(
             got != np.asarray(server.graph(x[0])))), got.size))
     lookup = compiled_lookups(circuits["table_lookup"])
@@ -1496,9 +1509,11 @@ def br_form(bsk, p, batch: int, min_scale: int = None,
     packed key `bsk` at parameters `p`: the form core.kernels.blind_rotate
     takes (the persistent kernel where ops/latency.plan takes the shape,
     else the step loop, at B <= LATENCY_BATCH_MAX; the banded scan above;
-    for a fused key, the CRT-NTT kernel of ops/fused_latency.py where its
-    plan takes the shape and the accumulator's mode at B <=
-    LATENCY_BATCH_MAX, else the CRT-NTT loop; `min_scale`, a WoP sign
+    for a fused key, ops/fused_ntt.blind_rotate_form's: the CRT-NTT kernel
+    of ops/fused_latency.py where its plan takes the shape and the
+    accumulator's mode at B <= LATENCY_BATCH_MAX, else ops/crt_scan.py's
+    one launch where its plan takes them, else the CRT-NTT loop;
+    `min_scale`, a WoP sign
     PBS's smallest output scale, gates the acc32 mode) and the port
     launches it makes there, with, where `prologue` (a lookup through
     core.kernels.pbs_batch, not a WoP sign PBS), the one launch of
@@ -1508,18 +1523,20 @@ def br_form(bsk, p, batch: int, min_scale: int = None,
     from concrete_tpu_torch.core import limbs as lb
     from concrete_tpu_torch.ops import fused_latency as fl
     from concrete_tpu_torch.ops import latency as lat
+    from concrete_tpu_torch.ops import fused_ntt as fn
     from concrete_tpu_torch.ops import prologue as pro
     from concrete_tpu_torch.ops.fused_ntt import FusedBSK, acc32_eligible
     steps = p.n_small
     if isinstance(bsk, FusedBSK):
-        plan = fl.plan(batch, p.polynomial_size, p.glwe_dimension + 1,
-                       bsk.levels, len(bsk.primes),
-                       acc32_eligible(bsk, min_scale)) \
-            if batch <= kn.LATENCY_BATCH_MAX else None
-        if plan is None:
+        shape = (batch, p.polynomial_size, p.glwe_dimension + 1,
+                 bsk.levels, len(bsk.primes), acc32_eligible(bsk, min_scale))
+        form = fn.blind_rotate_form(*shape)
+        if form == "crt_ntt_loop":
             return "fused loop", dict.fromkeys(FUSED_KERNELS, steps)
-        return f"fused persistent kernel (cluster of {plan.cluster})", \
-            {fl.NAME: 1}
+        if form == "crt_ntt_scan":
+            return "fused one-launch scan", {CRT_SCAN: 1}
+        return f"fused persistent kernel (cluster of " \
+            f"{fl.plan(*shape).cluster})", {fl.NAME: 1}
     if batch > kn.LATENCY_BATCH_MAX:
         return f"banded scan ({kn.BANDED_MM_MODE})", {
             "rotate_decompose": steps, "external_product_accumulate": steps}
@@ -1875,6 +1892,7 @@ def kernel_wrappers() -> dict:
     wrapper a served request or a key pack may launch; each plain version
     takes its wrapper's arguments."""
     from concrete_tpu_torch.ops import banded_mm as bm
+    from concrete_tpu_torch.ops import crt_scan as cs
     from concrete_tpu_torch.ops import external_product as xp
     from concrete_tpu_torch.ops import fused_latency as fl
     from concrete_tpu_torch.ops import fused_ntt as fn
@@ -1891,7 +1909,7 @@ def kernel_wrappers() -> dict:
                 (lat, "blind_rotate_latency"), (fn, "crt_external_product"),
                 (fn, KEYED), (fn, "garner_accumulate"),
                 (tn, "ntt_forward_pack"), (fl, FUSED_LATENCY),
-                (pro, pro.NAME))}
+                (cs, CRT_SCAN), (pro, pro.NAME))}
 
 
 class same_inputs:
@@ -5087,6 +5105,150 @@ def fused_latency_phase(rng, clock, mix, variants, clocks):
     return recs
 
 
+def check_crt_scan(rng, *, batch, n, levels, base_log, n_primes, trunc_bits,
+                   acc32, n_small, plain_steps=4, timed=False, clock=None,
+                   mix=None):
+    """The CRT-NTT blind rotate of a batch in one launch (ops/crt_scan.py)
+    over `n_small` steps of a random key packed on the card, against the
+    three-kernel loop on the card, and over its first `plain_steps` steps
+    against its plain version (the three-kernel scan on the plain versions
+    of kernels 1, 3 and 4); k+1 = 2.  Timed: ms per lookup (n_small steps)
+    beside the loop's, the plain version's ms a step, and the bound: the
+    key's spectra and companions read once and the accumulator in and out,
+    against the transforms', multiply-adds' (per pipe, from the probes'
+    SASS), digits' and Garner's instructions."""
+    import math
+    import numpy as np
+    import torch
+    from concrete_tpu_torch.core import ntt as host
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.ops import crt_scan as cs
+    from concrete_tpu_torch.ops import fused_ntt as fn
+    kp1 = 2
+    primes = host.special_ntt_primes(n, 128)[:n_primes]
+    params = fused_params(n, levels, base_log, n_small, kp1)
+    t_min = max(0, host.required_bits(params, 0)
+                - (math.prod(primes).bit_length() - 1))
+    shape = (f"B={batch} N={n} l={levels} base_log={base_log} P={n_primes} "
+             f"t={trunc_bits} steps={n_small} {'acc32' if acc32 else 'full'}")
+    if trunc_bits < t_min:
+        fail(f"{shape}: {n_primes} primes need t >= {t_min}")
+    form = fn.blind_rotate_form(batch, n, kp1, levels, n_primes, acc32)
+    if form != "crt_ntt_scan":
+        fail(f"{CRT_SCAN}: the rule gives {form} at {shape}")
+    bsk = rng.integers(0, 1 << 64, (n_small, levels, kp1, kp1, n),
+                       dtype=np.uint64)
+    fbsk = fn.pack_bsk_fused(bsk, params, primes=primes,
+                             trunc_bits=trunc_bits, device="cuda")
+    del bsk
+    a_t = torch.from_numpy(rng.integers(0, 2 * n, (batch, n_small))
+                           .astype(np.int32)).cuda()
+    if acc32:
+        acc = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31,
+                                            (batch, kp1, n))
+                               .astype(np.int32)).cuda()
+    else:
+        acc = rand_torus(rng, (batch, kp1, n), "cuda")
+    kw = dict(primes=primes, trunc_bits=trunc_bits, base_log=base_log,
+              levels=levels)
+    before = _build.LAUNCHES[CRT_SCAN]
+    got = cs.blind_rotate_crt_scan(a_t, acc.clone(), fbsk.spec_val,
+                                   fbsk.spec_sh, **kw)
+    if _build.LAUNCHES[CRT_SCAN] != before + 1:
+        fail(f"{CRT_SCAN} counted {_build.LAUNCHES[CRT_SCAN] - before} "
+             f"launches for one call")
+    steps = fn.scan_steps(a_t, acc.clone(), fbsk)
+    torch.cuda.synchronize()
+    if not torch.equal(got, steps):
+        fail(f"{CRT_SCAN} differs from the three-kernel loop on the card at "
+             f"{shape}")
+    k = min(plain_steps, n_small)
+    part = (a_t[:, :k].contiguous(), acc, fbsk.spec_val[:k],
+            fbsk.spec_sh[:k])
+    short = cs.blind_rotate_crt_scan(part[0], acc.clone(), *part[2:], **kw)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = cs.blind_rotate_crt_scan_plain(*part, **kw)
+    end.record()
+    end.synchronize()
+    if not torch.equal(short, want):
+        fail(f"{CRT_SCAN} differs from its plain version over {k} steps at "
+             f"{shape}")
+    # the plain version's ms a lookup, from its first k steps
+    plain_ms_a_step = start.elapsed_time(end) / k
+    rec = {"max_abs_err": max_abs_err(got, steps),
+           "plain_ms_a_step": plain_ms_a_step,
+           "plain_ms": plain_ms_a_step * n_small}
+    if timed:
+        pl = cs.plan(batch, n, kp1, levels, n_primes, acc32)
+        scratch = acc.clone()     # updated in place by every timed call
+        rec["ms"] = cuda_ms(lambda: cs.blind_rotate_crt_scan(
+            a_t, scratch, fbsk.spec_val, fbsk.spec_sh, **kw), 3)
+        rec["loop_ms"] = cuda_ms(lambda: fn.scan_steps(a_t, scratch, fbsk),
+                                 2)
+        cin = levels * kp1
+        per = batch * n_small * n_primes
+        work = {**ntt_work(per * cin, n), **ntt_work(per * kp1, n, True),
+                "mul_add": per * cin * kp1 * n,
+                # the digits (every prime's block) and the Garner (once)
+                "tally": batch * n_small * kp1 * n * (
+                    n_primes * (10 + 6 * levels)
+                    + n_primes * OPS_GARNER_PRIME + OPS_GARNER)}
+        ops_ms, detail = pipe_ms(work, {**mix, "tally": {"alu": 1.0}}, clock)
+        nbytes = 8 * fbsk.spec_val.numel() + a_t.numel() * 4 \
+            + 2 * acc.numel() * acc.element_size()
+        rec.update(bound(ops_ms, nbytes, work=work, **detail),
+                   library_ms=None, threads=pl.threads, smem=pl.smem,
+                   ms_a_step=rec["ms"] / n_small,
+                   loop_ms_a_step=rec["loop_ms"] / n_small)
+    print(f"{CRT_SCAN} bit-exact (against the three-kernel loop on the "
+          f"card, and over {k} steps its plain version) at {shape}: {rec}",
+          flush=True)
+    return rec
+
+
+def crt_scan_phase(rng, clock, mix):
+    """The CRT-NTT blind rotate of a batch in one launch at every shape of
+    CRT_SCAN_SHAPES, timed against the three-kernel loop; then a few steps
+    at the key-value query's shape in the u64 mode and on 2 primes, and at
+    a batch of 300 (no multiple of a wave); the rule's refusals (k+1 = 3,
+    N = 1024, 4096, 8192 and 16384, 4 primes)."""
+    from concrete_tpu_torch.ops import _build
+    from concrete_tpu_torch.ops import crt_scan as cs
+    recs = {}
+    for name, (batch, n, levels, base_log, n_p, t, n_small) in \
+            CRT_SCAN_SHAPES.items():
+        recs[name] = check_crt_scan(
+            rng, batch=batch, n=n, levels=levels, base_log=base_log,
+            n_primes=n_p, trunc_bits=t, acc32=True, n_small=n_small,
+            timed=True, clock=clock, mix=mix)
+    for batch, levels, base_log, n_p, t, acc32 in (
+            (300, 1, 23, 3, 9, True), (37, 2, 16, 3, 9, False),
+            (37, 1, 23, 2, 40, True)):
+        check_crt_scan(rng, batch=batch, n=2048, levels=levels,
+                       base_log=base_log, n_primes=n_p, trunc_bits=t,
+                       acc32=acc32, n_small=9)
+    for shape in ((256, 2048, 3, 1, 3, True), (256, 1024, 2, 2, 3, True),
+                  (128, 16384, 2, 2, 3, True), (256, 4096, 2, 2, 3, True),
+                  (100, 8192, 2, 2, 3, True), (256, 2048, 2, 1, 4, True)):
+        if cs.plan(*shape) is not None:
+            fail(f"the rule of ops/crt_scan.py takes {shape}")
+    recs["ptxas"] = [line for line in ptxas_summary(_build.BUILD_INFO["log"])
+                     if "crt_external_product_kernel_scan" in line]
+    for name in CRT_SCAN_SHAPES:
+        r = recs[name]
+        print(f"{CRT_SCAN} at {name}: {r['ms']:.4f} ms a blind rotate "
+              f"({r['ms_a_step']:.5f} a step; {r['threads']} threads, "
+              f"{r['smem']} bytes of shared memory a block), the "
+              f"three-kernel loop {r['loop_ms']:.4f} ms "
+              f"({r['loop_ms_a_step']:.5f} a step), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms_a_step']:.3f} ms a step", flush=True)
+    print(f"{CRT_SCAN} ptxas: {recs['ptxas']}", flush=True)
+    return recs
+
+
 NTT_EDGES = [-(1 << 63), (1 << 63) - 1, -1, 0, 1, -(1 << 32), (1 << 32) - 1,
              1 << 32]
 
@@ -5272,10 +5434,11 @@ def serve_mlp(rng):
         print(f"MLP request {i}: {shape[0]} samples ({lookups} lookups) in "
               f"{walls[-1]:.3f} s = {lookups / walls[-1]:.1f} PBS/s, "
               f"launches {counts}", flush=True)
-        for name in FUSED_KERNELS:
-            if counts.get(name) != p.n_small:
+        form, want = br_form(bsk, p, lookups)
+        for name, n in want.items():
+            if counts.get(name) != n:
                 fail(f"MLP request {i} launched {name} {counts.get(name)} "
-                     f"times, want one per blind-rotate step ({p.n_small})")
+                     f"times, want {n} (the {form})")
     launches = dict(_build.LAUNCHES)       # ... and ends here
     parts = pack_parts(ev, p, bsk)
     print(f"MLP key pack by part (again, each part synchronised): "
@@ -5361,10 +5524,10 @@ def direct_lookups(rng, client, ksk, bsk, params):
         if not lo <= wrong <= hi or distinct < (1 << out_bits):
             fail(f"direct lookups, {name} output: {wrong} wrong of "
                  f"{DIRECT_LOOKUPS}, {distinct} distinct outputs")
-        for kernel in FUSED_KERNELS:
-            if counts.get(kernel) != params.n_small:
+        for kernel, n in br_form(bsk, params, DIRECT_LOOKUPS)[1].items():
+            if counts.get(kernel) != n:
                 fail(f"the direct lookups launched {kernel} "
-                     f"{counts.get(kernel)} times")
+                     f"{counts.get(kernel)} times, want {n}")
         out_rec[name] = {"wall_s": wall, "wrong": wrong,
                          "expected_wrong": expected, "distinct": distinct,
                          "launches": counts}
@@ -5687,6 +5850,8 @@ def main() -> None:
     # the CRT-NTT blind rotate at B <= 4 in one launch, at the models'
     # shapes
     rec_fl = fused_latency_phase(rng, clock, mix, *fl_builds())
+    # ... and of a batch in one launch, at the batch shapes its rule takes
+    rec_cs = crt_scan_phase(rng, clock, mix)
     mark("CRT-NTT checks")
 
     step_ms = sum(rec_f[name]["ms"] for name in FUSED_KERNELS)
@@ -5835,6 +6000,16 @@ def main() -> None:
                      "its body",
          "launches": 0,       # its path is the models phase's requests
          **{k: rec_fl["levenshtein"][k] for k in fields}},
+        {"name": CRT_SCAN, "route": "cuda",
+         "source": "concrete_tpu_torch/csrc/blind_rotate_crt_scan.cu",
+         "replaces": "none alone: the batch form of "
+                     "concrete_tpu/ops/pallas_fused_ntt.py:1223 "
+                     "blind_rotate_fused's one-call scan (pallas_call "
+                     ":1299), with pallas_step.py:322 "
+                     "rotate_decompose_digits in its body; kernels 1, 3 "
+                     "and 4 stay for the shapes its rule refuses",
+         "launches": mlp["launches"].get(CRT_SCAN, 0),
+         **{k: rec_cs["kvdb32_b2048"][k] for k in fields}},
         {"name": "pbs_prologue", "route": "cuda",
          "source": "concrete_tpu_torch/csrc/pbs_prologue.cu",
          "replaces": "none: the JAX package's keyswitch is XLA's int8 "

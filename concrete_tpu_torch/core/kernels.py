@@ -9,9 +9,11 @@ k = GLWE dim, N = poly size, l = decomposition levels.
 The blind rotate dispatches as the JAX package does.  A ``FusedBSK`` at a
 batch of at most ``LATENCY_BATCH_MAX`` runs ``ops.fused_latency``'s
 kernel, on the card one launch for all n_small steps, at the shapes its
-rule takes; at any other, the CRT-NTT loop ``ops.fused_ntt.scan_steps`` (a
-host loop of three kernels per step: digits, CRT-NTT external product,
-Garner); ``ops.fused_ntt.blind_rotate_fused`` chooses.  A banded
+rule takes; at any other, ``ops.crt_scan``'s kernel, also one launch for
+all steps, at the shapes its plan takes; elsewhere the CRT-NTT loop
+``ops.fused_ntt.scan_steps`` (a host loop of three kernels per step:
+digits, CRT-NTT external product, Garner);
+``ops.fused_ntt.blind_rotate_fused`` chooses (``blind_rotate_form``).  A banded
 ``LimbBSK`` at a batch of at most ``LATENCY_BATCH_MAX`` runs
 ``_blind_rotate_latency``: on the card one launch of ``ops.latency``'s
 persistent kernel for all n_small steps, at the shapes its rule takes.
@@ -43,7 +45,7 @@ its stages ``pbs.keyswitch`` (attribute ``form``: ``prologue``, the one
 launch, init included, or ``torch``), ``pbs.init`` (modulus switch and LUT
 rotation; not on the prologue route), ``pbs.blind_rotate`` (attribute
 ``form``: ``banded_scan``, ``latency_persistent``, ``latency_steps``,
-``fused_latency`` or ``crt_ntt_loop``) and ``pbs.extract``
+``fused_latency``, ``crt_ntt_scan`` or ``crt_ntt_loop``) and ``pbs.extract``
 (``utils/telemetry``), none inside a step loop, and counts the rows that
 took the prologue route in ``pbs.prologue_rows``.
 """
@@ -298,8 +300,9 @@ def blind_rotate(ct_small: torch.Tensor, bsk, lut_poly: torch.Tensor,
     ``FusedBSK`` runs the CRT-NTT scan at any batch, at B <=
     ``LATENCY_BATCH_MAX`` in one launch of ``ops.fused_latency``'s kernel
     where its rule (``ops.fused_latency.plan``) takes the shape, else in
-    ``ops.fused_ntt.scan_steps``'s loop (``blind_rotate_fused``
-    chooses); a ``LimbBSK`` runs ``_blind_rotate_latency`` at B <=
+    one launch of ``ops.crt_scan``'s where ``ops.crt_scan.plan`` takes it,
+    else in ``ops.fused_ntt.scan_steps``'s loop (``blind_rotate_fused``
+    chooses, by ``blind_rotate_form``); a ``LimbBSK`` runs ``_blind_rotate_latency`` at B <=
     ``LATENCY_BATCH_MAX``, else the banded scan in ``BANDED_MM_MODE``.
 
     `min_scale_log`, the smallest output scale of the rows (the WoP sign

@@ -1,11 +1,12 @@
 // Kernel 1's digit arithmetic as device functions: the rotated difference
 // X^a acc - acc of one accumulator row at one coefficient, and its
-// balanced gadget digits, rounded half up as refimpl.decompose.  Two
+// balanced gadget digits, rounded half up as refimpl.decompose.  Three
 // kernels include it with the same arithmetic: csrc/rotate_decompose.cu
 // (kernel 1, the digits mode: every level of every row, into global
-// memory) and csrc/blind_rotate_fused_latency.cu (one level's digits at
-// the coefficients a thread's first transform pass reads, from the
-// accumulator row in shared memory).
+// memory), csrc/blind_rotate_fused_latency.cu and
+// csrc/blind_rotate_crt_scan.cu (one level's digits at the coefficients a
+// thread's first transform pass reads, from the accumulator row in shared
+// memory; the second in 32 bits in the acc32 mode, digit_top below).
 
 #pragma once
 
@@ -50,6 +51,27 @@ __device__ __forceinline__ int32_t next_digit(uint64_t v, uint64_t& w_prev,
 __device__ __forceinline__ int32_t digit(uint64_t v, int lev, int base_log) {
   uint64_t w_prev = ((v >> (63 - lev * base_log)) + 1) >> 1;
   return next_digit(v, w_prev, lev, base_log);
+}
+
+// The acc32 mode's digits in 32-bit arithmetic, the same bits as digit()
+// of v = h 2^32 wherever (lev + 1) base_log <= 31: h is the top word of
+// X^a row - row (rotate_diff_top), and for m <= 31, v >> (63 - m) is
+// h >> (31 - m), a value u of m + 1 bits whose rounding (u + 1) >> 1 is
+// (u >> 1) + (u & 1), which stays within 32 bits.
+__device__ __forceinline__ uint32_t rotate_diff_top(const uint32_t* row,
+                                                    int t, int a, int n) {
+  int s = t - a;
+  if (s < 0) s += 2 * n;
+  const uint32_t x = s >= n ? 0u - row[s - n] : row[s];
+  return x - row[t];
+}
+
+__device__ __forceinline__ int32_t digit_top(uint32_t h, int lev,
+                                             int base_log) {
+  const uint32_t u0 = h >> (31 - lev * base_log);
+  const uint32_t u1 = h >> (31 - (lev + 1) * base_log);
+  const uint32_t w0 = (u0 >> 1) + (u0 & 1), w1 = (u1 >> 1) + (u1 & 1);
+  return (int32_t)(w1 - (w0 << base_log));
 }
 
 }  // namespace digits

@@ -86,6 +86,9 @@ _SIGNATURES = {
     # trunc_bits, acc32, stream
     "blind_rotate_fused_latency": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _I, _P],
+    # the same arguments (ops/fused_ntt.launch_scan)
+    "blind_rotate_crt_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _P],
     # ct, key planes, lut, lut row stride, a_t, acc, scratch, batch, n_in,
     # levels, base_log, cols, kp1, n, log_n, body offset, stream
     "pbs_prologue": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -12,7 +12,8 @@ block per (prime, output component), the spectra and the residues
 exchanged through distributed shared memory, each block's accumulator row
 on chip across the steps, its key rows staged in a 2-slot ring.  Its plain
 version is ``ops.fused_ntt``'s three-kernel scan on the plain versions of
-kernels 1, 3 and 4, which gives the same bits.
+kernels 1, 3 and 4 (``ops.fused_ntt.scan_plain``), which gives the same
+bits.
 
 ``plan`` is the shape rule: the shapes whose cluster and block fit the
 card (the models' B = 1 lookups: N = 1024, k+1 = 3, l = 2 and N = 2048,
@@ -20,7 +21,8 @@ k+1 = 2, l = 1 or 2, at 2 or 3 primes).  ``ops.fused_ntt.blind_rotate_fused``
 (what ``core.kernels.blind_rotate`` runs on a fused key) sends a blind
 rotate of at most ``LATENCY_BATCH_MAX`` ciphertexts to
 ``blind_rotate_fused_latency`` where the rule takes the shape, and any
-other to ``ops.fused_ntt.scan_steps``'s loop.  ``blind_rotate_fused_latency``
+other to ``ops.crt_scan``'s one launch or ``ops.fused_ntt.scan_steps``'s
+loop (``ops.fused_ntt.blind_rotate_form``).  ``blind_rotate_fused_latency``
 launches the kernel on CUDA tensors, raises at a shape the rule refuses,
 and runs the plain version on CPU ones; there is no other fallback.
 """
@@ -31,10 +33,7 @@ import dataclasses
 
 import torch
 
-from concrete_tpu_torch.ops import _build
 from concrete_tpu_torch.ops import fused_ntt as fn
-from concrete_tpu_torch.ops import ntt as tn
-from concrete_tpu_torch.ops import step
 
 NAME = "blind_rotate_fused_latency"
 #: csrc/blind_rotate_fused_latency.cu's constants
@@ -95,40 +94,17 @@ def plan(batch: int, n: int, kp1: int, levels: int, n_primes: int,
                 smem=smem)
 
 
-def _shape(a_t: torch.Tensor, acc: torch.Tensor, spec_val: torch.Tensor,
-           spec_sh: torch.Tensor, n_primes: int, levels: int):
-    """(batch, n_small, k+1, N) of the operands."""
-    if a_t.ndim != 2 or acc.ndim != 3 or spec_val.ndim != 3:
-        raise ValueError(f"{NAME}: a_t must be (B, n_small), acc (B, k+1, "
-                         f"N) and the spectra (n_small, P Cin (k+1), N), "
-                         f"got {tuple(a_t.shape)}, {tuple(acc.shape)} and "
-                         f"{tuple(spec_val.shape)}")
-    batch, kp1, n = acc.shape
-    n_small = a_t.shape[1]
-    if (a_t.shape[0] != batch or n_small == 0
-            or tuple(spec_val.shape) != (n_small, n_primes * levels * kp1
-                                         * kp1, n)
-            or spec_sh.shape != spec_val.shape):
-        raise ValueError(f"{NAME}: a_t {tuple(a_t.shape)}, acc "
-                         f"{tuple(acc.shape)} and the spectra "
-                         f"{tuple(spec_val.shape)} do not match (P="
-                         f"{n_primes}, l={levels})")
-    return batch, n_small, kp1, n
-
-
 def blind_rotate_fused_latency_plain(a_t: torch.Tensor, acc: torch.Tensor,
                                      spec_val: torch.Tensor,
                                      spec_sh: torch.Tensor, *, primes: tuple,
                                      trunc_bits: int, base_log: int,
                                      levels: int) -> torch.Tensor:
     """Plain PyTorch version: the three-kernel scan on the plain versions
-    of kernels 1, 3 and 4; returns the last accumulator (B, k+1, N)."""
-    _shape(a_t, acc, spec_val, spec_sh, len(primes), levels)
-    bsk = fn.FusedBSK(spec_val=spec_val, spec_sh=spec_sh, primes=primes,
-                      trunc_bits=trunc_bits, base_log=base_log, levels=levels)
-    return fn.scan_steps(a_t, acc.clone(), bsk, (
-        step.rotate_decompose_digits_plain, fn.crt_external_product_plain,
-        fn.garner_accumulate_plain))
+    of kernels 1, 3 and 4 (``ops.fused_ntt.scan_plain``); returns the last
+    accumulator (B, k+1, N)."""
+    return fn.scan_plain(NAME, a_t, acc, spec_val, spec_sh, primes=primes,
+                         trunc_bits=trunc_bits, base_log=base_log,
+                         levels=levels)
 
 
 def blind_rotate_fused_latency(a_t: torch.Tensor, acc: torch.Tensor,
@@ -140,44 +116,9 @@ def blind_rotate_fused_latency(a_t: torch.Tensor, acc: torch.Tensor,
     spec_sh a FusedBSK's spectra and companions (n_small, P Cin (k+1), N)
     int32 -> the accumulator after n_small steps, into `acc` in place; on
     the card one launch."""
+    kw = dict(primes=primes, trunc_bits=trunc_bits, base_log=base_log,
+              levels=levels)
     if acc.device.type == "cpu":
         return acc.copy_(blind_rotate_fused_latency_plain(
-            a_t, acc, spec_val, spec_sh, primes=primes,
-            trunc_bits=trunc_bits, base_log=base_log, levels=levels))
-    if acc.device.type != "cuda":
-        raise ValueError(f"{NAME}: unsupported device {acc.device}")
-    primes = tuple(int(p) for p in primes)
-    batch, n_small, kp1, n = _shape(a_t, acc, spec_val, spec_sh,
-                                    len(primes), levels)
-    acc32 = acc.dtype == torch.int32
-    pl = plan(batch, n, kp1, levels, len(primes), acc32)
-    if pl is None:
-        raise ValueError(f"{NAME}: the kernel does not take B={batch}, "
-                         f"N={n}, k+1={kp1}, l={levels}, {len(primes)} "
-                         f"primes, {'acc32' if acc32 else 'full'} mode")
-    if base_log < 1 or levels * base_log > (31 if acc32 else 63):
-        raise ValueError(f"{NAME}: levels*base_log must be <= "
-                         f"{31 if acc32 else 63} (got {levels}x{base_log})")
-    if not 0 <= trunc_bits < 64:
-        raise ValueError(f"{NAME}: shift {trunc_bits} out of range")
-    for name, t, dtypes in (("a_t", a_t, (torch.int32,)),
-                            ("acc", acc, (torch.int32, torch.int64)),
-                            ("spec_val", spec_val, (torch.int32,)),
-                            ("spec_sh", spec_sh, (torch.int32,))):
-        if t.dtype not in dtypes or not t.is_contiguous() \
-                or t.device != acc.device:
-            raise ValueError(f"{NAME}: {name} must be contiguous "
-                             f"{' or '.join(map(str, dtypes))} on "
-                             f"{acc.device}")
-    if spec_val.data_ptr() % 16 or spec_sh.data_ptr() % 16:
-        raise ValueError(f"{NAME}: the spectra must be 16-byte aligned")
-    tw = tn.pair_tables(n, primes, acc.device)
-    pcst = tn.prime_constants(n, primes, acc.device)
-    gcst = fn.garner_constants(primes, trunc_bits, acc.device)
-    _build.check(NAME, _build.library().blind_rotate_fused_latency(
-        a_t.data_ptr(), acc.data_ptr(), spec_val.data_ptr(),
-        spec_sh.data_ptr(), tw.data_ptr(), pcst.data_ptr(), gcst.data_ptr(),
-        batch, n_small, kp1, levels, base_log, len(primes),
-        n.bit_length() - 1, trunc_bits, int(acc32), _build.stream_of(acc)))
-    _build.count(NAME)
-    return acc
+            a_t, acc, spec_val, spec_sh, **kw))
+    return fn.launch_scan(NAME, plan, a_t, acc, spec_val, spec_sh, **kw)

@@ -2,13 +2,18 @@
 
 Counterpart of ``concrete_tpu/ops/pallas_fused_ntt.py`` (``FusedBSK``,
 ``pack_bsk_fused``, ``blind_rotate_fused``, ``acc32_eligible``).  The TPU
-runs the whole scan in one ``pallas_call``.  Here a blind rotate of at
-most ``core.kernels.LATENCY_BATCH_MAX`` ciphertexts runs it in one launch
-too, at the shapes ``ops.fused_latency.plan`` takes (the models' B = 1
-lookups; ``ops.fused_latency``); any other, the MLP's B = 256 batches
-among them, runs it as a host loop of three hand-written CUDA kernels per
-step (``scan_steps``).  ``blind_rotate_fused`` is the one entry and
-chooses between the two by that rule:
+runs the whole scan in one ``pallas_call``.  Here ``blind_rotate_fused``
+is the one entry, and ``blind_rotate_form`` its rule, by shape alone: a
+blind rotate of at most ``core.kernels.LATENCY_BATCH_MAX`` ciphertexts
+runs the scan in one launch of ``ops.fused_latency``'s kernel (one cluster
+of P (k+1) blocks a ciphertext, for latency) at the shapes its plan takes
+(the models' B = 1 lookups); any other, in one launch of
+``ops.crt_scan``'s kernel (one block of P thread groups a ciphertext, for
+a batch's throughput) at the shapes its plan takes (k+1 = 2, N = 2048,
+P <= 3: the key-value query's batches); the rest as a host
+loop of three hand-written CUDA kernels per step (``scan_steps``), whose
+plain versions are also the plain version of both one-launch forms
+(``scan_plain``):
 
 1. ``ops.step.rotate_decompose_digits`` (``csrc/rotate_decompose.cu``):
    X^a acc - acc and its int32 gadget digits;
@@ -441,34 +446,145 @@ def scan_steps(a_t: torch.Tensor, acc: torch.Tensor, bsk: FusedBSK,
     return acc
 
 
+# ---------------------------------------------------------------------------
+# The scan in one launch: what its two forms share
+# ---------------------------------------------------------------------------
+
+def scan_shape(name: str, a_t: torch.Tensor, acc: torch.Tensor,
+               spec_val: torch.Tensor, spec_sh: torch.Tensor,
+               n_primes: int, levels: int) -> tuple:
+    """(batch, n_small, k+1, N) of a one-launch scan's operands; raises
+    where they do not match."""
+    if a_t.ndim != 2 or acc.ndim != 3 or spec_val.ndim != 3:
+        raise ValueError(f"{name}: a_t must be (B, n_small), acc (B, k+1, "
+                         f"N) and the spectra (n_small, P Cin (k+1), N), "
+                         f"got {tuple(a_t.shape)}, {tuple(acc.shape)} and "
+                         f"{tuple(spec_val.shape)}")
+    batch, kp1, n = acc.shape
+    n_small = a_t.shape[1]
+    if (a_t.shape[0] != batch or n_small == 0
+            or tuple(spec_val.shape) != (n_small, n_primes * levels * kp1
+                                         * kp1, n)
+            or spec_sh.shape != spec_val.shape):
+        raise ValueError(f"{name}: a_t {tuple(a_t.shape)}, acc "
+                         f"{tuple(acc.shape)} and the spectra "
+                         f"{tuple(spec_val.shape)} do not match (P="
+                         f"{n_primes}, l={levels})")
+    return batch, n_small, kp1, n
+
+
+def scan_plain(name: str, a_t: torch.Tensor, acc: torch.Tensor,
+               spec_val: torch.Tensor, spec_sh: torch.Tensor, *,
+               primes: tuple, trunc_bits: int, base_log: int,
+               levels: int) -> torch.Tensor:
+    """The plain version of both one-launch forms (``ops.fused_latency``,
+    ``ops.crt_scan``): the three-kernel scan on the plain versions of
+    kernels 1, 3 and 4; returns the last accumulator (B, k+1, N), `acc`
+    left as it was."""
+    scan_shape(name, a_t, acc, spec_val, spec_sh, len(primes), levels)
+    bsk = FusedBSK(spec_val=spec_val, spec_sh=spec_sh, primes=primes,
+                   trunc_bits=trunc_bits, base_log=base_log, levels=levels)
+    return scan_steps(a_t, acc.clone(), bsk, (
+        step.rotate_decompose_digits_plain, crt_external_product_plain,
+        garner_accumulate_plain))
+
+
+def launch_scan(name: str, plan, a_t: torch.Tensor, acc: torch.Tensor,
+                spec_val: torch.Tensor, spec_sh: torch.Tensor, *,
+                primes: tuple, trunc_bits: int, base_log: int,
+                levels: int) -> torch.Tensor:
+    """One launch of the library entry `name` (both one-launch forms take
+    the same C arguments) on CUDA operands, the accumulator updated in
+    place; raises at a shape its `plan` (batch, N, k+1, l, P, acc32)
+    refuses and on operands the kernel does not take."""
+    if acc.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {acc.device}")
+    primes = tuple(int(p) for p in primes)
+    batch, n_small, kp1, n = scan_shape(name, a_t, acc, spec_val, spec_sh,
+                                        len(primes), levels)
+    acc32 = acc.dtype == torch.int32
+    if plan(batch, n, kp1, levels, len(primes), acc32) is None:
+        raise ValueError(f"{name}: the kernel does not take B={batch}, "
+                         f"N={n}, k+1={kp1}, l={levels}, {len(primes)} "
+                         f"primes, {'acc32' if acc32 else 'full'} mode")
+    if base_log < 1 or levels * base_log > (31 if acc32 else 63):
+        raise ValueError(f"{name}: levels*base_log must be <= "
+                         f"{31 if acc32 else 63} (got {levels}x{base_log})")
+    if not 0 <= trunc_bits < 64:
+        raise ValueError(f"{name}: shift {trunc_bits} out of range")
+    for what, t, dtypes in (("a_t", a_t, (torch.int32,)),
+                            ("acc", acc, (torch.int32, torch.int64)),
+                            ("spec_val", spec_val, (torch.int32,)),
+                            ("spec_sh", spec_sh, (torch.int32,))):
+        if t.dtype not in dtypes or not t.is_contiguous() \
+                or t.device != acc.device:
+            raise ValueError(f"{name}: {what} must be contiguous "
+                             f"{' or '.join(map(str, dtypes))} on "
+                             f"{acc.device}")
+    if spec_val.data_ptr() % 16 or spec_sh.data_ptr() % 16:
+        raise ValueError(f"{name}: the spectra must be 16-byte aligned")
+    tw = tn.pair_tables(n, primes, acc.device)
+    pcst = tn.prime_constants(n, primes, acc.device)
+    gcst = garner_constants(primes, trunc_bits, acc.device)
+    _build.check(name, getattr(_build.library(), name)(
+        a_t.data_ptr(), acc.data_ptr(), spec_val.data_ptr(),
+        spec_sh.data_ptr(), tw.data_ptr(), pcst.data_ptr(), gcst.data_ptr(),
+        batch, n_small, kp1, levels, base_log, len(primes),
+        n.bit_length() - 1, trunc_bits, int(acc32), _build.stream_of(acc)))
+    _build.count(name)
+    return acc
+
+
+def blind_rotate_form(batch: int, n: int, kp1: int, levels: int,
+                      n_primes: int, acc32: bool) -> str:
+    """The rule that routes a blind rotate on a fused key, by its shape
+    and accumulator mode alone: ``fused_latency`` (one launch of
+    ``ops.fused_latency``'s kernel) at B <= ``LATENCY_BATCH_MAX`` where
+    ``ops.fused_latency.plan`` takes the shape; else ``crt_ntt_scan`` (one
+    launch of ``ops.crt_scan``'s kernel) where ``ops.crt_scan.plan`` takes
+    it; else ``crt_ntt_loop`` (``scan_steps``, three launches a step)."""
+    from concrete_tpu_torch.core.kernels import LATENCY_BATCH_MAX
+    from concrete_tpu_torch.ops import crt_scan as cs
+    from concrete_tpu_torch.ops import fused_latency as fl
+    if batch <= LATENCY_BATCH_MAX and fl.plan(
+            batch, n, kp1, levels, n_primes, acc32) is not None:
+        return "fused_latency"
+    if cs.plan(batch, n, kp1, levels, n_primes, acc32) is not None:
+        return "crt_ntt_scan"
+    return "crt_ntt_loop"
+
+
 def blind_rotate_fused(ct_small: torch.Tensor, bsk: FusedBSK,
                        lut_poly: torch.Tensor, params,
                        acc32: bool = None) -> torch.Tensor:
     """Batched blind rotation: (B, n+1) ct, (N,) or (B, N) LUT ->
-    accumulator (B, k+1, N) int64.  At B <= ``LATENCY_BATCH_MAX`` where
-    ``ops.fused_latency.plan`` takes the shape and the accumulator's mode,
-    one launch of its kernel (``blind_rotate_fused_latency``); else
-    ``scan_steps``, three kernel launches a step.  A shape rule, not a
-    fallback.  With tracing on, the rows are counted by form in
-    ``pbs.fused_latency_rows`` or ``pbs.crt_ntt_rows``."""
-    from concrete_tpu_torch.core.kernels import LATENCY_BATCH_MAX
+    accumulator (B, k+1, N) int64, in the form ``blind_rotate_form``
+    gives: one launch of ``ops.fused_latency``'s kernel, one launch of
+    ``ops.crt_scan``'s, or ``scan_steps``, three kernel launches a step.
+    A shape rule, not a fallback.  With tracing on, the rows are counted
+    in ``pbs.fused_latency_rows`` or ``pbs.crt_ntt_rows`` (both forms
+    above the latency rule), those of the one-launch scan also in
+    ``pbs.crt_ntt_scan_rows``; the ``pbs.blind_rotate`` span's ``form`` is
+    the form."""
+    from concrete_tpu_torch.ops import crt_scan as cs
     from concrete_tpu_torch.ops import fused_latency as fl
     with tm.span("pbs.init") if tm.on else tm.OFF:
         a_t, acc = first_accumulator(ct_small, bsk, lut_poly, params, acc32)
     b_ct, kp1, n = acc.shape
-    latency = b_ct <= LATENCY_BATCH_MAX and fl.plan(
-        b_ct, n, kp1, bsk.levels, len(bsk.primes),
-        acc.dtype == torch.int32) is not None
+    form = blind_rotate_form(b_ct, n, kp1, bsk.levels, len(bsk.primes),
+                             acc.dtype == torch.int32)
     if tm.on:
-        tm.count("pbs.fused_latency_rows" if latency else "pbs.crt_ntt_rows",
-                 b_ct)
-    with tm.span("pbs.blind_rotate", form="fused_latency" if latency
-                 else "crt_ntt_loop") if tm.on else tm.OFF:
-        if latency:
-            fl.blind_rotate_fused_latency(
-                a_t, acc, bsk.spec_val, bsk.spec_sh, primes=bsk.primes,
-                trunc_bits=bsk.trunc_bits, base_log=bsk.base_log,
-                levels=bsk.levels)
-        else:
+        tm.count("pbs.fused_latency_rows" if form == "fused_latency"
+                 else "pbs.crt_ntt_rows", b_ct)
+        if form == "crt_ntt_scan":
+            tm.count("pbs.crt_ntt_scan_rows", b_ct)
+    with tm.span("pbs.blind_rotate", form=form) if tm.on else tm.OFF:
+        if form == "crt_ntt_loop":
             scan_steps(a_t, acc, bsk)
+        else:
+            one_launch = fl.blind_rotate_fused_latency \
+                if form == "fused_latency" else cs.blind_rotate_crt_scan
+            one_launch(a_t, acc, bsk.spec_val, bsk.spec_sh,
+                       primes=bsk.primes, trunc_bits=bsk.trunc_bits,
+                       base_log=bsk.base_log, levels=bsk.levels)
         return last_accumulator(acc)

@@ -11,6 +11,7 @@ held to the plain versions on the card by chip_smoke.py.
 import dataclasses
 import math
 import os
+import re
 import zipfile
 
 import numpy as np
@@ -35,11 +36,15 @@ from torch_threads import one_intra_op_thread  # noqa: F401
 from concrete_tpu_torch import params as tpp
 from concrete_tpu_torch.compilation.specs import ClientSpecs as TSpecs
 from concrete_tpu_torch.core import ntt as tntt
+from concrete_tpu_torch.core import kernels as tk
+from concrete_tpu_torch.ops import crt_scan as tcs
+from concrete_tpu_torch.ops import fused_latency as tfl
 from concrete_tpu_torch.ops import fused_ntt as tfn
 from concrete_tpu_torch.ops import ntt as tn
 from concrete_tpu_torch.ops import step as tstep
 from concrete_tpu_torch.optimizer import v0 as tv0
 from concrete_tpu_torch.params import CryptoParams as TParams
+from concrete_tpu_torch.utils import telemetry as tm
 
 # the QuantizedMLP benchmark's parameters (the committed mlp_q2_b64 archive)
 MLP_PARAMS = CryptoParams.make(
@@ -582,3 +587,219 @@ def test_register_schedule_in_output_groups(kp1, groups):
     smem = 2 * 1024 * 4
     assert tfn.kernel_groups(1024, kp1, smem)[0] == groups
     _rehearse_step(kp1=kp1, b_ct=2, smem_bytes=smem)
+
+
+# ---------------------------------------------------------------------------
+# The one-launch scan of a batch (ops/crt_scan.py, csrc/blind_rotate_crt_scan.cu)
+# ---------------------------------------------------------------------------
+
+#: the key-value query's blind rotate (N, k+1, l, P, acc32)
+KVDB32 = (2048, 2, 1, 3, True)
+
+
+def test_crt_scan_rule_takes_the_batches():
+    """The rule (ops.fused_ntt.blind_rotate_form): the key-value query's
+    shape at B = 2,048 and 256 (and 5, 300; either accumulator mode) and
+    radix_add's B = 512 on 2 primes take the one-launch scan; B <=
+    LATENCY_BATCH_MAX keeps the fused persistent kernel where its plan
+    takes the shape, and takes the scan where it does not (l = 2, base
+    2^16 at B = 1: its ring and threads); shapes the kernel does not take
+    keep the loop: the MLP's N = 4096, PrimeMatch 10's N = 8192, N = 1024
+    and 16384, k+1 = 3, 4 primes."""
+    n, kp1, levels, n_p, acc32 = KVDB32
+    form = tfn.blind_rotate_form
+    for batch in (2048, 256, 5, 300):
+        assert form(batch, n, kp1, levels, n_p, acc32) == "crt_ntt_scan"
+        assert form(batch, n, kp1, levels, n_p, False) == "crt_ntt_scan"
+    assert form(512, 2048, 2, 2, 2, True) == "crt_ntt_scan"
+    for batch in range(1, tk.LATENCY_BATCH_MAX + 1):
+        assert tfl.plan(batch, n, kp1, levels, n_p, acc32) is not None
+        assert form(batch, n, kp1, levels, n_p, acc32) == "fused_latency"
+    assert tfl.plan(1, 2048, 2, 4, 3, False) is None
+    assert form(1, 2048, 2, 4, 3, False) == "crt_ntt_scan"
+    for shape in ((256, 4096, 2, 2, 3, True), (100, 8192, 2, 2, 3, True),
+                  (256, 1024, 2, 2, 3, True), (128, 16384, 2, 2, 3, True),
+                  (256, 2048, 3, 1, 3, True), (256, 2048, 2, 1, 4, True)):
+        assert tcs.plan(*shape) is None, shape
+        assert form(*shape) == "crt_ntt_loop", shape
+
+
+def _csrc(name):
+    return open(os.path.join(os.path.dirname(tcs.__file__), os.pardir,
+                             "csrc", name)).read()
+
+
+def test_crt_scan_plan_is_the_kernels():
+    """plan()'s limits are the kernel's CS_* constants (shared memory,
+    groups a block, N); its shared memory is make_plan's sum: the
+    accumulator (4 or 8 bytes a word) and a pair of exchange buffers a
+    prime's group; the key-value query's block is 64 KB of 384 threads,
+    the launch bound's 3 groups."""
+    src = _csrc("blind_rotate_crt_scan.cu")
+    consts = {name: math.prod(int(f) for f in expr.split("*"))
+              for name, expr in re.findall(
+                  r"constexpr \w+ CS_(\w+) = ([\d *]+);", src)}
+    assert consts == {"MAX_SMEM": tcs.MAX_SMEM,
+                      "MAX_PRIMES": tcs.MAX_PRIMES, "LOG_N": tcs.LOG_N}
+    assert "constexpr int CS_KP1 = KR;" in src and tcs.KP1 == 2
+    assert "__launch_bounds__(CS_MAX_PRIMES * ((1 << LOG_N) / E), 1)" in src
+    for levels, n_p, acc32 in ((1, 3, True), (2, 3, False), (1, 2, True),
+                               (2, 1, False)):
+        pl = tcs.plan(7, 2048, 2, levels, n_p, acc32)
+        assert pl.threads == n_p * 2048 // tcs.E
+        assert pl.off_exch == 2 * 2048 * (4 if acc32 else 8)
+        assert pl.smem == pl.off_exch + n_p * 2 * 2048 * 4
+    assert tcs.plan(2048, *KVDB32) == tcs.Plan(threads=384, off_exch=16384,
+                                               smem=65536)
+
+
+def emulate_crt_scan(a_t, acc, fbsk, mutation=None):
+    """The kernel's data movement on the CPU, group by group: per step
+    each prime's group takes every digit polynomial from the block's
+    accumulator, transforms it, multiplies it with its prime's key rows,
+    inverts, and leaves its residue rows in its own buffers; after the
+    barrier the block recombines every quad (Garner) from the groups'
+    buffers and updates the accumulator in place.  `mutation` plants a
+    fault: a group's residues read from the next group's buffers, the
+    last quad left out, or the Garner run on the accumulator of the step
+    before."""
+    primes, n_p = fbsk.primes, len(fbsk.primes)
+    b_ct, kp1, n = acc.shape
+    out = acc.clone()
+    for b in range(b_ct):
+        block, before = out[b], out[b].clone()
+        for i in range(fbsk.n_small):
+            a = a_t[b, i].repeat(kp1)
+            bufs = []
+            for gp in range(n_p):
+                prime = (primes[gp],)
+                d = tstep.rotate_decompose_digits_plain(
+                    block, a, base_log=fbsk.base_log,
+                    levels=fbsk.levels)                 # (l, k+1, N)
+                dhat = tn.ntt_forward_plain(d.reshape(-1, n), prime)[0]
+                key = (fbsk.spec_val[i].to(torch.int64) & 0xFFFFFFFF) \
+                    .view(n_p, -1, kp1, n)[gp]          # (Cin, k+1, N)
+                hat = (dhat.to(torch.int64)[:, None] * key % primes[gp]) \
+                    .sum(0) % primes[gp]
+                bufs.append(tn.ntt_inverse_plain(
+                    hat[None].to(torch.int32), prime)[0].reshape(-1))
+            if mutation == "prime":
+                bufs = bufs[1:] + bufs[:1]
+            hi = kp1 * n - 4 * (mutation == "gap")
+            old = before if mutation == "step_before" else block
+            new = block.clone()
+            new.view(-1)[:hi] = tfn.garner_accumulate_plain(
+                torch.stack([r[:hi] for r in bufs]),
+                old.view(-1)[:hi].clone(), primes, fbsk.trunc_bits)
+            before = block.clone()
+            block.copy_(new)
+    return out
+
+
+def _scan_case(batch, levels, base_log, n_p, acc32, n=2048, steps=2,
+               seed=0):
+    params = _params(n, n_small=steps, levels=levels, base_log=base_log)
+    rng = np.random.default_rng([batch, levels, n_p, acc32, seed])
+    bsk, ct, lut = _random_inputs(rng, params, batch)
+    primes = tntt.special_ntt_primes(n, 128)[:n_p]
+    t = max(0, tntt.required_bits(params, 0)
+            - (math.prod(primes).bit_length() - 1))
+    fbsk = tfn.pack_bsk_fused(bsk, _tparams(params), primes=primes,
+                              trunc_bits=t, device="cpu")
+    a_t, acc = tfn.first_accumulator(t64(ct), fbsk, t64(lut),
+                                     _tparams(params), acc32)
+    return params, fbsk, ct, lut, a_t, acc
+
+
+@pytest.mark.parametrize("batch,levels,base_log,n_p,acc32", [
+    (1, 1, 23, 3, True), (2, 2, 16, 3, False), (1, 1, 23, 2, True)],
+    ids=["kvdb32", "u64", "p2"])
+def test_crt_scan_design_matches_plain(batch, levels, base_log, n_p, acc32):
+    """The rehearsed kernel == its plain version over 2 steps at N=2048:
+    the key-value query's shape, a u64-accumulator shape (the digits read
+    the low word), a 2-prime shape."""
+    _, fbsk, _, _, a_t, acc = _scan_case(batch, levels, base_log, n_p, acc32)
+    kw = dict(primes=fbsk.primes, trunc_bits=fbsk.trunc_bits,
+              base_log=fbsk.base_log, levels=fbsk.levels)
+    want = tcs.blind_rotate_crt_scan_plain(a_t, acc, fbsk.spec_val,
+                                           fbsk.spec_sh, **kw)
+    assert torch.equal(emulate_crt_scan(a_t, acc, fbsk), want)
+    assert not torch.equal(want, acc)
+
+
+@pytest.mark.parametrize("mutation", ["gap", "prime", "step_before"])
+def test_crt_scan_design_mutations_fail(mutation):
+    """The rehearsal has teeth: the last quad left out of the Garner, a
+    prime's residues read from the next group's buffers, or the Garner
+    run on the accumulator of the step before, each gives another
+    accumulator."""
+    _, fbsk, _, _, a_t, acc = _scan_case(1, 1, 23, 3, True)
+    kw = dict(primes=fbsk.primes, trunc_bits=fbsk.trunc_bits,
+              base_log=fbsk.base_log, levels=fbsk.levels)
+    want = tcs.blind_rotate_crt_scan_plain(a_t, acc, fbsk.spec_val,
+                                           fbsk.spec_sh, **kw)
+    assert not torch.equal(emulate_crt_scan(a_t, acc, fbsk, mutation), want)
+
+
+def test_digit_top_is_the_digit_of_the_top_word():
+    """csrc/digits.cuh digit_top (the acc32 mode's 32-bit digits) gives
+    digit()'s bits on v = h 2^32 for every (lev + 1) base_log <= 31, the
+    edge words included."""
+    rng = np.random.default_rng(31)
+
+    def digit(v, lev, bl):
+        w0 = ((v >> (63 - lev * bl)) + 1) >> 1
+        w1 = ((v >> (63 - (lev + 1) * bl)) + 1) >> 1
+        return (w1 - (w0 << bl)) & 0xFFFFFFFF
+
+    def digit_top(h, lev, bl):
+        u0, u1 = h >> (31 - lev * bl), h >> (31 - (lev + 1) * bl)
+        w0, w1 = (u0 >> 1) + (u0 & 1), (u1 >> 1) + (u1 & 1)
+        return (w1 - (w0 << bl)) & 0xFFFFFFFF
+
+    words = [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF] + [
+        int(h) for h in rng.integers(0, 1 << 32, 400, dtype=np.uint64)]
+    for bl in range(1, 32):
+        for lev in range(31 // bl):
+            for h in words:
+                assert digit_top(h, lev, bl) == digit(h << 32, lev, bl), \
+                    (h, lev, bl)
+
+
+def test_blind_rotate_fused_picks_its_form_and_counts_rows(monkeypatch):
+    """blind_rotate_fused on the CPU by the rule: B = 2 at N=2048 through
+    the fused persistent kernel's plain version, B = 5 through the
+    one-launch scan's, B = 5 at N=1024 through the loop; every form gives
+    the loop's bits; with tracing on, the span's form and the counters:
+    pbs.crt_ntt_rows counts the rows of both forms above the latency rule,
+    pbs.crt_ntt_scan_rows those of the one-launch scan alone."""
+    calls = []
+    for module, name in ((tfl, "blind_rotate_fused_latency_plain"),
+                         (tcs, "blind_rotate_crt_scan_plain")):
+        plain = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _p=plain, _n=name,
+                            **k: calls.append(_n) or _p(*a, **k))
+    tm.reset()
+    tm.enable()
+    try:
+        forms = []
+        for batch, n in ((2, 2048), (5, 2048), (5, 1024)):
+            params, fbsk, ct, lut, a_t, acc = _scan_case(
+                batch, 1, 23, 3, True, n=n)
+            got = tfn.blind_rotate_fused(t64(ct), fbsk, t64(lut),
+                                         _tparams(params))
+            loop = tfn.scan_steps(a_t, acc.clone(), fbsk)
+            assert torch.equal(got, tfn.last_accumulator(loop))
+            forms.append(tfn.blind_rotate_form(batch, n, 2, 1, 3, True))
+        snap = tm.snapshot()
+    finally:
+        tm.disable()
+        tm.reset()
+    assert forms == ["fused_latency", "crt_ntt_scan", "crt_ntt_loop"]
+    assert calls == ["blind_rotate_fused_latency_plain",
+                     "blind_rotate_crt_scan_plain"]
+    assert [s["attrs"]["form"] for s in snap["spans"]
+            if s["name"] == "pbs.blind_rotate"] == forms
+    assert snap["counters"] == {"pbs.fused_latency_rows": 2,
+                                "pbs.crt_ntt_rows": 10,
+                                "pbs.crt_ntt_scan_rows": 5}

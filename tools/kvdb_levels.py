@@ -12,11 +12,16 @@ held to ``models/kvdb_reference.query``.  Then:
   levels) and the counters (``pbs.crt_ntt_rows`` and the others);
 - one query with every ``pbs_batch`` call between two synchronisations:
   each level's rows and ms (keyswitch, blind rotate and extract);
-- one more query with every launch of kernels 1, 3 and 4 of the CRT-NTT
-  loop (``ops/fused_ntt.scan_steps``) between two CUDA events: each
-  kernel's ms a launch at each level's rows, B (k+1).  Where the host
-  launches slower than the card runs (the narrow level), an event pair
-  also holds the wait for the launch.
+- one more query with each level's one-launch blind rotate
+  (``ops/crt_scan.py``, where ``ops/fused_ntt.blind_rotate_form`` takes
+  the level) between two CUDA events, and every launch of kernels 1, 3
+  and 4 of the CRT-NTT loop (``ops/fused_ntt.scan_steps``) too: each
+  form's ms a launch at each level's rows, B (k+1);
+- then, on each one-launch blind rotate's own inputs, the loop, each
+  launch of its kernels between two CUDA events, its result held to the
+  one launch's bit for bit.  Where the host launches slower than the card
+  runs (the narrow level), an event pair also holds the wait for the
+  launch.
 
 Prints one JSON line, with the card's name and power limit, and writes it
 to ``chiprun_out/NAME.json``.
@@ -65,6 +70,7 @@ def main() -> None:
     from concrete_tpu_torch.core import kernels as kn
     from concrete_tpu_torch.models import KeyValueDatabase
     from concrete_tpu_torch.models import kvdb_reference as ref
+    from concrete_tpu_torch.ops import crt_scan as cs
     from concrete_tpu_torch.ops import fused_ntt as fn
     from concrete_tpu_torch.utils import telemetry as tm
 
@@ -142,18 +148,35 @@ def main() -> None:
 
     saved = (fn.step.rotate_decompose_digits, fn.crt_external_product,
              fn.garner_accumulate)
-    fn.step.rotate_decompose_digits = timed(saved[0], "kernel 1",
-                                            lambda a: a[0].shape[0])
-    fn.crt_external_product = timed(saved[1], "kernel 3",
-                                    lambda a: a[0].shape[1])
-    fn.garner_accumulate = timed(saved[2], "kernel 4",
-                                 lambda a: a[1].shape[0])
+    wrapped = (timed(saved[0], "kernel 1", lambda a: a[0].shape[0]),
+               timed(saved[1], "kernel 3", lambda a: a[0].shape[1]),
+               timed(saved[2], "kernel 4", lambda a: a[1].shape[0]))
+    one_launch, kept = cs.blind_rotate_crt_scan, []
+
+    def timed_scan(a_t, acc, *args, **kw):
+        a_in, acc_in = a_t.clone(), acc.clone()
+        out = timed(one_launch, "one-launch scan",
+                    lambda a: a[1].shape[0] * a[1].shape[1])(
+            a_t, acc, *args, **kw)
+        kept.append((a_in, acc_in, args, kw, out.clone()))
+        return out
+
+    (fn.step.rotate_decompose_digits, fn.crt_external_product,
+     fn.garner_accumulate) = wrapped
+    cs.blind_rotate_crt_scan = timed_scan
     try:
         serve(1)
+        torch.cuda.synchronize()
+        mismatch = 0
+        for a_t, acc, (spec_val, spec_sh), kw, want in kept:
+            bsk = fn.FusedBSK(spec_val=spec_val, spec_sh=spec_sh, **kw)
+            mismatch += not torch.equal(fn.scan_steps(a_t, acc, bsk), want)
         torch.cuda.synchronize()
     finally:
         (fn.step.rotate_decompose_digits, fn.crt_external_product,
          fn.garner_accumulate) = saved
+        cs.blind_rotate_crt_scan = one_launch
+    rec["loop_differs_from_one_launch"] = mismatch
     per = {}
     for label, rows, start, end in launches:
         acc = per.setdefault(f"{label} rows={rows}", [0, 0.0])

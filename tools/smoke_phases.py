@@ -2,7 +2,8 @@
 """Run some phases of ``chip_smoke.py`` alone on one NVIDIA GPU.
 
     python3 tools/smoke_phases.py [keygen] [models] [multi] [multi_wop]
-                                  [module] [kinds] [fused] [wop] [bigint]
+                                  [module] [kinds] [fused] [crt_scan] [wop]
+                                  [bigint]
                                   [tfhers] [scheduler] [cli] [parallel]
 
 Builds the port's kernels from ``concrete_tpu_torch/csrc``, then runs the
@@ -16,7 +17,9 @@ fhe.module's composition cases and Sha1 over encrypted words, a whole
 digest of b"abc" held to hashlib, and its digest in the default simulate
 mode on the host; ``kinds``: the node-kinds circuits;
 ``fused``: the CRT-NTT blind rotate at B <= 4 in one launch at the models'
-shapes, with its variant builds; ``wop``: the WoP vertical packing's
+shapes, with its variant builds; ``crt_scan``: the CRT-NTT blind rotate of
+a batch in one launch at the batch shapes its rule takes, timed against
+the three-kernel loop; ``wop``: the WoP vertical packing's
 kernel entries and PrivateInformationRetrieval at 32 and 64 rows
 served; ``bigint``: 16-bit radix addition at B=512 and a radix_mul,
 radix_lt and radix_eq circuit; ``tfhers``: a TFHE-rs FheUint8 bincode round
@@ -58,6 +61,12 @@ def fused_phase(rng):
     return rec
 
 
+def crt_scan_phase(rng):
+    """chip_smoke.py's crt_scan_phase, with the card's clock and the
+    probes' instruction mix for the bounds."""
+    return cs.crt_scan_phase(rng, cs.sm_clock(), cs.sass_mix())
+
+
 def wop_phase(rng):
     """chip_smoke.py's checks of the WoP vertical packing's kernel entries,
     then its wop phase."""
@@ -69,7 +78,8 @@ def wop_phase(rng):
 PHASES = {"keygen": cs.keygen_checks, "models": cs.models_phase,
           "multi": cs.multi_phase, "multi_wop": cs.multi_wop_phase,
           "module": cs.module_phase, "kinds": cs.kinds_phase,
-          "fused": fused_phase, "wop": wop_phase,
+          "fused": fused_phase, "crt_scan": crt_scan_phase,
+          "wop": wop_phase,
           "bigint": cs.bigint_phase, "tfhers": cs.tfhers_phase,
           "scheduler": cs.scheduler_phase, "cli": cs.cli_phase,
           "parallel": cs.parallel_phase}
